@@ -1,5 +1,5 @@
-"""GPU smoke run of the PyTorch port: build, check and time its CUDA kernel,
-then serve full-width PMR scoring through it.
+"""GPU smoke run of the PyTorch port: build, check and time its three CUDA
+kernels, serve full-width PMR scoring, and train the PMR step at full width.
 
     python3 chip_smoke.py
 
@@ -7,7 +7,8 @@ Needs one CUDA card; exits non-zero (printing no result) without one, when
 the port is not beside this script, or when any phase fails.  Phases:
 
 1. device: card name, power limit, TF32 off;
-2. build: ``nvcc`` builds ``csrc/spec_attention.cu`` from this checkout;
+2. build: ``nvcc`` builds ``csrc/{spec_attention,fused_attention,flash_bwd}.cu``
+   from this checkout, one process per source, all started together;
 3. kernel vs plain: the stage-mask kernel against its plain PyTorch version
    at the five ModCR shapes of each served micro-batch (8 and 32), fp32
    (1e-4 abs) and bf16 (2e-2 abs), plus a fully masked row;
@@ -16,9 +17,30 @@ the port is not beside this script, or when any phase fails.  Phases:
    calls it), bf16 at the micro-batch-8 shapes, CUDA events, median of 25;
 5. end-to-end parity: full-width fp32 ``ModCRConfig()`` scoring one example
    on the card (kernel) and on the CPU (plain version), same weights;
-6. serving (the main path): full-width bf16 ``ModCRScorer`` at micro-batch 8
-   and 32; every forward must launch the kernel exactly 60 times;
-7. the ``kernels`` JSON line, then the result line.
+6. serving: full-width bf16 ``ModCRScorer`` at micro-batch 8 and 32; every
+   forward must launch the stage-mask kernel exactly 60 times;
+7. training kernels vs plain, at the RoBERTa training shape (128 rows,
+   Lq 128, Lk 138, 16 heads, Dh 64), fp32 and bf16, ragged padding: the
+   dense-bias forward (tolerances as phase 3); the backward's dq, dk, dv and
+   dbias plane with a random dO (1e-4 of each output's max |plain| in fp32:
+   atomics and summation order; 2e-2 in bf16: P and dS are rounded before
+   their products); the stage-mask Function's gradients against autograd of
+   its plain version in the full stage at that shape and in the chunk stage
+   at (32, 190, 190, 12, 64); a fully masked row;
+8. training kernel timing, bf16 at that shape: kernel, plain version and
+   SDPA with the float bias as ``attn_mask`` (forward) or SDPA's backward
+   through autograd (backward), CUDA events, median of 25;
+9. training parity: full-width fp32 ``ModCRConfig()`` with dropout 0, one
+   example (4 rows), two ``train_step``s on the card (kernels) and on the CPU
+   (plain versions) from one state dict, ``remat=False`` (the stage-mask
+   forward and the backward kernel): losses and gradient norms to 1e-4
+   relative;
+10. training (the slice's main path): the production geometry in bf16 with
+    dropout 0, RoBERTa remat "full", 32 examples (128 rows) per step, 8 steps
+    through ``Trainer.fit`` with validation every 4 steps and a best-accuracy
+    checkpoint in a temporary directory; every train step launches exactly
+    36 stage-mask, 48 dense-forward and 24 backward kernels;
+11. the ``kernels`` JSON line, then the result line.
 """
 
 from __future__ import annotations
@@ -26,10 +48,13 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -37,9 +62,16 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no TF32
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # of each output's max |plain|
 LAUNCHES_PER_FORWARD = 60
 MICRO_BATCHES = (8, 32)
 SEED = 0
+KERNELS = ("spec_attention", "fused_attention", "flash_bwd")
+# per train step of the slice: frozen encoders 12 + 12 + 12 stage-mask
+# launches; RoBERTa 24 dense forwards, 24 remat recomputes and 24 backwards
+STEP_LAUNCHES = {"spec_attention": 36, "fused_attention": 48, "flash_bwd": 24}
+TRAIN_SHAPE = dict(B=128, lq=128, prefix=10, H=16, dh=64)
+TRAIN_EXAMPLES, TRAIN_STEPS, VALID_STEPS = 32, 8, 4
 
 
 def check(ok: bool, what: str) -> None:
@@ -167,6 +199,313 @@ def sdpa_call(q, k, v, valid, gi, rowfull, case):
         qt, kt, vt, attn_mask=mask)
 
 
+# ---------------------------------------------------------------- training
+
+def wrappers():
+    """Each kernel's wrapper, by kernel name: their ``launches`` counters."""
+    from multimodal_context_reasoning_torch.ops.flash import flash_attention_bwd
+    from multimodal_context_reasoning_torch.ops.fused_attention import fused_attention
+    from multimodal_context_reasoning_torch.ops.spec_attention import fused_attention_spec
+
+    return {"spec_attention": fused_attention_spec, "fused_attention": fused_attention,
+            "flash_bwd": flash_attention_bwd}
+
+
+def reset_counts() -> None:
+    for w in wrappers().values():
+        w.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: w.launches for name, w in wrappers().items()}
+
+
+def dense_case(rng, B, lq, prefix, H, dh):
+    """q, k, v, a random dO and the validity of RoBERTa's prefixed KV stream
+    (the prefix slots always valid, 20 to Lq real tokens) at a training shape."""
+    lk = prefix + lq
+    valid = np.zeros((B, lk), np.float32)
+    valid[:, :prefix] = 1.0
+    for b, n in enumerate(rng.integers(20, lq + 1, B)):
+        valid[b, prefix:prefix + n] = 1.0
+    normal = lambda *shape: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+    return dict(q=normal(B, lq, H, dh), k=normal(B, lk, H, dh), v=normal(B, lk, H, dh),
+                d_out=normal(B, lq, H, dh), valid=torch.from_numpy(valid))
+
+
+def errors(got, want):
+    """(max |got - want|, that over max |want|)."""
+    err = (got.float() - want.float()).abs().max().item()
+    return err, err / max(want.float().abs().max().item(), 1e-30)
+
+
+def spec_grad_errors(q, k, v, vecs, d_out, **kw):
+    """The stage-mask Function's q, k, v gradients (kernel forward, backward
+    kernel) against autograd of its plain version: worst (abs, rel)."""
+    from multimodal_context_reasoning_torch.ops.spec_attention import (
+        fused_attention_spec,
+        spec_attention_plain,
+    )
+
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    fused_attention_spec(*leaves, *vecs, **kw).backward(d_out)
+    ref = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    spec_attention_plain(*ref, *vecs, **kw).backward(d_out)
+    torch.cuda.synchronize()
+    errs = [errors(a.grad, b.grad) for a, b in zip(leaves, ref)]
+    check(all(torch.isfinite(a.grad).all().item() for a in leaves), "non-finite spec grads")
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def check_training_kernels(rng) -> dict:
+    """Phase 7; returns the worst absolute error of each kernel."""
+    from multimodal_context_reasoning_torch.ops.flash import (
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+    )
+    from multimodal_context_reasoning_torch.ops.fused_attention import (
+        fused_attention,
+        fused_attention_plain,
+    )
+    from multimodal_context_reasoning_torch.ops.masks import full_mask_spec, padding_bias
+
+    worst = {"fused_attention": 0.0, "flash_bwd": 0.0, "spec_attention": 0.0}
+    case = dense_case(rng, **TRAIN_SHAPE)
+    masked = dense_case(rng, 4, 30, 10, 4, 64)
+    masked["valid"][1] = 0.0                  # a batch row with no visible key
+    chunk = attention_case(rng, "chunk L=190", 32, 140, 50, 12, "chunk")
+    for name, c in (("roberta (128, 128, 138, 16, 64)", case),
+                    ("fully masked row", masked)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, d_out = (c[n].to("cuda", dtype) for n in ("q", "k", "v", "d_out"))
+            valid = c["valid"].cuda()
+            bias = padding_bias(valid)
+            got = fused_attention(q, k, v, bias)
+            torch.cuda.synchronize()
+            f_err, _ = errors(got, fused_attention_plain(q, k, v, bias))
+            check(torch.isfinite(got).all().item() and f_err <= TOL[dtype],
+                  f"dense forward {name} {dtype}: {f_err}")
+            worst["fused_attention"] = max(worst["fused_attention"], f_err)
+            got = flash_attention_bwd(q, k, v, bias, d_out, want_dbias=True)
+            torch.cuda.synchronize()
+            want = flash_attention_bwd_plain(q, k, v, bias, d_out)
+            line = []
+            for out, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+                err, rel = errors(g, w)
+                check(torch.isfinite(g).all().item() and rel <= BWD_TOL[dtype],
+                      f"backward {out} {name} {dtype}: rel {rel}")
+                worst["flash_bwd"] = max(worst["flash_bwd"], err)
+                line.append(f"{out} {err:.2e} ({rel:.1e} rel)")
+            spec = full_mask_spec(valid, q.shape[1])
+            s_err, s_rel = spec_grad_errors(q, k, v, (spec.valid, spec.gi, spec.rowfull),
+                                            d_out, stage="full", text_len=q.shape[1])
+            check(s_rel <= BWD_TOL[dtype], f"spec grads full {name} {dtype}: rel {s_rel}")
+            worst["spec_attention"] = max(worst["spec_attention"], s_err)
+            print(f"[7 train check] {name:32s} {str(dtype):15s} forward {f_err:.2e} | "
+                  "backward " + " | ".join(line)
+                  + f" | spec-Function grads {s_err:.2e} ({s_rel:.1e} rel)")
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, *vecs = cuda_args(chunk, dtype)
+        d_out = torch.randn(q.shape, device="cuda", dtype=dtype,
+                            generator=torch.Generator("cuda").manual_seed(SEED))
+        s_err, s_rel = spec_grad_errors(q, k, v, vecs, d_out, stage="chunk",
+                                        text_len=chunk["text_len"])
+        check(s_rel <= BWD_TOL[dtype], f"spec grads chunk {dtype}: rel {s_rel}")
+        worst["spec_attention"] = max(worst["spec_attention"], s_err)
+        print(f"[7 train check] {'chunk (32, 190, 190, 12, 64)':32s} {str(dtype):15s} "
+              f"spec-Function grads {s_err:.2e} ({s_rel:.1e} rel)")
+    print(f"[7 train check] worst |kernel - plain|: {worst} (forward tol {TOL}, "
+          f"backward tol of max |plain| {BWD_TOL})")
+    return worst
+
+
+def train_bound(case, dtype, kind: str):
+    """Least time: bytes (each input read once, each output written once)
+    over HBM rate vs FLOPs over the dtype's peak.  Forward: q, k, v, bias
+    in, out out; 2 products.  Backward: q, k, v, dO, bias in, dq, dk, dv out
+    (no dbias plane, as the model calls it); 5 products."""
+    B, lq, H, dh = case["q"].shape
+    lk = case["k"].shape[1]
+    elt = torch.finfo(dtype).bits // 8
+    qn, kn = B * lq * H * dh, B * lk * H * dh
+    if kind == "forward":
+        nbytes, flops = elt * (2 * qn + 2 * kn) + 4 * B * lk, 4.0 * B * H * lq * lk * dh
+    else:
+        nbytes, flops = elt * (3 * qn + 4 * kn) + 4 * B * lk, 10.0 * B * H * lq * lk * dh
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_training_kernels(rng) -> dict:
+    """Phase 8: bf16 at the training shape; returns the kernels-line numbers."""
+    from multimodal_context_reasoning_torch.ops.flash import (
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+    )
+    from multimodal_context_reasoning_torch.ops.fused_attention import (
+        fused_attention,
+        fused_attention_plain,
+    )
+    from multimodal_context_reasoning_torch.ops.masks import padding_bias
+
+    dt = torch.bfloat16
+    case = dense_case(rng, **TRAIN_SHAPE)
+    q, k, v, d_out = (case[n].to("cuda", dt) for n in ("q", "k", "v", "d_out"))
+    bias = padding_bias(case["valid"].cuda())
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = bias.to(dt)
+    q4, k4, v4 = (t.transpose(1, 2) for t in (q, k, v))
+    qt, kt, vt = (t.detach().requires_grad_() for t in (q4, k4, v4))
+    out_t = sdpa(qt, kt, vt, attn_mask=mask)
+    d_out_t = d_out.transpose(1, 2)
+    rows = {}
+    for name, kind, kernel, plain, library in (
+        ("fused_attention", "forward", lambda: fused_attention(q, k, v, bias),
+         lambda: fused_attention_plain(q, k, v, bias),
+         lambda: sdpa(q4, k4, v4, attn_mask=mask)),
+        ("flash_bwd", "backward",
+         lambda: flash_attention_bwd(q, k, v, bias, d_out, want_dbias=False),
+         lambda: flash_attention_bwd_plain(q, k, v, bias, d_out),
+         lambda: torch.autograd.grad(out_t, (qt, kt, vt), d_out_t, retain_graph=True)),
+    ):
+        ms, plain_ms, lib_ms = median_ms(kernel), median_ms(plain), median_ms(library)
+        b_ms, b_by = train_bound(case, dt, kind)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                          bound_by=b_by)
+        print(f"[8 train time] {name:16s} bf16 (128, 128, 138, 16, 64): kernel {ms:.4f} ms | "
+              f"plain {plain_ms:.4f} ms | sdpa {lib_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by})")
+    dbias_ms = median_ms(lambda: flash_attention_bwd(q, k, v, bias, d_out, want_dbias=True))
+    print(f"[8 train time] flash_bwd with the dbias plane (not on the model's path): "
+          f"{dbias_ms:.4f} ms")
+    return rows
+
+
+def training_parity(rng) -> dict:
+    """Phase 9: two fp32 train steps, card against CPU, remat off."""
+    from multimodal_context_reasoning_torch.core.config import TrainConfig, pmr_training_config
+    from multimodal_context_reasoning_torch.models.modcr import ModCRModel
+    from multimodal_context_reasoning_torch.serving.synthetic import synthetic_dataset
+    from multimodal_context_reasoning_torch.train.state import TrainState
+    from multimodal_context_reasoning_torch.train.step import train_step
+
+    cfg = pmr_training_config(dtype="float32", remat=False)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    model = ModCRModel(cfg, device="cuda", generator=gen)
+    cpu_model = ModCRModel(cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    batch = synthetic_dataset(rng, 1, cfg).batch([0])
+    runs = {}
+    for dev, m in (("cuda", model), ("cpu", cpu_model)):
+        state = TrainState.create(m, TrainConfig(), total_steps=10)
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = [train_step(state, tb) for _ in range(2)]
+        runs[dev] = dict(loss=[float(x["loss"]) for x in metrics],
+                         grad_norm=[float(x["grad_norm"]) for x in metrics],
+                         seconds=time.perf_counter() - t0, launches=read_counts())
+        del state
+    rel = max(abs(a - b) / abs(b) for key in ("loss", "grad_norm")
+              for a, b in zip(runs["cuda"][key], runs["cpu"][key]))
+    print(f"[9 train parity] full-width fp32, 1 example (4 rows), 2 steps, remat off: "
+          f"cuda loss {runs['cuda']['loss']} grad_norm {runs['cuda']['grad_norm']} | "
+          f"cpu loss {runs['cpu']['loss']} grad_norm {runs['cpu']['grad_norm']} | "
+          f"max rel diff {rel:.3e} (tol 1e-4) | card launches {runs['cuda']['launches']} | "
+          f"cpu {runs['cpu']['seconds']:.1f} s")
+    check(all(np.isfinite(runs["cuda"][k]).all() for k in ("loss", "grad_norm")),
+          "non-finite fp32 training metrics")
+    check(rel <= 1e-4, f"training parity: rel diff {rel}")
+    check(runs["cuda"]["launches"]["flash_bwd"] == 2 * 24
+          and runs["cuda"]["launches"]["spec_attention"] == 2 * 60,
+          f"fp32 remat-off launches {runs['cuda']['launches']}")
+    return dict(max_rel_diff=rel, cuda=runs["cuda"], cpu=runs["cpu"])
+
+
+def train_slice(rng) -> dict:
+    """Phase 10, the slice's main path: Trainer.fit at full width."""
+    from multimodal_context_reasoning_torch.core.config import TrainConfig, pmr_training_config
+    from multimodal_context_reasoning_torch.data.loader import DataLoader
+    from multimodal_context_reasoning_torch.models.modcr import ModCRModel
+    from multimodal_context_reasoning_torch.serving.synthetic import synthetic_dataset
+    from multimodal_context_reasoning_torch.train.trainer import Trainer
+
+    cfg = pmr_training_config()
+    model = ModCRModel(cfg, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(SEED + 2))
+    train_ds = synthetic_dataset(rng, TRAIN_EXAMPLES * TRAIN_STEPS, cfg, first=10_000)
+    val_ds = synthetic_dataset(rng, 2 * TRAIN_EXAMPLES, cfg, first=20_000)
+    tcfg = TrainConfig(per_device_batch_size=TRAIN_EXAMPLES, max_steps=TRAIN_STEPS,
+                       valid_steps=VALID_STEPS, epoch_begin=1, seed=SEED)
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters() if "_enc." in n}
+    ckpt_dir = tempfile.mkdtemp(prefix="modcr_ckpt_")
+    trainer = Trainer(model, tcfg, DataLoader(train_ds, TRAIN_EXAMPLES, shuffle=True, seed=SEED),
+                      DataLoader(val_ds, TRAIN_EXAMPLES), checkpoint_dir=ckpt_dir,
+                      checkpoint_params_only=True)
+    trainer.best_acc = -1.0   # the first validation saves a checkpoint
+    steps, evals, saves = [], [], []
+
+    def counted(fn, log):
+        def run(*args):
+            before = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            after = read_counts()
+            log.append(dict(seconds=time.perf_counter() - t0, out=out,
+                            launches={k: after[k] - before[k] for k in after}))
+            return out
+        return run
+
+    trainer.train_step = counted(trainer.train_step, steps)
+    trainer.eval_step = counted(trainer.eval_step, evals)
+    trainer.ckpt.save = counted(trainer.ckpt.save, saves)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    state = trainer.fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    saved = trainer.ckpt.all_steps()
+    shutil.rmtree(ckpt_dir)
+
+    losses = [float(s["out"]["loss"]) for s in steps]
+    check(len(steps) == TRAIN_STEPS and state.step == TRAIN_STEPS,
+          f"{len(steps)} train steps, state at {state.step}")
+    check(np.isfinite(losses).all(), f"non-finite losses {losses}")
+    for i, s in enumerate(steps):
+        check(s["launches"] == STEP_LAUNCHES, f"step {i}: launches {s['launches']}")
+    check(all(p.dtype == torch.float32 for p in model.parameters()), "parameters left fp32")
+    check(all(torch.equal(p, frozen[n]) for n, p in model.named_parameters() if n in frozen),
+          "a frozen encoder weight changed")
+    check(bool(saved) and len(trainer.history) == TRAIN_STEPS // VALID_STEPS,
+          f"checkpoints {saved}, validations {trainer.history}")
+    check(all(launches[k] > 0 for k in KERNELS), f"main-path launches {launches}")
+    step_ms = [1e3 * s["seconds"] for s in steps]
+    steady = statistics.median(step_ms[1:])
+    val_launches = {k: sum(e["launches"][k] for e in evals) for k in KERNELS}
+    print(f"[10 train] bf16 production geometry, remat full, dropout 0, "
+          f"{TRAIN_EXAMPLES} examples ({4 * TRAIN_EXAMPLES} rows) per step: losses "
+          f"{np.round(losses, 4).tolist()}")
+    print(f"[10 train] ms per step {np.round(step_ms, 2).tolist()} -> steady (median of "
+          f"steps 2-{TRAIN_STEPS}) {steady:.2f} ms = {TRAIN_EXAMPLES / steady * 1e3:.2f} "
+          f"examples/s | fit wall {wall:.2f} s (validation, checkpoint and data included) "
+          f"| peak {peak:.2f} GiB")
+    print(f"[10 train] launches per train step {steps[0]['launches']} (all {TRAIN_STEPS} "
+          f"equal), {len(evals)} validation forwards launched {val_launches} | validation "
+          f"{[round(h['val_acc'], 4) for h in trainer.history]} | checkpoints "
+          f"{[round(s['seconds'], 2) for s in saves]} s, kept steps {saved} | all of fit "
+          f"{launches}")
+    return dict(launches=launches, steady_ms_per_step=steady,
+                examples_per_s=TRAIN_EXAMPLES / steady * 1e3, peak_gib=peak,
+                ms_per_step=step_ms, losses=losses, fit_seconds=wall,
+                validation_launches=val_launches,
+                checkpoint_seconds=[s["seconds"] for s in saves])
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
@@ -196,12 +535,14 @@ def main() -> int:
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     print(card)
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    _, log, build_s = load_library("spec_attention")
-    ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-    print(f"[2 build] spec_attention.cu: nvcc {build_s:.2f} s, loaded in "
-          f"{time.perf_counter() - t0:.2f} s | " + " ; ".join(ptxas))
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        built = dict(zip(KERNELS, pool.map(load_library, KERNELS)))
+    for name, (_, log, build_s) in built.items():
+        ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        print(f"[2 build] {name}.cu: nvcc {build_s:.2f} s | " + " ; ".join(ptxas))
+    print(f"[2 build] all {len(KERNELS)} built and loaded in {time.perf_counter() - t0:.2f} s")
 
     # 3. kernel vs plain, at the shapes of both served micro-batches
     rng = np.random.default_rng(SEED)
@@ -289,7 +630,7 @@ def main() -> int:
     model16.load_state_dict(model.state_dict())
     del model
     torch.cuda.empty_cache()
-    fused_attention_spec.launches = 0
+    reset_counts()
     forwards = 0
     serving = {}
     for mb, n_chunks in zip(MICRO_BATCHES, (8, 4)):
@@ -317,26 +658,46 @@ def main() -> int:
               f"{len(rows)} examples in {wall:.3f} s = {len(rows) / wall:.2f} ex/s, "
               f"{1e3 * wall / n_chunks:.2f} ms per micro-batch, peak {peak:.2f} GiB "
               f"(host featurize included)")
-    launches = fused_attention_spec.launches
-    print(f"[6 serve] {forwards} forwards, spec_attention launches {launches} "
-          f"(= {LAUNCHES_PER_FORWARD} x {forwards})")
-    check(launches == LAUNCHES_PER_FORWARD * forwards, "launch count on the main path")
+    serve_counts = read_counts()
+    launches = serve_counts["spec_attention"]
+    print(f"[6 serve] {forwards} forwards, launches {serve_counts} "
+          f"(spec_attention = {LAUNCHES_PER_FORWARD} x {forwards})")
+    check(launches == LAUNCHES_PER_FORWARD * forwards, "launch count on the serving path")
     bf16_logits = np.asarray(ModCRScorer(
         cfg16, model16, bert, rob, parity_feats, micro_batch=1, device="cuda",
     ).score(parity_reqs)[0]["logits"])
     print(f"[6 serve] phase-5 request in bf16: {np.round(bf16_logits, 5).tolist()}, "
           f"max|bf16-fp32| {np.abs(bf16_logits - g).max():.3e} (not a check)")
+    del model16, scorer
+    torch.cuda.empty_cache()
 
-    # 7. kernels line, then the result line
+    # 7-8. the training kernels against their plain versions, then timed
+    train_err = check_training_kernels(rng)
+    train_times = time_training_kernels(rng)
+    torch.cuda.empty_cache()
+
+    # 9. training parity, card against CPU
+    parity = training_parity(rng)
+    torch.cuda.empty_cache()
+
+    # 10. training, the slice's main path
+    train = train_slice(rng)
+
+    # 11. kernels line, then the result line
     print(card)
-    print(json.dumps({"serving": serving, "e2e_fp32_max_abs_diff": e2e_err}))
+    print(json.dumps({"serving": serving, "e2e_fp32_max_abs_diff": e2e_err,
+                      "train_parity_max_rel_diff": parity["max_rel_diff"],
+                      "training": {k: v for k, v in train.items() if k != "launches"}}))
+    main_path = train["launches"]
+    shape = "bf16 (128, 128, 138, 16, 64), one launch, as one RoBERTa layer of the slice"
     print(json.dumps({"kernels": [{
         "name": "spec_attention",
         "route": "cuda",
         "source": "multimodal_context_reasoning_torch/csrc/spec_attention.cu",
         "replaces": "multimodal_context_reasoning_tpu/ops/pallas_attention.py:187",
-        "launches": launches,
-        "max_abs_err": max_err,
+        "launches": main_path["spec_attention"],
+        "serving_launches": launches,
+        "max_abs_err": max(max_err, train_err["spec_attention"]),
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],
         "bound_ms": totals["bound_ms"],
@@ -344,6 +705,24 @@ def main() -> int:
         "library_ms": totals["library_ms"],
         "timed_as": "sum over one micro-batch-8 forward's 60 launches, bf16",
         "shapes": per_shape,
+    }, {
+        "name": "fused_attention",
+        "route": "cuda",
+        "source": "multimodal_context_reasoning_torch/csrc/fused_attention.cu",
+        "replaces": "multimodal_context_reasoning_tpu/ops/pallas_attention.py:73",
+        "launches": main_path["fused_attention"],
+        "max_abs_err": train_err["fused_attention"],
+        **train_times["fused_attention"],
+        "timed_as": shape,
+    }, {
+        "name": "flash_bwd",
+        "route": "cuda",
+        "source": "multimodal_context_reasoning_torch/csrc/flash_bwd.cu",
+        "replaces": "multimodal_context_reasoning_tpu/ops/flash.py:190",
+        "launches": main_path["flash_bwd"],
+        "max_abs_err": train_err["flash_bwd"],
+        **train_times["flash_bwd"],
+        "timed_as": shape + ", no dbias plane",
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

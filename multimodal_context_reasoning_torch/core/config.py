@@ -1,24 +1,30 @@
 """Configuration dataclasses of the PyTorch port.
 
 A copy of the JAX package's ``core/config.py`` (``EncoderConfig``,
-``ChunkAlignConfig``, ``RobertaConfig``, ``ModCRConfig``): every field is
-kept with its default, so a config written by ``to_json`` on either side
-loads on the other.  ``torch_dtype`` replaces ``jnp_dtype``.
+``ChunkAlignConfig``, ``RobertaConfig``, ``ModCRConfig``, ``TrainConfig``):
+every field is kept with its default, so a config written by ``to_json`` on
+either side loads on the other.  ``torch_dtype`` replaces ``jnp_dtype``.
 
 Fields that steer the JAX program only are kept for that round trip and
 have no effect here:
 
-- ``use_pallas``: on a CUDA tensor the port always takes its hand-written
-  stage-mask attention kernel (ops/spec_attention.py) wherever a layer has a
-  mask spec and needs neither probabilities nor dropout;
-- ``quantize``, ``mem_efficient_attention``, ``scan_layers``, ``remat`` and
-  ``remat_policy``: training and int8 paths that later slices port.
+- ``use_pallas`` and ``mem_efficient_attention``: on a CUDA tensor the port
+  always takes its hand-written kernels wherever attention needs neither
+  probabilities nor dropout, the stage-mask attention with a mask spec and
+  the dense-bias attention without one, each with the backward kernel
+  (models/layers.py);
+- ``quantize``: the int8 path, which a later slice ports;
+- ``TrainConfig.mesh_shape``: the port trains on one device so far.
+
+``RobertaConfig.remat``, ``remat_policy`` and ``scan_layers`` choose the
+reasoner's branch as in the JAX package (models/roberta.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+from typing import Tuple
 
 import torch
 
@@ -107,6 +113,7 @@ class RobertaConfig:
     use_pallas: bool = False
     quantize: str = "none"
     mem_efficient_attention: bool = False
+    # The reasoner's branch (models/roberta.py).
     scan_layers: bool = False
     remat: bool = False
     remat_policy: str = "full"
@@ -198,3 +205,56 @@ class ModCRConfig:
             global_encoder=enc, seq_encoder=enc, roberta=rob, chunkalign=sched,
             text_len=16, img_len=8, roberta_len=20, max_chunks=8,
         )
+
+
+def pmr_training_config(*, dtype: str = "bfloat16", remat: bool = True) -> ModCRConfig:
+    """The full-width PMR training geometry of the JAX package's
+    ``scripts/train_real_pmr.py`` (its production branch: no alignment
+    loss, RoBERTa remat "full") with every dropout at 0, the recipe of its
+    real-data runs.  ``mem_efficient_attention`` is on, as ``--flash_attention``
+    sets it, only so that the config matches the JAX one in a JSON round trip:
+    the port takes the same attention path either way."""
+    cfg = ModCRConfig(compute_alignment=False).with_dtype(dtype)
+    drop = lambda c: dataclasses.replace(c, hidden_dropout_prob=0.0,
+                                         attention_probs_dropout_prob=0.0)
+    return dataclasses.replace(
+        cfg, global_encoder=drop(cfg.global_encoder), seq_encoder=drop(cfg.seq_encoder),
+        roberta=dataclasses.replace(drop(cfg.roberta), remat=remat,
+                                    mem_efficient_attention=True),
+        mapping_dropout=0.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters (reference: run_PMR_ModCR.py argparse
+    defaults), field for field the JAX package's."""
+
+    learning_rate: float = 1e-5       # :612
+    seq_enc_lr_scale: float = 0.1     # seq_enc param group lr*0.1 (:127-135)
+    weight_decay: float = 0.0         # parsed (0.05) but never passed to AdamW
+    adam_epsilon: float = 1e-5        # :614
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    max_grad_norm: float = 1.0        # :615
+    warmup_steps: int = 0             # :616
+    scheduler: str = "linear"         # :617 ("constant" or "linear")
+    num_train_epochs: int = 30        # :619
+    max_steps: int = -1               # :621
+    per_device_batch_size: int = 16   # :602 (examples; x4 candidates inside)
+    gradient_accumulation_steps: int = 1  # :610
+    seed: int = 88                    # :629
+    valid_steps: int = 400            # :672
+    epoch_begin: int = 2              # :671
+    compute_dtype: str = "bfloat16"   # matmul/activation dtype; params stay fp32
+    mesh_shape: Tuple[int, ...] = (1, 1)  # (data, model): no effect in the port yet
+    freeze_encoders: bool = True      # global + seq encoders run under no_grad
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @classmethod
+    def from_json(cls, text: str) -> "TrainConfig":
+        raw = json.loads(text)
+        if "mesh_shape" in raw:
+            raw["mesh_shape"] = tuple(raw["mesh_shape"])
+        return cls(**raw)

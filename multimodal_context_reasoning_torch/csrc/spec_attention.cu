@@ -33,10 +33,9 @@
 // Plain C interface, loaded with ctypes (multimodal_context_reasoning_torch/
 // ops/spec_attention.py).  The launcher returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
 #include <cstdint>
+
+#include "common.cuh"
 
 namespace {
 
@@ -46,40 +45,11 @@ constexpr int kRowsPerBlock = 64;  // query rows served by one K/V staging
 
 enum Stage { kFull = 0, kChunk = 1, kCross = 2 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Shared-memory row stride of K and V in elements: one extra 32-bit word per
-// row, so lanes that read different keys at the same d hit different banks.
-template <typename T>
-__host__ __device__ constexpr int row_pad() { return 4 / sizeof(T); }
-
 template <typename T>
 size_t smem_bytes(int lk, int dh) {
   const size_t kv = 2ull * lk * (dh + row_pad<T>()) * sizeof(T);
   return kv + sizeof(float) * (size_t(kWarps) * lk + size_t(kWarps) * dh + lk) +
          sizeof(int) * size_t(lk);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
 }
 
 template <typename T>
@@ -185,28 +155,6 @@ spec_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// Opt the kernel in to `smem` bytes of dynamic shared memory on the current
-// device, once: the size is set again only when a launch needs more.  A size
-// beyond the card's per-block limit fails here; the error is cleared so that
-// it is not reported again by a later launch's cudaGetLastError().
-template <typename T>
-cudaError_t reserve_smem(size_t smem) {
-  constexpr int kMaxDevices = 64;
-  static size_t reserved[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices && smem <= reserved[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(spec_attention_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    return err;
-  }
-  if (dev < kMaxDevices) reserved[dev] = smem;
-  return cudaSuccess;
-}
-
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const float* valid,
            const int* gi, const float* rowfull, void* out, int b, int lq, int lk,
@@ -214,7 +162,7 @@ int launch(const void* q, const void* k, const void* v, const float* valid,
            int64_t ski, int64_t skh, int64_t svb, int64_t svi, int64_t svh,
            int stage, int text_len, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(lk, dh);
-  const cudaError_t err = reserve_smem<T>(smem);
+  const cudaError_t err = reserve_smem<spec_attention_kernel<T>>(smem);
   if (err != cudaSuccess) return int(err);
   const dim3 grid((lq + kRowsPerBlock - 1) / kRowsPerBlock, h, b);
   spec_attention_kernel<T><<<grid, kThreads, smem, stream>>>(

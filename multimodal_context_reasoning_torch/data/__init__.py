@@ -1,2 +1,3 @@
 """Host-side numpy data layer of the PyTorch port (copies of the JAX
-package's featurizer, tokenizers, chunker and collate)."""
+package's PMR loader and featurizer, tokenizers, chunker, collate and batch
+iterator)."""

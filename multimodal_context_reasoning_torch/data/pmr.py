@@ -1,20 +1,24 @@
-"""PMR request featurization (the featurizer of the JAX package's
-``data/pmr.py``; its JSONL loader, training cache and batching are left
-out).
+"""PMR dataset pipeline (a copy of the JAX package's ``data/pmr.py``
+without its device-table mode).
 
-Rebuilds the per-candidate featurization of
-``PMR_ChunkAlign_Dataset_align_ensemble_T`` (Data/VCRChunkAlign.py:615-687)
-as host-side numpy.
+Rebuilds ``PMR_ChunkAlign_Dataset_align_ensemble_T``
+(Data/VCRChunkAlign.py:529-688) as a host-side numpy featurizer:
+:func:`load_pmr_jsonl` reads the raw ``pmr_data/*.jsonl`` schema,
+:class:`PMRDataset` featurizes an example into its candidate rows (cached
+per index, LRU-bounded) and collates index lists into fixed-shape batches.
 """
 
 from __future__ import annotations
 
+import json
+import threading
+from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
 from multimodal_context_reasoning_torch.data.chunker import HeuristicChunker
-from multimodal_context_reasoning_torch.data.collate import BatchSpec
+from multimodal_context_reasoning_torch.data.collate import BatchSpec, collate_candidates
 from multimodal_context_reasoning_torch.data.schemas import (
     CandidateFeatures,
     ImageFeatures,
@@ -31,8 +35,45 @@ PROMPT_TEXT = (
 ANSWER_PREFIX = "Answer is "
 
 
+def detokenize_with_dets(tokens: Sequence, objects: Sequence[str]) -> str:
+    """Raw PMR token list (strings + [obj_idx] lists) → flat string with
+    inline ``<|det#|>`` region tokens."""
+    parts: List[str] = []
+    for tok in tokens:
+        if isinstance(tok, list):
+            refs = [f"{objects[i] if i < len(objects) else 'object'} <|det{i}|>"
+                    for i in tok]
+            parts.append(" and ".join(refs))
+        else:
+            parts.append(str(tok))
+    return " ".join(parts)
+
+
+def load_pmr_jsonl(path: str, limit: Optional[int] = None) -> List[RawExample]:
+    """Parse pmr_data/{train,val,test}-ori.jsonl into RawExamples."""
+    out: List[RawExample] = []
+    with open(path) as f:
+        for i, line in enumerate(f):
+            if limit is not None and i >= limit:
+                break
+            d = json.loads(line)
+            objects = d.get("objects", [])
+            out.append(RawExample(
+                example_id=str(d.get("total_id", d.get("annot_id", i))),
+                img_id=str(d.get("img_id", d.get("img_fn", i))),
+                premise=detokenize_with_dets(d["premise"], objects),
+                answer_choices=[
+                    detokenize_with_dets(a, objects) for a in d["answer_choices"]
+                ],
+                answer_label=d.get("answer_label"),
+                answer_types=d.get("answer_types"),
+                objects=list(objects),
+            ))
+    return out
+
+
 class PMRDataset:
-    """Featurizes RawExamples into candidate feature rows."""
+    """Featurizes RawExamples into fixed-shape candidate batches."""
 
     def __init__(
         self,
@@ -43,6 +84,7 @@ class PMRDataset:
         spec: Optional[BatchSpec] = None,
         chunker: Optional[HeuristicChunker] = None,
         max_chunks: int = 40,
+        feat_cache_size: Optional[int] = 65536,
     ):
         self.examples = list(examples)
         self.image_features = image_features
@@ -51,6 +93,11 @@ class PMRDataset:
         self.spec = spec or BatchSpec()
         self.chunker = chunker or HeuristicChunker()
         self.max_chunks = max_chunks
+        # LRU-bounded featurization cache: None = unbounded, 0 = disabled.
+        # The lock makes hit/evict safe under the loader's producer thread.
+        self.feat_cache_size = feat_cache_size
+        self._feat_cache: "OrderedDict[int, List[CandidateFeatures]]" = OrderedDict()
+        self._feat_cache_lock = threading.Lock()
 
     def __len__(self) -> int:
         return len(self.examples)
@@ -127,3 +174,28 @@ class PMRDataset:
         # the reference keys features as "img-<num>" (Data/VCRChunkAlign.py:586-588)
         num = key.split("-")[-1]
         return self.image_features[f"img-{num}"]
+
+    def _featurize_cached(self, i: int) -> List[CandidateFeatures]:
+        """Featurization is deterministic, so per-index results are memoized
+        (LRU-bounded by ``feat_cache_size``): multi-epoch training
+        re-tokenizes nothing."""
+        if self.feat_cache_size == 0:
+            return self.featurize(self.examples[i])
+        with self._feat_cache_lock:
+            cached = self._feat_cache.get(i)
+            if cached is not None:
+                self._feat_cache.move_to_end(i)
+                return cached
+        cached = self.featurize(self.examples[i])  # slow path: outside lock
+        with self._feat_cache_lock:
+            self._feat_cache[i] = cached
+            if (self.feat_cache_size is not None
+                    and len(self._feat_cache) > self.feat_cache_size):
+                self._feat_cache.popitem(last=False)
+        return cached
+
+    def batch(self, indices: Sequence[int]) -> Dict[str, np.ndarray]:
+        """Collate the examples at ``indices`` into one candidate batch."""
+        cands = [self._featurize_cached(int(i)) for i in indices]
+        imgs = [self.get_image(self.examples[int(i)]) for i in indices]
+        return collate_candidates(cands, imgs, self.spec)

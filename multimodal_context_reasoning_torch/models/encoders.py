@@ -23,6 +23,7 @@ import torch.nn as nn
 from multimodal_context_reasoning_torch.core.config import ChunkAlignConfig, EncoderConfig
 from multimodal_context_reasoning_torch.models.layers import (
     BertEmbeddings,
+    LayerNorm,
     Linear,
     Pooler,
     TransformerLayer,
@@ -55,9 +56,10 @@ class ImageTextEmbeddings(nn.Module):
         super().__init__()
         self.config = c
         self.embeddings = BertEmbeddings(c)
-        self.img_embedding = Linear(c.img_feature_dim, c.hidden_size)
+        self.img_embedding = Linear(c.img_feature_dim, c.hidden_size, c.torch_dtype)
         if c.use_img_layernorm:
-            self.img_layer_norm = nn.LayerNorm(c.hidden_size, eps=c.img_layer_norm_eps)
+            self.img_layer_norm = LayerNorm(c.hidden_size, c.img_layer_norm_eps,
+                                            c.torch_dtype)
         self.img_dropout = nn.Dropout(c.hidden_dropout_prob)
 
     def embed(self, input_ids, img_feats, token_type_ids=None, position_ids=None):
@@ -81,7 +83,7 @@ class GlobalImageEncoder(ImageTextEmbeddings):
     def __init__(self, c: EncoderConfig):
         super().__init__(c)
         self.encoder = _layer_stack(c)
-        self.pooler = Pooler(c.hidden_size)
+        self.pooler = Pooler(c.hidden_size, c.torch_dtype)
 
     def forward(
         self,
@@ -113,7 +115,7 @@ class ChunkAlignEncoder(ImageTextEmbeddings):
     def __init__(self, c: EncoderConfig, schedule: ChunkAlignConfig):
         super().__init__(c)
         self.encoder = _layer_stack(c)
-        self.pooler = Pooler(c.hidden_size)
+        self.pooler = Pooler(c.hidden_size, c.torch_dtype)
         self.schedule = schedule
         # SeqBertImgModel builds an edge_dense embedding it never uses in
         # forward; kept as a checkpoint key.

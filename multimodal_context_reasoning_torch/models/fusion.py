@@ -17,7 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from multimodal_context_reasoning_torch.core.config import ChunkAlignConfig, EncoderConfig
-from multimodal_context_reasoning_torch.models.layers import FeedForward, Linear
+from multimodal_context_reasoning_torch.models.layers import FeedForward, LayerNorm, Linear
 from multimodal_context_reasoning_torch.ops.attention import dot_product_attention
 from multimodal_context_reasoning_torch.ops.masks import padding_bias
 
@@ -31,11 +31,11 @@ class ClsLayerLyx(FeedForward):
         super().__init__(c)
         self.config = c
         self.num_heads = num_heads
-        D = c.hidden_size
+        D, dt = c.hidden_size, c.torch_dtype
         self.cross_attention = nn.ModuleDict(
-            {name: Linear(D, D) for name in ("q_proj", "k_proj", "v_proj", "out_proj")}
+            {name: Linear(D, D, dt) for name in ("q_proj", "k_proj", "v_proj", "out_proj")}
         )
-        self.LayerNorm = nn.LayerNorm(D, eps=c.layer_norm_eps)
+        self.LayerNorm = LayerNorm(D, c.layer_norm_eps, dt)
         self.dropout = nn.Dropout(c.hidden_dropout_prob)
 
     def forward(
@@ -100,7 +100,7 @@ class ChunkAlignFusion(nn.Module):
     def __init__(self, c: EncoderConfig, schedule: ChunkAlignConfig):
         super().__init__()
         self.schedule = schedule
-        self.cls_ensemble_1 = Linear(2 * c.hidden_size, c.hidden_size)
+        self.cls_ensemble_1 = Linear(2 * c.hidden_size, c.hidden_size, c.torch_dtype)
         self.cls_layer_lyx = nn.ModuleList(
             ClsLayerLyx(c, schedule.cls_num_heads) for _ in range(schedule.cls_layer_num)
         )

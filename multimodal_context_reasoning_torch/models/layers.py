@@ -11,13 +11,18 @@ Numerics follow the JAX package, not the original PyTorch repo:
 
 - ``hidden_act="gelu"`` is flax's default gelu, the tanh form
   (``F.gelu(x, approximate="tanh")``);
-- a layer computes in the dtype of its weights (the scorer casts them to
-  the config's compute dtype once); ``nn.LayerNorm`` on bf16 accumulates
-  its statistics in fp32, as flax's does;
-- attention with a :class:`MaskSpec` that needs neither probabilities nor
-  dropout goes to ``fused_attention_spec`` (the CUDA kernel on a CUDA
-  tensor, its plain version on a CPU tensor); everything else goes to the
-  plain ``dot_product_attention`` with the dense -10000 bias.
+- parameters are fp32 and every :class:`Linear`, :class:`Embedding` and
+  :class:`LayerNorm` computes in its config's ``torch_dtype``, as flax's
+  ``Dense(dtype=bf16)`` does over fp32 params: the input and the weights are
+  cast to that dtype in the forward (a no-op for weights the scorer has
+  already cast), and LayerNorm normalises in fp32;
+- attention takes the JAX package's dispatch (layers.py:136-188) with
+  "use_pallas" read as "a CUDA tensor".  A call that needs neither
+  probabilities nor dropout goes to ``fused_attention_spec`` when it has a
+  :class:`MaskSpec`, and to the dense-bias ``mem_efficient_attention``
+  otherwise: on a CUDA tensor their kernels, forward and backward, on a CPU
+  tensor their plain versions.  Everything else goes to the plain
+  ``dot_product_attention`` with the dense -10000 bias.
 """
 
 from __future__ import annotations
@@ -31,8 +36,10 @@ import torch.nn.functional as F
 from multimodal_context_reasoning_torch.core.config import EncoderConfig
 from multimodal_context_reasoning_torch.ops.attention import dot_product_attention
 from multimodal_context_reasoning_torch.ops.chunk import chunk_mean_scatter
+from multimodal_context_reasoning_torch.ops.flash import mem_efficient_attention
 from multimodal_context_reasoning_torch.ops.masks import MaskSpec
 from multimodal_context_reasoning_torch.ops.spec_attention import fused_attention_spec
+
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     """flax's default ``nn.gelu`` (approximate=True), HF's "gelu_new"."""
@@ -43,10 +50,50 @@ ACT = {"gelu": gelu_tanh, "gelu_new": gelu_tanh, "relu": F.relu, "tanh": torch.t
 
 
 class Linear(nn.Linear):
-    """``nn.Linear`` that casts its input to the weights' dtype."""
+    """``nn.Linear`` computing in ``compute_dtype`` (flax ``Dense(dtype=)``):
+    input, weight and bias are cast to it."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class Embedding(nn.Embedding):
+    """``nn.Embedding`` whose rows come out in ``compute_dtype`` (flax
+    ``Embed(dtype=)``)."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(num_embeddings, embedding_dim)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return super().forward(ids).to(self.compute_dtype)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` with its output in ``compute_dtype`` (flax
+    ``LayerNorm(dtype=)``).  Over fp32 parameters it normalises and applies
+    the affine in fp32 and rounds the result once, as flax does; over
+    parameters already in the compute dtype (the bf16 scorer) it is
+    PyTorch's LayerNorm in that dtype, whose statistics are fp32."""
+
+    def __init__(self, normalized_shape: int, eps: float,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(normalized_shape, eps=eps)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if self.weight.dtype == dt:
+            return super().forward(x.to(dt))
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
+                            self.bias.float(), self.eps).to(dt)
 
 
 class BertEmbeddings(nn.Module):
@@ -55,10 +102,11 @@ class BertEmbeddings(nn.Module):
 
     def __init__(self, c: EncoderConfig):
         super().__init__()
-        self.word_embeddings = nn.Embedding(c.vocab_size, c.hidden_size)
-        self.position_embeddings = nn.Embedding(c.max_position_embeddings, c.hidden_size)
-        self.token_type_embeddings = nn.Embedding(c.type_vocab_size, c.hidden_size)
-        self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+        dt = c.torch_dtype
+        self.word_embeddings = Embedding(c.vocab_size, c.hidden_size, dt)
+        self.position_embeddings = Embedding(c.max_position_embeddings, c.hidden_size, dt)
+        self.token_type_embeddings = Embedding(c.type_vocab_size, c.hidden_size, dt)
+        self.LayerNorm = LayerNorm(c.hidden_size, c.layer_norm_eps, dt)
         self.dropout = nn.Dropout(c.hidden_dropout_prob)
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None):
@@ -79,12 +127,11 @@ class SelfAttention(nn.Module):
     def __init__(self, c: EncoderConfig):
         super().__init__()
         self.config = c
-        D = c.hidden_size
-        self.self = nn.ModuleDict(
-            {"query": Linear(D, D), "key": Linear(D, D), "value": Linear(D, D)}
-        )
+        D, dt = c.hidden_size, c.torch_dtype
+        self.self = nn.ModuleDict({name: Linear(D, D, dt)
+                                   for name in ("query", "key", "value")})
         self.output = nn.ModuleDict(
-            {"dense": Linear(D, D), "LayerNorm": nn.LayerNorm(D, eps=c.layer_norm_eps)}
+            {"dense": Linear(D, D, dt), "LayerNorm": LayerNorm(D, c.layer_norm_eps, dt)}
         )
         self.dropout = nn.Dropout(c.hidden_dropout_prob)
 
@@ -119,12 +166,14 @@ class SelfAttention(nn.Module):
         v = v.view(B, Lk, H, Dh)
 
         needs_dropout = self.training and c.attention_probs_dropout_prob > 0.0
+        probs = None
         if mask_spec is not None and not return_probs and not needs_dropout:
             out = fused_attention_spec(
                 q, k, v, mask_spec.valid, mask_spec.gi, mask_spec.rowfull,
                 stage=mask_spec.stage, text_len=mask_spec.text_len,
             )
-            probs = None
+        elif not return_probs and not needs_dropout:
+            out = mem_efficient_attention(q, k, v, bias)
         else:
             if bias is None:
                 raise ValueError("the plain attention path needs a dense bias")
@@ -145,13 +194,14 @@ class FeedForward(nn.Module):
 
     def __init__(self, c: EncoderConfig):
         super().__init__()
+        dt = c.torch_dtype
         self.act = ACT[c.hidden_act]
         self.intermediate = nn.ModuleDict(
-            {"dense": Linear(c.hidden_size, c.intermediate_size)}
+            {"dense": Linear(c.hidden_size, c.intermediate_size, dt)}
         )
         self.output = nn.ModuleDict({
-            "dense": Linear(c.intermediate_size, c.hidden_size),
-            "LayerNorm": nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps),
+            "dense": Linear(c.intermediate_size, c.hidden_size, dt),
+            "LayerNorm": LayerNorm(c.hidden_size, c.layer_norm_eps, dt),
         })
         self.ffn_dropout = nn.Dropout(c.hidden_dropout_prob)
 
@@ -176,9 +226,9 @@ class TransformerLayer(FeedForward):
 class Pooler(nn.Module):
     """tanh(dense(h[:, 0])) — BertPooler."""
 
-    def __init__(self, hidden_size: int):
+    def __init__(self, hidden_size: int, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dense = Linear(hidden_size, hidden_size)
+        self.dense = Linear(hidden_size, hidden_size, compute_dtype)
 
     def forward(self, hidden: torch.Tensor) -> torch.Tensor:
         return torch.tanh(self.dense(hidden[:, 0]))

@@ -46,13 +46,13 @@ class MappingNetwork(nn.Sequential):
     linears are the reference's keys ``1.`` and ``4.``."""
 
     def __init__(self, hidden_size: int, out_size: int, prefix_len: int,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, compute_dtype: torch.dtype = torch.float32):
         super().__init__(
             nn.Dropout(dropout),
-            Linear(hidden_size, hidden_size * prefix_len),
+            Linear(hidden_size, hidden_size * prefix_len, compute_dtype),
             nn.Tanh(),
             nn.Dropout(dropout),
-            Linear(hidden_size * prefix_len, out_size * prefix_len),
+            Linear(hidden_size * prefix_len, out_size * prefix_len, compute_dtype),
         )
         self.prefix_len = prefix_len
         self.out_size = out_size
@@ -98,12 +98,13 @@ class ModCRModel(nn.Module):
                 self.calec.seq_enc = ChunkAlignEncoder(c.seq_encoder, c.chunkalign)
             self.roberta = PrefixRoberta(c.roberta)
             mapping = (c.global_encoder.hidden_size, c.roberta.hidden_size,
-                       c.prefix_len, c.mapping_dropout)
+                       c.prefix_len, c.mapping_dropout, c.global_encoder.torch_dtype)
             self.mapping_network_vision = MappingNetwork(*mapping)
             self.mapping_network_alignment = MappingNetwork(*mapping)
             if c.prefix_mode == "promptfuse":
                 self.promptfuse = nn.Parameter(torch.empty(2, c.roberta.hidden_size))
-            self.abst_confidence_scorer = Linear(c.roberta.hidden_size, 1)
+            self.abst_confidence_scorer = Linear(c.roberta.hidden_size, 1,
+                                                 c.roberta.torch_dtype)
         self.init_weights(generator)
 
     @torch.no_grad()

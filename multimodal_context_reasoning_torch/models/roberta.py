@@ -1,20 +1,37 @@
 """Prefix-injected RoBERTa reasoner (port of the JAX package's
-``models/roberta.py``, its non-scan, non-remat path).
+``models/roberta.py``).
 
 Each attention layer projects the raw prefix vectors through its own key and
 value weights and prepends them to the token K/V stream; queries come only
 from real tokens, so sequence length, position ids and the pooler are
-untouched.  Every layer runs the stage-mask attention in the "full" stage
-over the prefixed KV stream.  ``scan_layers`` and ``remat`` only shape the
-JAX program; interop/from_jax.py unstacks a scanned parameter tree.
+untouched.  Two branches, as in the JAX package (roberta.py:144-202):
+
+- the default one gives every layer the "full"-stage :class:`MaskSpec` over
+  the prefixed KV stream, so attention runs the stage-mask attention;
+- with ``remat`` or ``scan_layers`` every layer gets the dense padding bias
+  [B, 1, 1, P + L] (-10000 on masked slots) and no mask spec, so attention
+  runs the dense-bias ``mem_efficient_attention``.  Under ``remat`` each
+  layer runs inside ``torch.utils.checkpoint`` (non-reentrant, the RNG state
+  kept so dropout masks replay): policy "full" recomputes everything in the
+  backward, "dots" saves the outputs of the matrix products without batch
+  dimensions (the projections and the FFN), as JAX's
+  ``dots_with_no_batch_dims_saveable`` does.  ``scan_layers`` only changes
+  the JAX parameter layout, which interop/from_jax.py unstacks; here it runs
+  the same loop.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from multimodal_context_reasoning_torch.core.config import EncoderConfig, RobertaConfig
 from multimodal_context_reasoning_torch.models.layers import (
@@ -51,6 +68,18 @@ def encoder_config(c: RobertaConfig) -> EncoderConfig:
     )
 
 
+# matrix products without batch dimensions: what "dots" saves under remat
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _run_layer(layer, h, bias, prefix_kv):
+    return layer(h, bias, prefix_kv=prefix_kv)[0]
+
+
 class RobertaOutput(NamedTuple):
     sequence: torch.Tensor   # [B, L, H]
     pooled: torch.Tensor     # [B, H]
@@ -65,7 +94,7 @@ class PrefixRoberta(nn.Module):
         self.encoder = nn.ModuleDict({"layer": nn.ModuleList(
             TransformerLayer(ec) for _ in range(c.num_hidden_layers)
         )})
-        self.pooler = Pooler(c.hidden_size)
+        self.pooler = Pooler(c.hidden_size, c.torch_dtype)
 
     def forward(
         self,
@@ -85,8 +114,22 @@ class PrefixRoberta(nn.Module):
                 prompt_mask = torch.ones(prompt_embeddings.shape[:2],
                                          device=input_ids.device)
             kv_valid = torch.cat([prompt_mask.float(), kv_valid], dim=-1)
-        bias = padding_bias(kv_valid)  # taken only under attention dropout
-        spec = full_mask_spec(kv_valid, input_ids.shape[1])
-        for layer in self.encoder.layer:
-            h, _ = layer(h, bias, prefix_kv=prompt_embeddings, mask_spec=spec)
+        bias = padding_bias(kv_valid)
+        if c.remat or c.scan_layers:
+            remat = c.remat and torch.is_grad_enabled()
+            context_fn = (functools.partial(create_selective_checkpoint_contexts,
+                                            _dots_policy)
+                          if c.remat_policy == "dots" else None)
+            for layer in self.encoder.layer:
+                if remat:
+                    kw = {"context_fn": context_fn} if context_fn else {}
+                    h = checkpoint(_run_layer, layer, h, bias, prompt_embeddings,
+                                   use_reentrant=False, **kw)
+                else:
+                    h = _run_layer(layer, h, bias, prompt_embeddings)
+        else:
+            # the dense bias is taken here only under attention dropout
+            spec = full_mask_spec(kv_valid, input_ids.shape[1])
+            for layer in self.encoder.layer:
+                h, _ = layer(h, bias, prefix_kv=prompt_embeddings, mask_spec=spec)
         return RobertaOutput(sequence=h, pooled=self.pooler(h))

@@ -3,8 +3,8 @@
 Each kernel is one ``csrc/<name>.cu`` with a plain C interface.  ``nvcc``
 compiles it for ``sm_90a`` into a shared library under ``build/torch_kernels/``
 beside the package (a directory ``.gitignore`` lists), named by a hash of the
-source so an edited source is rebuilt and an unchanged one is loaded as it
-is.  Nothing here runs at import: the wrappers call :func:`load_library` on
+source and of the shared ``csrc/common.cuh``, so an edited source or header
+is rebuilt and an unchanged one is loaded as it is.  Nothing here runs at import: the wrappers call :func:`load_library` on
 their first CUDA launch.
 """
 
@@ -21,6 +21,7 @@ from typing import Dict, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
+COMMON_HEADER = CSRC_DIR / "common.cuh"  # included by every kernel source
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -49,7 +50,7 @@ def load_library(name: str) -> Tuple[ctypes.CDLL, str, float]:
     if name in _LOADED:
         return _LOADED[name]
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    digest = hashlib.sha256(src.read_bytes() + COMMON_HEADER.read_bytes()).hexdigest()[:16]
     lib_path = BUILD_DIR / f"lib{name}_{digest}.so"
     log, seconds = "", 0.0
     if not lib_path.exists():

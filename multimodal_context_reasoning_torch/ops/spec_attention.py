@@ -18,6 +18,12 @@ and a uniform row where every key is masked.
   ``csrc/spec_attention.cu`` (built at first use, ops/build.py) or raises;
   it never falls back to the plain version there.  Its ``launches`` counter
   grows by one per kernel launch.
+- The wrapper runs as a ``torch.autograd.Function`` that saves only its
+  inputs (under ``no_grad`` it records nothing).  Its backward
+  rebuilds the mask as the bias plane ``-1e9 * (1 - vis)`` (:func:`spec_bias`)
+  and runs the attention backward of ops/flash.py: the backward kernel on
+  the card, its plain version on the CPU.  The JAX package's spec kernel has
+  no VJP; its oracle for these gradients is autodiff of the dense path.
 """
 
 from __future__ import annotations
@@ -26,9 +32,11 @@ import ctypes
 
 import torch
 
+from multimodal_context_reasoning_torch.ops.flash import flash_attention_bwd
+from multimodal_context_reasoning_torch.ops.fused_attention import check_qkv
+
 STAGES = {"full": 0, "chunk": 1, "cross": 2}
 MASK_PENALTY = 1e9
-MAX_DH = 128
 
 
 def stage_visibility(valid: torch.Tensor, gi: torch.Tensor, rowfull: torch.Tensor,
@@ -74,6 +82,37 @@ def spec_attention_plain(q, k, v, valid, gi, rowfull, *, stage: str,
     return out.to(q.dtype)
 
 
+def spec_bias(valid: torch.Tensor, gi: torch.Tensor, rowfull: torch.Tensor, *,
+              stage: str, text_len: int, lq: int) -> torch.Tensor:
+    """The stage mask as the head-shared fp32 bias ``-1e9 * (1 - vis)`` the
+    forward subtracts: [B, 1, 1, Lk] in the full stage, [B, 1, Lq, Lk] in the
+    others.  Adding it gives the forward's scores bit for bit."""
+    if stage == "full":
+        vis = valid.float()[:, None, None, :]
+    else:
+        vis = stage_visibility(valid, gi, rowfull, stage=stage, text_len=text_len,
+                               lq=lq)[:, None]
+    return -((1.0 - vis) * MASK_PENALTY)
+
+
+class _SpecAttentionFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, valid, gi, rowfull, stage, text_len, wrapper):
+        ctx.save_for_backward(q, k, v, valid, gi, rowfull)   # O(L·D) only
+        ctx.stage, ctx.text_len = stage, text_len
+        return wrapper.forward(q, k, v, valid, gi, rowfull, stage=stage,
+                               text_len=text_len)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, valid, gi, rowfull = ctx.saved_tensors
+        bias = spec_bias(valid, gi, rowfull, stage=ctx.stage, text_len=ctx.text_len,
+                         lq=q.shape[1])
+        dq, dk, dv, _ = flash_attention_bwd(q, k, v, bias, d_out.contiguous(),
+                                            want_dbias=False)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
 class SpecAttention:
     """Wrapper of ``csrc/spec_attention.cu``; see the module docstring."""
 
@@ -100,6 +139,13 @@ class SpecAttention:
 
     def __call__(self, q, k, v, valid, gi, rowfull, *, stage: str,
                  text_len: int) -> torch.Tensor:
+        return _SpecAttentionFn.apply(q, k, v, valid, gi, rowfull, stage, text_len,
+                                      self)
+
+    def forward(self, q, k, v, valid, gi, rowfull, *, stage: str,
+                text_len: int) -> torch.Tensor:
+        """The forward alone: the plain version on a CPU tensor, the kernel
+        on a CUDA tensor."""
         if q.device.type == "cpu":
             return spec_attention_plain(q, k, v, valid, gi, rowfull,
                                         stage=stage, text_len=text_len)
@@ -115,28 +161,14 @@ class SpecAttention:
         reports that)."""
         if stage not in STAGES:
             raise ValueError(f"unknown stage {stage!r}")
-        if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-            raise ValueError("q, k, v must be [B, L, H, Dh]")
-        B, lq, H, dh = q.shape
-        lk = k.shape[1]
-        if k.shape != (B, lk, H, dh) or v.shape != k.shape:
-            raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                             f"v {tuple(v.shape)}")
-        if valid.shape != (B, lk) or gi.shape != (B, lk) or rowfull.shape != (B, lk):
-            raise ValueError("valid, gi and rowfull must be [B, Lk]")
+        lq, lk = q.shape[1], k.shape[1]
         if lq > lk or (stage != "full" and lq != lk):
             raise ValueError(f"stage {stage!r} with Lq={lq}, Lk={lk}")
-        if dh > MAX_DH:
-            raise ValueError(f"head dim {dh} > {MAX_DH}")
-        if q.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"dtype {q.dtype} not taken (float32 or bfloat16)")
-        if k.dtype != q.dtype or v.dtype != q.dtype:
-            raise TypeError("q, k and v must share one dtype")
-        tensors = (q, k, v, valid, gi, rowfull)
-        if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+        B, lq, lk, H, dh = check_qkv(q, k, v)
+        if valid.shape != (B, lk) or gi.shape != (B, lk) or rowfull.shape != (B, lk):
+            raise ValueError("valid, gi and rowfull must be [B, Lk]")
+        if any(t.device != q.device for t in (valid, gi, rowfull)):
             raise ValueError("all inputs must be on one CUDA device")
-        if any(t.stride(-1) != 1 for t in (q, k, v)):
-            raise ValueError("q, k, v need unit stride on the head dimension")
         if valid.dtype != torch.float32 or rowfull.dtype != torch.float32:
             raise TypeError("valid and rowfull must be float32")
         if gi.dtype != torch.int32:
@@ -144,8 +176,6 @@ class SpecAttention:
         if not (valid.is_contiguous() and gi.is_contiguous()
                 and rowfull.is_contiguous()):
             raise ValueError("valid, gi and rowfull must be contiguous")
-        if B > 65535 or H > 65535:
-            raise ValueError("batch and head count must be at most 65535")
         lib = self._library()
         is_bf16 = int(q.dtype == torch.bfloat16)
 

@@ -1,14 +1,18 @@
-"""Synthetic PMR requests and hash tokenizers for driving the scorer without
-a dataset or checkpoint: random region features and short premises and
-answers with ``<|det#|>`` tokens, all drawn from a numpy generator."""
+"""Synthetic PMR requests and hash tokenizers for driving the scorer and
+the trainer without a dataset or checkpoint: random region features and
+short premises and answers with ``<|det#|>`` tokens, all drawn from a numpy
+generator, and labelled datasets for training."""
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Tuple
 
 import numpy as np
 
 from multimodal_context_reasoning_torch.core.config import ModCRConfig
+from multimodal_context_reasoning_torch.data.collate import BatchSpec
+from multimodal_context_reasoning_torch.data.pmr import PMRDataset
 from multimodal_context_reasoning_torch.data.schemas import ImageFeatures, RawExample
 from multimodal_context_reasoning_torch.data.tokenization import (
     HashTokenizer,
@@ -47,7 +51,37 @@ def synthetic_requests(rng: np.random.Generator, n: int, cfg: ModCRConfig,
     return feats, examples
 
 
+def synthetic_examples(rng: np.random.Generator, n: int, cfg: ModCRConfig,
+                       first: int = 0, multi_label_share: float = 0.2,
+                       ) -> Tuple[Dict[str, ImageFeatures], List[RawExample]]:
+    """:func:`synthetic_requests` with labels: one gold candidate drawn
+    uniformly, or, for about ``multi_label_share`` of the examples, a list
+    of two (PMR's multi-label rows, multi-hot targets)."""
+    feats, examples = synthetic_requests(rng, n, cfg, first)
+    K = cfg.num_labels
+    labelled = []
+    for ex in examples:
+        if rng.random() < multi_label_share:
+            label = sorted(int(x) for x in rng.choice(K, size=2, replace=False))
+        else:
+            label = int(rng.integers(K))
+        labelled.append(dataclasses.replace(ex, answer_label=label))
+    return feats, labelled
+
+
 def hash_tokenizers(cfg: ModCRConfig) -> Tuple[HashTokenizer, RobertaHashTokenizer]:
     """The BERT and RoBERTa hash tokenizers, ids kept below each tower's vocab."""
     return (HashTokenizer(vocab_size=cfg.global_encoder.vocab_size),
             RobertaHashTokenizer(vocab_size=cfg.roberta.vocab_size))
+
+
+def synthetic_dataset(rng: np.random.Generator, n: int, cfg: ModCRConfig,
+                      first: int = 0) -> PMRDataset:
+    """A :class:`PMRDataset` of ``n`` :func:`synthetic_examples` in ``cfg``'s
+    batch geometry, tokenized by :func:`hash_tokenizers`."""
+    feats, examples = synthetic_examples(rng, n, cfg, first)
+    spec = BatchSpec(text_len=cfg.text_len, img_len=cfg.img_len,
+                     roberta_len=cfg.roberta_len, num_labels=cfg.num_labels,
+                     img_feature_dim=cfg.global_encoder.img_feature_dim)
+    return PMRDataset(examples, feats, *hash_tokenizers(cfg), spec=spec,
+                      max_chunks=cfg.max_chunks)

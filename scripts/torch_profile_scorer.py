@@ -35,11 +35,18 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # the port's packa
 REPS = 10
 
 
-def _device_us(evt) -> float:
+def device_us(evt) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, name):
             return float(getattr(evt, name))
     return 0.0
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def _group(name: str) -> str:
@@ -64,17 +71,17 @@ def profile(scorer, feats) -> dict:
                 scorer.model(batch)
             torch.cuda.synchronize()
             wall_us = 1e6 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.key_averages() if _device_us(e) > 0
+    kernels = [e for e in prof.key_averages() if device_us(e) > 0
                and e.device_type == torch.autograd.DeviceType.CUDA]
     groups = {"spec_attention": 0.0, "matmul": 0.0, "other": 0.0}
     for e in kernels:
-        groups[_group(e.key)] += _device_us(e) / 3e3
-    top = sorted(kernels, key=_device_us, reverse=True)[:12]
-    busy = sum(_device_us(e) for e in kernels)
+        groups[_group(e.key)] += device_us(e) / 3e3
+    top = sorted(kernels, key=device_us, reverse=True)[:12]
+    busy = sum(device_us(e) for e in kernels)
     return dict(
         device_ms_by_group_per_forward=groups,
         device_busy_share_profiled=busy / wall_us if wall_us else None,
-        top_kernels=[dict(name=e.key[:90], ms_per_forward=_device_us(e) / 3e3,
+        top_kernels=[dict(name=e.key[:90], ms_per_forward=device_us(e) / 3e3,
                           calls_per_forward=e.count / 3) for e in top],
     )
 
@@ -96,9 +103,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card = card_line()
     print(card)
     cfg = dataclasses.replace(ModCRConfig(), compute_alignment=False).with_dtype("bfloat16")
     model = ModCRModel(cfg, device="cuda",
