@@ -8,7 +8,8 @@ the port is not beside this script, or when any phase fails.  Phases:
 
 1. device: card name, power limit, TF32 off;
 2. build: ``nvcc`` builds ``csrc/{spec_attention,fused_attention,flash_bwd}.cu``
-   from this checkout, one process per source, all started together;
+   from this checkout, one process per source, all started together, and
+   prints each kernel's registers and spills as ``ptxas -v`` gives them;
 3. kernel vs plain: the stage-mask kernel against its plain PyTorch version
    at the five ModCR shapes of each served micro-batch (8 and 32), fp32
    (1e-4 abs) and bf16 (2e-2 abs), plus a fully masked row;
@@ -26,10 +27,13 @@ the port is not beside this script, or when any phase fails.  Phases:
    atomics and summation order; 2e-2 in bf16: P and dS are rounded before
    their products); the stage-mask Function's gradients against autograd of
    its plain version in the full stage at that shape and in the chunk stage
-   at (32, 190, 190, 12, 64); a fully masked row;
+   at (32, 190, 190, 12, 64); a fully masked row; the bf16 backward at
+   Lq = Lk = 190 with the chunk stage's [B, 1, Lq, Lk] mask plane as bias,
+   and two bf16 launches at the training shape bit-equal in dq, dk, dv;
 8. training kernel timing, bf16 at that shape: kernel, plain version and
    SDPA with the float bias as ``attn_mask`` (forward) or SDPA's backward
-   through autograd (backward), CUDA events, median of 25;
+   through autograd (backward), CUDA events, median of 25, and each
+   kernel's share of its bound;
 9. training parity: full-width fp32 ``ModCRConfig()`` with dropout 0, one
    example (4 rows), two ``train_step``s on the card (kernels) and on the CPU
    (plain versions) from one state dict, ``remat=False`` (the stage-mask
@@ -48,6 +52,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -268,6 +273,7 @@ def check_training_kernels(rng) -> dict:
         fused_attention_plain,
     )
     from multimodal_context_reasoning_torch.ops.masks import full_mask_spec, padding_bias
+    from multimodal_context_reasoning_torch.ops.spec_attention import spec_bias
 
     worst = {"fused_attention": 0.0, "flash_bwd": 0.0, "spec_attention": 0.0}
     case = dense_case(rng, **TRAIN_SHAPE)
@@ -314,6 +320,32 @@ def check_training_kernels(rng) -> dict:
         worst["spec_attention"] = max(worst["spec_attention"], s_err)
         print(f"[7 train check] {'chunk (32, 190, 190, 12, 64)':32s} {str(dtype):15s} "
               f"spec-Function grads {s_err:.2e} ({s_rel:.1e} rel)")
+    # bf16 at the chunk stage's length, the longest keys the backward takes
+    # on the model's path, with the stage's [B, 1, Lq, Lk] mask plane
+    q, k, v, *vecs = cuda_args(chunk, torch.bfloat16)
+    bias = spec_bias(*vecs, stage="chunk", text_len=chunk["text_len"], lq=q.shape[1])
+    d_out = torch.randn(q.shape, device="cuda", dtype=torch.bfloat16,
+                        generator=torch.Generator("cuda").manual_seed(SEED + 3))
+    got = flash_attention_bwd(q, k, v, bias, d_out, want_dbias=True)
+    torch.cuda.synchronize()
+    want = flash_attention_bwd_plain(q, k, v, bias, d_out)
+    line = []
+    for out, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        err, rel = errors(g, w)
+        check(torch.isfinite(g).all().item() and rel <= BWD_TOL[torch.bfloat16],
+              f"backward {out} L=190 bf16: rel {rel}")
+        worst["flash_bwd"] = max(worst["flash_bwd"], err)
+        line.append(f"{out} {err:.2e} ({rel:.1e} rel)")
+    print(f"[7 train check] {'chunk plane (32, 190, 190, 12, 64)':32s} {'torch.bfloat16':15s} "
+          "backward " + " | ".join(line))
+    del got, want
+    q, k, v, d_out = (case[n].to("cuda", torch.bfloat16) for n in ("q", "k", "v", "d_out"))
+    bias = padding_bias(case["valid"].cuda())
+    runs = [flash_attention_bwd(q, k, v, bias, d_out, want_dbias=False)[:3] for _ in range(2)]
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    print(f"[7 train check] bf16 backward, two launches at (128, 128, 138, 16, 64): "
+          f"dq, dk, dv bit-equal {same}")
+    check(same, "bf16 backward: two launches differ")
     print(f"[7 train check] worst |kernel - plain|: {worst} (forward tol {TOL}, "
           f"backward tol of max |plain| {BWD_TOL})")
     return worst
@@ -373,7 +405,8 @@ def time_training_kernels(rng) -> dict:
         rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                           bound_by=b_by)
         print(f"[8 train time] {name:16s} bf16 (128, 128, 138, 16, 64): kernel {ms:.4f} ms | "
-              f"plain {plain_ms:.4f} ms | sdpa {lib_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by})")
+              f"plain {plain_ms:.4f} ms | sdpa {lib_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by}) "
+              f"| kernel at {b_ms / ms:.2%} of its bound")
     dbias_ms = median_ms(lambda: flash_attention_bwd(q, k, v, bias, d_out, want_dbias=True))
     print(f"[8 train time] flash_bwd with the dbias plane (not on the model's path): "
           f"{dbias_ms:.4f} ms")
@@ -540,8 +573,14 @@ def main() -> int:
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         built = dict(zip(KERNELS, pool.map(load_library, KERNELS)))
     for name, (_, log, build_s) in built.items():
-        ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-        print(f"[2 build] {name}.cu: nvcc {build_s:.2f} s | " + " ; ".join(ptxas))
+        ptxas = []  # per kernel: its name, then its spill and register lines
+        for ln in log.splitlines():
+            entry = re.search(r"entry function '.*?\d([a-z][a-z_]*_kernel)", ln)
+            if entry:
+                ptxas.append(entry.group(1) + ":")
+            elif "registers" in ln or "spill" in ln:
+                ptxas.append(ln.replace("ptxas info    :", "").strip())
+        print(f"[2 build] {name}.cu: nvcc {build_s:.2f} s | " + " ".join(ptxas))
     print(f"[2 build] all {len(KERNELS)} built and loaded in {time.perf_counter() - t0:.2f} s")
 
     # 3. kernel vs plain, at the shapes of both served micro-batches

@@ -9,8 +9,11 @@ CUDA backward kernel's wrapper (port of the JAX package's ``ops/flash.py``).
   tensor gets, and the oracle the kernel is held against.
 - :data:`flash_attention_bwd` is the wrapper.  On a CUDA tensor it launches
   ``csrc/flash_bwd.cu`` (built at first use, ops/build.py) or raises; it
-  never falls back to the plain version there.  Its ``launches`` counter
-  grows by one per kernel launch.
+  never falls back to the plain version there.  bf16 goes to the source's
+  tensor-core kernel, which takes head dim 64, at most 192 keys and rows
+  that start on 16 bytes (checked here before launch); fp32 to its
+  FP32-pipe kernel.  Its ``launches`` counter grows by one per kernel
+  launch.
 - :func:`mem_efficient_attention` is a ``torch.autograd.Function`` that
   saves only (q, k, v, bias): its forward is the dense-bias attention
   (ops/fused_attention.py), its backward the function above.  No
@@ -32,6 +35,11 @@ from multimodal_context_reasoning_torch.ops.fused_attention import (
 )
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
+
+# The bf16 kernel's limits (kMmaDh and kMaxLk in csrc/flash_bwd.cu, whose
+# launcher refuses anything beyond them).
+BF16_HEAD_DIM = 64
+BF16_MAX_KEYS = 192
 
 
 def flash_attention_bwd_plain(q, k, v, bias, d_out) -> Grads:
@@ -56,6 +64,24 @@ def flash_attention_bwd_plain(q, k, v, bias, d_out) -> Grads:
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf).to(dt)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf).to(dt)
     return dq, dk, dv, dbias
+
+
+def check_bf16_limits(q, k, v, d_out) -> None:
+    """Raise ``ValueError`` on a bf16 input the tensor-core kernel does not
+    take: another head dim, more keys than it holds in shared memory, or a
+    row (16 bytes and more) that its 16-byte copies cannot read."""
+    dh, lk = q.shape[-1], k.shape[1]
+    if dh != BF16_HEAD_DIM:
+        raise ValueError(f"bf16 attention backward: head dim {dh} not taken "
+                         f"(the kernel is built for {BF16_HEAD_DIM})")
+    if lk > BF16_MAX_KEYS:
+        raise ValueError(f"bf16 attention backward: {lk} keys, at most {BF16_MAX_KEYS}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("d_out", d_out)):
+        strides = [st for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+        if t.data_ptr() % 16 or any(st % 8 for st in strides):
+            raise ValueError(f"bf16 attention backward: {name}'s rows are not 16-byte "
+                             f"aligned (data_ptr % 16 = {t.data_ptr() % 16}, "
+                             f"strides {tuple(t.stride())})")
 
 
 class FlashAttentionBwd:
@@ -95,8 +121,10 @@ class FlashAttentionBwd:
         reports that)."""
         B, lq, lk, H, dh = check_qkv(q, k, v, d_out)
         bias_ptr, *bstrides = bias_strides(bias, q, lk)
-        lib = self._library()
         is_bf16 = int(q.dtype == torch.bfloat16)
+        if is_bf16:
+            check_bf16_limits(q, k, v, d_out)
+        lib = self._library()
         strides = (ctypes.c_longlong * 15)(
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *d_out.stride()[:3],
             *bstrides)

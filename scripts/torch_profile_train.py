@@ -39,7 +39,7 @@ PROFILED = 2
 GROUPS = {
     "spec_attention": ("spec_attention_kernel",),
     "dense_attention_forward": ("dense_attention_kernel",),
-    "flash_backward": ("flash_bwd_kernel",),
+    "flash_backward": ("flash_bwd",),   # flash_bwd_mma_kernel (bf16), flash_bwd_kernel
     "matmul": ("gemm", "nvjet", "cutlass", "xmma", "cublas", "matmul"),
     "optimizer": ("multi_tensor_apply", "foreach"),
 }

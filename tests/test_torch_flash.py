@@ -230,3 +230,30 @@ def test_cpu_wrappers_take_plain_versions_without_counting(data):
         fused_attention.launch(q, k, v, bias)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_bwd.launch(q, k, v, bias, d_out)
+
+
+def test_plain_backward_matches_jax_kernel_in_bf16():
+    """bf16 inputs at a ragged shape (Lq = 13, Lk = 19): the plain backward,
+    the card kernel's oracle, takes the Pallas kernel's order of casts (P
+    rounded before dV, dS / sqrt(Dh) rounded before dQ and dK).  Both sides
+    round the same fp32 values, so dq, dk and dv may differ only where the
+    fp32 summation order tips a rounding: at least 99% of elements bit-equal
+    and none off by more than one bf16 step (2^-7 of the value).  Leaving
+    out either rounding puts about 40% of elements off by tens of steps.
+    The dbias plane is fp32: 1e-5."""
+    rng = np.random.default_rng(5)
+    B, Lq, Lk, H, Dh = 2, 13, 19, 3, 64
+    q, d_out = (rng.normal(size=(B, Lq, H, Dh)).astype(np.float32) for _ in range(2))
+    k, v = (rng.normal(size=(B, Lk, H, Dh)).astype(np.float32) for _ in range(2))
+    bias = rng.normal(size=(B, 1, Lq, Lk)).astype(np.float32)
+    bf = [jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, d_out)]
+    want = j_bwd_pallas(bf[0], bf[1], bf[2], jnp.asarray(bias), bf[3], interpret=True)
+    tb = [_t(x).bfloat16() for x in (q, k, v, d_out)]
+    got = flash_attention_bwd_plain(tb[0], tb[1], tb[2], _t(bias), tb[3])
+    for name, g, w in zip(("dq", "dk", "dv"), got[:3], want[:3]):
+        assert g.dtype == torch.bfloat16, name
+        w = torch.from_numpy(np.asarray(w.astype(jnp.float32)))
+        diff = (g.float() - w).abs()
+        assert (diff == 0).float().mean().item() >= 0.99, name
+        assert bool((diff <= 2.0 ** -7 * w.abs()).all()), name
+    np.testing.assert_allclose(got[3].numpy(), np.asarray(want[3]), rtol=1e-5, atol=1e-5)

@@ -228,8 +228,10 @@ def test_spec_function_grads_match_plain_autograd(card, dtype, stage_idx):
         _close(a.grad, b.grad, BWD_TOL[dtype])
 
 
-def test_spec_function_fully_masked_rows_have_finite_grads(card):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spec_function_fully_masked_rows_have_finite_grads(card, dtype):
     (q, k, v), specs = _case(card, Dh=64)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
     spec = specs[0]
     valid = torch.zeros_like(spec.valid)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -240,7 +242,7 @@ def test_spec_function_fully_masked_rows_have_finite_grads(card):
     want = flash_attention_bwd_plain(q, k, v, bias, torch.ones_like(q))
     for a, w in zip(leaves, want):
         assert torch.isfinite(a.grad).all()
-        _close(a.grad, w, BWD_TOL[torch.float32])
+        _close(a.grad, w, BWD_TOL[dtype])
 
 
 def test_new_kernels_refuse_what_they_do_not_take(card):
@@ -259,3 +261,62 @@ def test_new_kernels_refuse_what_they_do_not_take(card):
     got = flash_attention_bwd(q, k, v, bias, d_out)   # no error left behind
     for g, w in zip(got, flash_attention_bwd_plain(q, k, v, bias, d_out)):
         _close(g, w, BWD_TOL[torch.float32])
+
+
+# ---------------------------------------------------------------- the bf16
+# backward's tensor-core kernel (csrc/flash_bwd.cu, flash_bwd_mma_kernel)
+
+def _bf16(*ts):
+    return [t.bfloat16() for t in ts]
+
+
+def _rel_close(got, want, tol):
+    """max |got - want| within ``tol`` of max |want|, with no floor."""
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    assert err <= tol * scale, (err, scale)
+
+
+@pytest.mark.parametrize("lq,prefix,bias_shape", [(190, 0, "plane"), (128, 10, "row")])
+def test_bf16_backward_at_model_lengths(card, lq, prefix, bias_shape):
+    """The chunk stage's Lq = Lk = 190 with a [B, 1, Lq, Lk] plane, and
+    RoBERTa's Lk = 138 with a [B, 1, 1, Lk] row: dq, dk, dv and the dbias
+    plane within 2e-2 of each output's max |plain|."""
+    q, k, v, bias, d_out = _dense_case(card, Lq=lq, P=prefix, bias_shape=bias_shape)
+    q, k, v, d_out = _bf16(q, k, v, d_out)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, bias, d_out)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_plain(q, k, v, bias, d_out)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.isfinite(g).all()
+        _rel_close(g, w, BWD_TOL[torch.bfloat16])
+
+
+def test_bf16_backward_is_deterministic(card):
+    """dq, dk and dv take no atomics: two launches agree bit for bit."""
+    q, k, v, bias, d_out = _dense_case(card, Lq=128, P=10)
+    q, k, v, d_out = _bf16(q, k, v, d_out)
+    first = flash_attention_bwd(q, k, v, bias, d_out, want_dbias=False)
+    second = flash_attention_bwd(q, k, v, bias, d_out, want_dbias=False)
+    for a, b in zip(first[:3], second[:3]):
+        assert torch.equal(a, b)
+
+
+def test_bf16_backward_refuses_what_it_does_not_take(card):
+    q, k, v, bias, d_out = _dense_case(card)
+    q, k, v, d_out = _bf16(q, k, v, d_out)
+    with pytest.raises(ValueError, match="16-byte"):
+        wide = torch.zeros(*q.shape[:3], 72, dtype=torch.bfloat16, device=card)
+        flash_attention_bwd(wide[..., 1:65], k, v, bias, d_out)
+    with pytest.raises(ValueError, match="head dim"):
+        narrow = [t[..., :32].contiguous() for t in (q, k, v, d_out)]
+        flash_attention_bwd(narrow[0], narrow[1], narrow[2], bias, narrow[3])
+    with pytest.raises(ValueError, match="at most 192"):
+        long_kv = torch.zeros(q.shape[0], 4000, q.shape[2], q.shape[3],
+                              dtype=torch.bfloat16, device=card)
+        flash_attention_bwd(q, long_kv, long_kv, None, d_out)
+    got = flash_attention_bwd(q, k, v, bias, d_out)   # no error left behind
+    for g, w in zip(got, flash_attention_bwd_plain(q, k, v, bias, d_out)):
+        _close(g, w, BWD_TOL[torch.bfloat16])
