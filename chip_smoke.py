@@ -9,7 +9,8 @@ the port is not beside this script, or when any phase fails.  Phases:
 1. device: card name, power limit, TF32 off;
 2. build: ``nvcc`` builds ``csrc/{spec_attention,fused_attention,flash_bwd}.cu``
    from this checkout, one process per source, all started together, and
-   prints each kernel's registers and spills as ``ptxas -v`` gives them;
+   prints each kernel's registers and spill bytes as ``ptxas -v`` gives them
+   (the bf16 dense forward once per instance: keys / 16 and mask source);
 3. kernel vs plain: the stage-mask kernel against its plain PyTorch version
    at the five ModCR shapes of each served micro-batch (8 and 32), fp32
    (1e-4 abs) and bf16 (2e-2 abs), plus a fully masked row;
@@ -22,7 +23,9 @@ the port is not beside this script, or when any phase fails.  Phases:
    forward must launch the stage-mask kernel exactly 60 times;
 7. training kernels vs plain, at the RoBERTa training shape (128 rows,
    Lq 128, Lk 138, 16 heads, Dh 64), fp32 and bf16, ragged padding: the
-   dense-bias forward (tolerances as phase 3); the backward's dq, dk, dv and
+   dense-bias forward (tolerances as phase 3; bf16 on the tensor-core
+   kernel, also at Lq = Lk = 190 with the chunk stage's [B, 1, Lq, Lk] mask
+   plane as bias, 2e-2 of max |plain|); the backward's dq, dk, dv and
    dbias plane with a random dO (1e-4 of each output's max |plain| in fp32:
    atomics and summation order; 2e-2 in bf16: P and dS are rounded before
    their products); the stage-mask Function's gradients against autograd of
@@ -32,8 +35,10 @@ the port is not beside this script, or when any phase fails.  Phases:
    and two bf16 launches at the training shape bit-equal in dq, dk, dv;
 8. training kernel timing, bf16 at that shape: kernel, plain version and
    SDPA with the float bias as ``attn_mask`` (forward) or SDPA's backward
-   through autograd (backward), CUDA events, median of 25, and each
-   kernel's share of its bound;
+   through autograd (backward), CUDA events, median of 25 calls each in its
+   own event window (the wrapper's host time included), and each kernel's
+   share of its bound; then the kernel and SDPA again as 25 launches back
+   to back in one window, divided by 25 (the median of 5 such windows);
 9. training parity: full-width fp32 ``ModCRConfig()`` with dropout 0, one
    example (4 rows), two ``train_step``s on the card (kernels) and on the CPU
    (plain versions) from one state dict, ``remat=False`` (the stage-mask
@@ -180,6 +185,23 @@ def median_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def back_to_back_ms(fn, n: int = 25, windows: int = 5, warmup: int = 3) -> float:
+    """Median over ``windows`` event windows of ``n`` calls back to back, per
+    call: the host's launch work overlaps the device's, unlike ``median_ms``."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(windows):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
 def bound(case, dtype):
     """Least time for the work: bytes (q, k, v and the mask vectors read
     once, out written once) over HBM rate vs FLOPs over the dtype's peak."""
@@ -320,10 +342,19 @@ def check_training_kernels(rng) -> dict:
         worst["spec_attention"] = max(worst["spec_attention"], s_err)
         print(f"[7 train check] {'chunk (32, 190, 190, 12, 64)':32s} {str(dtype):15s} "
               f"spec-Function grads {s_err:.2e} ({s_rel:.1e} rel)")
-    # bf16 at the chunk stage's length, the longest keys the backward takes
-    # on the model's path, with the stage's [B, 1, Lq, Lk] mask plane
+    # bf16 at the chunk stage's length, the longest keys the tensor-core
+    # kernels take on the model's path, with the stage's [B, 1, Lq, Lk] mask
+    # plane: the forward, then the backward
     q, k, v, *vecs = cuda_args(chunk, torch.bfloat16)
     bias = spec_bias(*vecs, stage="chunk", text_len=chunk["text_len"], lq=q.shape[1])
+    got = fused_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    f_err, f_rel = errors(got, fused_attention_plain(q, k, v, bias))
+    check(torch.isfinite(got).all().item() and f_rel <= TOL[torch.bfloat16],
+          f"dense forward L=190 plane bf16: rel {f_rel}")
+    worst["fused_attention"] = max(worst["fused_attention"], f_err)
+    print(f"[7 train check] {'chunk plane (32, 190, 190, 12, 64)':32s} {'torch.bfloat16':15s} "
+          f"forward {f_err:.2e} ({f_rel:.1e} rel)")
     d_out = torch.randn(q.shape, device="cuda", dtype=torch.bfloat16,
                         generator=torch.Generator("cuda").manual_seed(SEED + 3))
     got = flash_attention_bwd(q, k, v, bias, d_out, want_dbias=True)
@@ -401,12 +432,17 @@ def time_training_kernels(rng) -> dict:
          lambda: torch.autograd.grad(out_t, (qt, kt, vt), d_out_t, retain_graph=True)),
     ):
         ms, plain_ms, lib_ms = median_ms(kernel), median_ms(plain), median_ms(library)
+        b2b_ms, lib_b2b_ms = back_to_back_ms(kernel), back_to_back_ms(library)
         b_ms, b_by = train_bound(case, dt, kind)
         rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                          bound_by=b_by)
+                          bound_by=b_by, back_to_back_ms=b2b_ms,
+                          library_back_to_back_ms=lib_b2b_ms)
         print(f"[8 train time] {name:16s} bf16 (128, 128, 138, 16, 64): kernel {ms:.4f} ms | "
               f"plain {plain_ms:.4f} ms | sdpa {lib_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by}) "
               f"| kernel at {b_ms / ms:.2%} of its bound")
+        print(f"[8 train time] {name:16s} 25 back to back, per launch: kernel {b2b_ms:.4f} ms "
+              f"({b_ms / b2b_ms:.2%} of its bound) | sdpa {lib_b2b_ms:.4f} ms | "
+              f"kernel / sdpa {b2b_ms / lib_b2b_ms:.2f}")
     dbias_ms = median_ms(lambda: flash_attention_bwd(q, k, v, bias, d_out, want_dbias=True))
     print(f"[8 train time] flash_bwd with the dbias plane (not on the model's path): "
           f"{dbias_ms:.4f} ms")
@@ -573,13 +609,19 @@ def main() -> int:
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         built = dict(zip(KERNELS, pool.map(load_library, KERNELS)))
     for name, (_, log, build_s) in built.items():
-        ptxas = []  # per kernel: its name, then its spill and register lines
+        ptxas = []  # per kernel instance: its name, registers and spill bytes
         for ln in log.splitlines():
-            entry = re.search(r"entry function '.*?\d([a-z][a-z_]*_kernel)", ln)
+            entry = re.search(r"entry function '.*?\d([a-z][a-z_]*_kernel)"
+                              r"(?:ILi(\d+)E(?:\w*?\d([A-Z][A-Za-z]*?Bias))?)?", ln)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            regs = re.search(r"Used (\d+) registers", ln)
             if entry:
-                ptxas.append(entry.group(1) + ":")
-            elif "registers" in ln or "spill" in ln:
-                ptxas.append(ln.replace("ptxas info    :", "").strip())
+                args = ",".join(a for a in entry.group(2, 3) if a)
+                ptxas.append(entry.group(1) + (f"<{args}>" if args else "") + ":")
+            elif spill:
+                ptxas.append(f"spill {spill.group(1)}/{spill.group(2)} B,")
+            elif regs:
+                ptxas.append(f"{regs.group(1)} regs;")
         print(f"[2 build] {name}.cu: nvcc {build_s:.2f} s | " + " ".join(ptxas))
     print(f"[2 build] all {len(KERNELS)} built and loaded in {time.perf_counter() - t0:.2f} s")
 

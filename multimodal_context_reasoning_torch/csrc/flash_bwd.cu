@@ -245,70 +245,10 @@ constexpr int kRowPad = 8;                 // elements (16 bytes) after each sme
 // dK and dV units of 16 keys x Dh: 2 * kMaxLk / 16 = 24 over 8 warps
 constexpr int kMaxUnits = 2 * kMaxLk / 16 / kMmaWarps;
 
-__host__ __device__ constexpr int pad16(int n) { return (n + 15) & ~15; }
-
 size_t mma_smem_bytes(int lk, int dh) {
   const size_t lkp = pad16(lk);
   return sizeof(bf16) * (2 * lkp * (dh + kRowPad) + 2 * size_t(kTileRows) * (dh + kRowPad)
                          + 2 * size_t(kTileRows) * (lkp + kRowPad));
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-filled when `valid` is false.
-__device__ __forceinline__ void cp_async16(const void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Four 8x8 b16 matrices; lane l gives the address of row (l & 7) of matrix
-// l >> 3.  Register r holds matrix r: row lane / 4, columns 2 (lane % 4) + {0, 1}
-// (with .trans: rows 2 (lane % 4) + {0, 1}, column lane / 4).
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-
-// c += a (16x16, row) * b (16x8, col); bf16 operands, fp32 accumulators.
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Reductions over the four lanes of a quad, which share accumulator rows.
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // Accumulator layout of an m16n8 tile: c[e] sits at row lane / 4 + 8 (e / 2),

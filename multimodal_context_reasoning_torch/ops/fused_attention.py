@@ -14,11 +14,15 @@ v's dtype before PV.
   what a CPU tensor gets, and the oracle the kernel is held against.
 - :data:`fused_attention` is the wrapper.  On a CUDA tensor it launches
   ``csrc/fused_attention.cu`` (built at first use, ops/build.py) or raises;
-  it never falls back to the plain version there.  Its ``launches`` counter
-  grows by one per kernel launch.
+  it never falls back to the plain version there.  bf16 goes to the source's
+  tensor-core kernel, which takes head dim 64, at most 192 keys and rows
+  that start on 16 bytes (checked here before launch); fp32 to its
+  FP32-pipe kernel.  Its ``launches`` counter grows by one per kernel
+  launch.
 
-The helpers :func:`check_qkv` and :func:`bias_strides` are shared with the
-backward kernel's wrapper (ops/flash.py).
+The helpers :func:`check_qkv`, :func:`check_bf16_limits` and
+:func:`bias_strides` are shared with the backward kernel's wrapper
+(ops/flash.py).
 """
 
 from __future__ import annotations
@@ -29,6 +33,11 @@ from typing import Optional, Tuple
 import torch
 
 MAX_DH = 128
+# The bf16 tensor-core kernels' limits (kMmaDh and the key count in
+# csrc/fused_attention.cu and csrc/flash_bwd.cu, whose launchers refuse
+# anything beyond them).
+BF16_HEAD_DIM = 64
+BF16_MAX_KEYS = 192
 
 
 def fused_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -73,6 +82,27 @@ def check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B > 65535 or H > 65535:
         raise ValueError("batch and head count must be at most 65535")
     return B, lq, lk, H, dh
+
+
+def check_bf16_limits(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      *others: torch.Tensor) -> None:
+    """Raise ``ValueError`` on a bf16 input the tensor-core ``kernel`` does
+    not take: another head dim, more keys than it holds in shared memory, or
+    a row (16 bytes and more) that its 16-byte copies cannot read.
+    ``others`` (the output gradient) are shaped like q."""
+    dh, lk = q.shape[-1], k.shape[1]
+    if dh != BF16_HEAD_DIM:
+        raise ValueError(f"{kernel}: head dim {dh} not taken "
+                         f"(the kernel is built for {BF16_HEAD_DIM})")
+    if lk > BF16_MAX_KEYS:
+        raise ValueError(f"{kernel}: {lk} keys, at most {BF16_MAX_KEYS}")
+    named = (("q", q), ("k", k), ("v", v)) + tuple(("d_out", t) for t in others)
+    for name, t in named:
+        strides = [st for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+        if t.data_ptr() % 16 or any(st % 8 for st in strides):
+            raise ValueError(f"{kernel}: {name}'s rows are not 16-byte aligned "
+                             f"(data_ptr % 16 = {t.data_ptr() % 16}, "
+                             f"strides {tuple(t.stride())})")
 
 
 def bias_strides(bias: Optional[torch.Tensor], q: torch.Tensor,
@@ -134,8 +164,10 @@ class DenseBiasAttention:
         reports that)."""
         B, lq, lk, H, dh = check_qkv(q, k, v)
         bias_ptr, sbb, sbq, sbk = bias_strides(bias, q, lk)
-        lib = self._library()
         is_bf16 = int(q.dtype == torch.bfloat16)
+        if is_bf16:
+            check_bf16_limits("bf16 attention forward", q, k, v)
+        lib = self._library()
 
         out = torch.empty((B, lq, H, dh), dtype=q.dtype, device=q.device)
         with torch.cuda.device(q.device):

@@ -320,3 +320,64 @@ def test_bf16_backward_refuses_what_it_does_not_take(card):
     got = flash_attention_bwd(q, k, v, bias, d_out)   # no error left behind
     for g, w in zip(got, flash_attention_bwd_plain(q, k, v, bias, d_out)):
         _close(g, w, BWD_TOL[torch.bfloat16])
+
+
+# ---------------------------------------------------------------- the bf16
+# dense-bias forward's tensor-core kernel (csrc/fused_attention.cu,
+# dense_attention_mma_kernel); relative error within 2e-2 of max |plain|
+
+@pytest.mark.parametrize("lq,prefix,bias_shape", [(190, 0, "plane"), (128, 10, "row")])
+def test_bf16_dense_forward_at_model_lengths(card, lq, prefix, bias_shape):
+    """The chunk stage's Lq = Lk = 190 with a [B, 1, Lq, Lk] plane, and
+    RoBERTa's Lk = 138 with a [B, 1, 1, Lk] padding row."""
+    q, k, v, bias, _ = _dense_case(card, Lq=lq, P=prefix, bias_shape=bias_shape)
+    q, k, v = _bf16(q, k, v)
+    before = fused_attention.launches
+    got = fused_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert fused_attention.launches == before + 1
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    _rel_close(got, fused_attention_plain(q, k, v, bias), TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("case", ["fully masked row", "strided views", "no bias"])
+def test_bf16_dense_forward_cases(card, case):
+    """A batch row with every key at -10000; q, k, v as aligned views into
+    one [B, L, H, 3 Dh] tensor; no bias at all."""
+    q, k, v, bias, _ = _dense_case(card, Lq=37, P=10)
+    q, k, v = _bf16(q, k, v)
+    if case == "fully masked row":
+        bias[1] = -10000.0
+    elif case == "strided views":
+        big = torch.cat([torch.cat([q, q.flip(1)[:, :10]], dim=1), k, v], dim=-1)
+        q, k, v = big[:, :q.shape[1], :, :64], big[..., 64:128], big[..., 128:]
+        assert not q.is_contiguous() and not k.is_contiguous()
+    else:
+        bias = None
+    got = fused_attention(q, k, v, bias)
+    assert torch.isfinite(got).all()
+    _rel_close(got, fused_attention_plain(q, k, v, bias), TOL[torch.bfloat16])
+
+
+def test_bf16_dense_forward_is_deterministic(card):
+    """No atomics: two launches agree bit for bit."""
+    q, k, v, bias, _ = _dense_case(card, Lq=128, P=10)
+    q, k, v = _bf16(q, k, v)
+    assert torch.equal(fused_attention(q, k, v, bias), fused_attention(q, k, v, bias))
+
+
+def test_bf16_dense_forward_refuses_what_it_does_not_take(card):
+    q, k, v, bias, _ = _dense_case(card)
+    q, k, v = _bf16(q, k, v)
+    with pytest.raises(ValueError, match="16-byte"):
+        wide = torch.zeros(*q.shape[:3], 72, dtype=torch.bfloat16, device=card)
+        fused_attention(wide[..., 1:65], k, v, bias)
+    with pytest.raises(ValueError, match="head dim"):
+        narrow = [t[..., :32].contiguous() for t in (q, k, v)]
+        fused_attention(*narrow, bias)
+    with pytest.raises(ValueError, match="at most 192"):
+        long_kv = torch.zeros(q.shape[0], 4000, q.shape[2], q.shape[3],
+                              dtype=torch.bfloat16, device=card)
+        fused_attention(q, long_kv, long_kv, None)
+    got = fused_attention(q, k, v, bias)   # no error left behind
+    _close(got, fused_attention_plain(q, k, v, bias), TOL[torch.bfloat16])
