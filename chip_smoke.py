@@ -8,15 +8,20 @@ the port is not beside this script, or when any phase fails.  Phases:
 
 1. device: card name, power limit, TF32 off;
 2. build: ``nvcc`` builds ``csrc/{spec_attention,fused_attention,flash_bwd}.cu``
-   from this checkout, one process per source, all started together, and
-   prints each kernel's registers and spill bytes as ``ptxas -v`` gives them
-   (the bf16 dense forward once per instance: keys / 16 and mask source);
+   (the first two share ``csrc/attention_mma.cuh``) from this checkout, one
+   process per source, all started together, and prints each kernel's
+   registers and spill bytes as ``ptxas -v`` gives them (the bf16 forwards
+   once per instance: keys / 16 and mask functor);
 3. kernel vs plain: the stage-mask kernel against its plain PyTorch version
    at the five ModCR shapes of each served micro-batch (8 and 32), fp32
-   (1e-4 abs) and bf16 (2e-2 abs), plus a fully masked row;
+   (1e-4 abs, the FP32-pipe route) and bf16 (2e-2 abs, the tensor-core
+   route), plus fully masked rows, and two bf16 launches bit-equal;
 4. timing: kernel, plain version and ``F.scaled_dot_product_attention`` with
    the same mask as a dense boolean (the yardstick only; the port never
-   calls it), bf16 at the micro-batch-8 shapes, CUDA events, median of 25;
+   calls it), bf16 at the micro-batch-8 shapes, CUDA events, median of 25
+   calls each in its own window; then the kernel and SDPA as 25 launches
+   back to back in one window, divided by 25 (median of 5 windows); each
+   summed over one forward's 60 launches;
 5. end-to-end parity: full-width fp32 ``ModCRConfig()`` scoring one example
    on the card (kernel) and on the CPU (plain version), same weights;
 6. serving: full-width bf16 ``ModCRScorer`` at micro-batch 8 and 32; every
@@ -612,7 +617,7 @@ def main() -> int:
         ptxas = []  # per kernel instance: its name, registers and spill bytes
         for ln in log.splitlines():
             entry = re.search(r"entry function '.*?\d([a-z][a-z_]*_kernel)"
-                              r"(?:ILi(\d+)E(?:\w*?\d([A-Z][A-Za-z]*?Bias))?)?", ln)
+                              r"(?:ILi(\d+)E(?:\w*?\d([A-Z][A-Za-z]*?(?:Bias|Stage)))?)?", ln)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
             regs = re.search(r"Used (\d+) registers", ln)
             if entry:
@@ -654,26 +659,40 @@ def main() -> int:
         print(f"[3 check] {'fully masked rows':33s} {str(dtype):15s} finite="
               f"{torch.isfinite(got).all().item()} max|kernel-plain| {err:.3e}")
         check(torch.isfinite(got).all().item() and err <= TOL[dtype], "fully masked rows")
+    for case, _ in cases[8][1:3]:   # the chunk and full stages at L = 190
+        args = cuda_args(case, torch.bfloat16)
+        kw = dict(stage=case["stage"], text_len=case["text_len"])
+        same = torch.equal(fused_attention_spec(*args, **kw), fused_attention_spec(*args, **kw))
+        print(f"[3 check] {case['name']:33s} bf16, two launches bit-equal {same}")
+        check(same, f"{case['name']}: two bf16 launches differ")
 
     # 4. timing (bf16, the serving dtype), at micro-batch 8
-    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, b2b_ms=0.0,
+                  library_b2b_ms=0.0)
     bytes_share = 0.0
     per_shape = []
     for case, n_fwd in cases[8]:
         args = cuda_args(case, torch.bfloat16)
         kw = dict(stage=case["stage"], text_len=case["text_len"])
-        ms = median_ms(lambda: fused_attention_spec(*args, **kw))
+        kernel = lambda: fused_attention_spec(*args, **kw)
+        sdpa = sdpa_call(*args, case)
+        ms = median_ms(kernel)
         plain_ms = median_ms(lambda: spec_attention_plain(*args, **kw))
-        lib_ms = median_ms(sdpa_call(*args, case))
+        lib_ms = median_ms(sdpa)
+        b2b_ms, lib_b2b_ms = back_to_back_ms(kernel), back_to_back_ms(sdpa)
         b_ms, b_by = bound(case, torch.bfloat16)
         per_shape.append(dict(shape=case["name"], launches_per_forward=n_fwd, ms=ms,
                               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                              bound_by=b_by))
+                              bound_by=b_by, b2b_ms=b2b_ms, library_b2b_ms=lib_b2b_ms))
         print(f"[4 time] {case['name']:33s} kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
               f"sdpa {lib_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by}) | "
               f"{n_fwd} per forward")
+        print(f"[4 time] {case['name']:33s} 25 back to back, per launch: kernel "
+              f"{b2b_ms:.4f} ms ({b_ms / b2b_ms:.2%} of its bound) | sdpa {lib_b2b_ms:.4f} ms "
+              f"| kernel / sdpa {b2b_ms / lib_b2b_ms:.2f}")
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
-                         ("library_ms", lib_ms)):
+                         ("library_ms", lib_ms), ("b2b_ms", b2b_ms),
+                         ("library_b2b_ms", lib_b2b_ms)):
             totals[key] += n_fwd * val
         if b_by == "bytes":
             bytes_share += n_fwd * b_ms
@@ -784,7 +803,10 @@ def main() -> int:
         "bound_ms": totals["bound_ms"],
         "bound_by": "bytes" if bytes_share >= totals["bound_ms"] / 2 else "operations",
         "library_ms": totals["library_ms"],
-        "timed_as": "sum over one micro-batch-8 forward's 60 launches, bf16",
+        "b2b_ms": totals["b2b_ms"],
+        "library_b2b_ms": totals["library_b2b_ms"],
+        "timed_as": "sum over one micro-batch-8 forward's 60 launches, bf16 (ms, plain_ms, "
+                    "library_ms per call; b2b_ms, library_b2b_ms back to back)",
         "shapes": per_shape,
     }, {
         "name": "fused_attention",

@@ -1,0 +1,259 @@
+// The bf16 tensor-core attention forward shared by fused_attention.cu (a
+// dense additive bias) and spec_attention.cu (the stage mask rebuilt from
+// per-token vectors).  Each source includes this header with quotes and keeps
+// its own __global__ entry, which calls attention_mma_tile<NP, Mask> and so
+// carries its own name in a profile; the two differ only in the Mask functor,
+// the one place the score tile meets the caller's mask.  ops/build.py hashes
+// every csrc/*.cuh into each kernel's rebuild key.
+//
+// For one (batch, head, 64 query rows) a block of 4 warps computes
+//
+//     out = softmax(Q K^T / sqrt(Dh) + mask) V
+//
+// in the TPU kernels' order of casts: S = (Q K^T in fp32) * scale (a rounded
+// multiply, never fused with the mask add), then + mask; m = row max,
+// e = exp(S - m), P = e / sum(e), all fp32; P rounded to bf16 after the
+// normalisation; PV accumulated in fp32 (mma.sync m16n8k16, bf16 operands,
+// fp32 accumulators, operands through ldmatrix; the helpers are in
+// common.cuh).
+//
+// The block copies its Q tile and the head's K (one cp.async group) and V (a
+// second group, awaited only before PV, so V's copy overlaps the scores) from
+// their strided [B, L, H, Dh] layout into shared memory, 16 bytes a thread,
+// keys padded to Lk_pad (a multiple of 16) and query rows past Lq
+// zero-filled; each row is padded by 16 bytes, so the eight 16-byte rows an
+// ldmatrix reads fall in distinct banks.  Meanwhile the mask stages what it
+// needs per key (Mask::kKeyWords 32-bit words a key) in shared memory.  Each
+// warp then owns 16 query rows against all keys, with the whole [16, Lk_pad]
+// score tile in registers (the key count Lk_pad / 16 is the template
+// parameter NP, 1 to 12, so the tile is exactly sized): S by mma, scaled, the
+// mask added, the row max and sum by quad shuffles, P = e / sum with expf and
+// an IEEE division (the plain versions' arithmetic; no exp2 prescale, no
+// reciprocal), then P rounded and packed straight into A fragments (the
+// accumulator layout of two 8-key tiles is the A layout of one 16-key step)
+// for O += P V, with V's B operands from ldmatrix.trans.  Keys at or past Lk
+// score -inf, so P is exactly 0 there; a real key the caller masks with
+// -10000 or -1e9 stays as it is, so a fully masked row comes out as in the
+// plain version.  O goes through the warp's own Q rows in shared memory to
+// 16-byte stores; rows past Lq are not written.  No atomics: two launches
+// give the same bits.
+//
+// Budget: shared memory (2 Lk_pad + 64) * 72 * 2 + 4 kKeyWords Lk_pad bytes,
+// 65,280 B at Lk = 190 with one word a key: 4 resident blocks (16 warps) per
+// SM up to Lk_pad = 160 and 3 above, so one block's copies overlap another's
+// products; the kernels' __launch_bounds__ ask for that residency (at most
+// 128 registers a thread for 4 blocks, 168 for 3).  It takes Dh = 64 and
+// Lk <= 192 (the wrappers raise before launch otherwise) and 16-byte aligned
+// rows.
+//
+// A Mask functor provides:
+//   using Args;                       the kernel's one argument, a struct
+//       with the fields q, k, v, out (bf16; q [B, Lq, H, Dh], k and v
+//       [B, Lk, H, Dh] with unit stride on Dh and the element strides sqb,
+//       sqi, sqh, skb, ski, skh, svb, svi, svh; out contiguous
+//       [B, Lq, H, Dh]), lq, lk, n_heads and scale, and the mask's own;
+//   static constexpr int kKeyWords;   shared-memory words it stages per key
+//   static void stage(a, mask_s, b, nkeys)   all threads, before the
+//       block's barrier: fill mask_s for keys 0..nkeys-1 of batch row b;
+//   static Mask make(a, mask_s, b, row)      per lane, for its two rows;
+//   float operator()(hi, j)           what is added to the scaled score of
+//       the lane's row row[hi] and key j < Lk.
+
+#pragma once
+
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = kMmaWarps * 32;
+constexpr int kTileRows = 16 * kMmaWarps;  // query rows per block, 16 per warp
+constexpr int kMmaDh = 64;                 // the one head dim instantiated
+constexpr int kMaxPairs = 12;              // 16-key steps: Lk <= 192
+constexpr int kRowPad = 8;                 // elements (16 bytes) after each smem row
+constexpr int kS = kMmaDh + kRowPad;       // row stride of K, V and Q in shared memory
+
+// Dynamic shared memory of one block: K, V, the Q tile, and `key_words`
+// 32-bit words of the mask per key.
+size_t mma_smem_bytes(int lk, int key_words) {
+  const size_t lkp = pad16(lk);
+  return sizeof(bf16) * (2 * lkp + kTileRows) * kS + sizeof(float) * key_words * lkp;
+}
+
+// Accumulator layout of an m16n8 tile: c[e] sits at row lane / 4 + 8 (e / 2),
+// column 2 (lane % 4) + e % 2.  A fragment (16x16): a[0] rows 0-7, a[1] rows
+// 8-15, a[2] and a[3] the same rows at columns 8-15.
+template <int NP, class Mask>
+__device__ __forceinline__ void attention_mma_tile(const typename Mask::Args& a) {
+  constexpr int kChunks = kMmaDh / 8;  // 16-byte chunks per row
+  constexpr int kSteps = kMmaDh / 16;  // k-steps over Dh
+  constexpr int kDt = kMmaDh / 8;      // 8-wide n-tiles over Dh
+  constexpr int kLkp = 16 * NP;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem);                       // [kLkp][kS]
+  bf16* v_s = k_s + kLkp * kS;                                     // [kLkp][kS]
+  bf16* q_s = v_s + kLkp * kS;                                     // [kTileRows][kS], then O
+  float* mask_s = reinterpret_cast<float*>(q_s + kTileRows * kS);  // [kLkp][kKeyWords]
+
+  const int i0 = blockIdx.x * kTileRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int r0 = 16 * warp;  // this warp's first row in the tile
+
+  // group 0: Q and K; group 1: V
+  const bf16* qb = a.q + b * a.sqb + h * a.sqh;
+  const bf16* kb = a.k + b * a.skb + h * a.skh;
+  const bf16* vb = a.v + b * a.svb + h * a.svh;
+  for (int c = threadIdx.x; c < kTileRows * kChunks; c += kMmaThreads) {
+    const int r = c / kChunks;
+    const int d = (c % kChunks) * 8;
+    const bool ok = i0 + r < a.lq;
+    cp_async16(q_s + r * kS + d, qb + (ok ? i0 + r : 0) * a.sqi + d, ok);
+  }
+  for (int c = threadIdx.x; c < kLkp * kChunks; c += kMmaThreads) {
+    const int j = c / kChunks;
+    const int d = (c % kChunks) * 8;
+    const bool ok = j < a.lk;
+    cp_async16(k_s + j * kS + d, kb + (ok ? j : 0) * a.ski + d, ok);
+  }
+  cp_async_commit();
+  for (int c = threadIdx.x; c < kLkp * kChunks; c += kMmaThreads) {
+    const int j = c / kChunks;
+    const int d = (c % kChunks) * 8;
+    const bool ok = j < a.lk;
+    cp_async16(v_s + j * kS + d, vb + (ok ? j : 0) * a.svi + d, ok);
+  }
+  cp_async_commit();
+  Mask::stage(a, mask_s, b, kLkp);
+  cp_async_wait<1>();
+  __syncthreads();
+
+  // S = Q K^T for this warp's 16 rows and all keys
+  float sc[NP][2][4];
+#pragma unroll
+  for (int jp = 0; jp < NP; ++jp)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[jp][n][e] = 0.f;
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s) {
+    uint32_t qa[4];
+    ldsm_x4(qa, q_s + (r0 + (lane & 15)) * kS + 16 * s + 8 * (lane >> 4));
+#pragma unroll
+    for (int jp = 0; jp < NP; ++jp) {
+      uint32_t y[4];
+      ldsm_x4(y, k_s + (16 * jp + (lane & 7) + 8 * (lane >> 4)) * kS + 16 * s +
+                     8 * ((lane >> 3) & 1));
+      mma16816(sc[jp][0], qa, y[0], y[1]);
+      mma16816(sc[jp][1], qa, y[2], y[3]);
+    }
+  }
+
+  // scale, mask, softmax in fp32; P rounded and packed as A fragments
+  const int row[2] = {i0 + r0 + g, i0 + r0 + g + 8};
+  const Mask mask = Mask::make(a, mask_s, b, row);
+  uint32_t pa[NP][4];
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    float m = -INFINITY;
+#pragma unroll
+    for (int jp = 0; jp < NP; ++jp)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 2 * hi; e < 2 * hi + 2; ++e) {
+          const int j = 16 * jp + 8 * n + 2 * t + (e & 1);
+          const float x = __fmul_rn(sc[jp][n][e], a.scale);
+          sc[jp][n][e] = j < a.lk ? x + mask(hi, j) : -INFINITY;
+          m = fmaxf(m, sc[jp][n][e]);
+        }
+    m = quad_max(m);
+    float sum = 0.f;
+#pragma unroll
+    for (int jp = 0; jp < NP; ++jp)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 2 * hi; e < 2 * hi + 2; ++e) {
+          sc[jp][n][e] = expf(sc[jp][n][e] - m);
+          sum += sc[jp][n][e];
+        }
+    sum = quad_sum(sum);
+#pragma unroll
+    for (int jp = 0; jp < NP; ++jp)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+        pa[jp][2 * n + hi] = pack_bf16(sc[jp][n][2 * hi] / sum, sc[jp][n][2 * hi + 1] / sum);
+  }
+
+  // O = P V
+  cp_async_wait<0>();
+  __syncthreads();
+  float o[kDt][4];
+#pragma unroll
+  for (int n = 0; n < kDt; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+#pragma unroll
+  for (int jp = 0; jp < NP; ++jp)
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      uint32_t y[4];
+      ldsm_x4_t(y, v_s + (16 * jp + (lane & 15)) * kS + 16 * s + 8 * (lane >> 4));
+      mma16816(o[2 * s], pa[jp], y[0], y[1]);
+      mma16816(o[2 * s + 1], pa[jp], y[2], y[3]);
+    }
+
+  // O through this warp's own Q rows (read by no other warp) to 16-byte stores
+  bf16* o_s = q_s + r0 * kS;
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi)
+#pragma unroll
+    for (int n = 0; n < kDt; ++n)
+      *reinterpret_cast<uint32_t*>(o_s + (g + 8 * hi) * kS + 8 * n + 2 * t) =
+          pack_bf16(o[n][2 * hi], o[n][2 * hi + 1]);
+  __syncwarp();
+  for (int c = lane; c < 16 * kChunks; c += 32) {
+    const int r = c / kChunks;
+    const int d = (c % kChunks) * 8;
+    const int i = i0 + r0 + r;
+    if (i < a.lq)
+      *reinterpret_cast<uint4*>(a.out + ((int64_t(b) * a.lq + i) * a.n_heads + h) * kMmaDh + d) =
+          *reinterpret_cast<const uint4*>(o_s + r * kS + d);
+  }
+}
+
+// Reserve `Kernel`'s shared memory and launch it on a (ceil(Lq / 64), H, B)
+// grid; returns cudaGetLastError().
+template <auto Kernel, class Args>
+int launch_mma(const Args& a, int b, size_t smem, cudaStream_t stream) {
+  const cudaError_t err = reserve_smem<Kernel>(smem);
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid((a.lq + kTileRows - 1) / kTileRows, a.n_heads, b);
+  Kernel<<<grid, kMmaThreads, smem, stream>>>(a);
+  return int(cudaGetLastError());
+}
+
+// `launch.template run<NP>()` for the instance whose score tile holds
+// Lk_pad = pad16(lk) = 16 NP keys.
+template <int NP, class Launch>
+int launch_pairs(int lk, const Launch& launch) {
+  if constexpr (NP > kMaxPairs) {
+    return int(cudaErrorInvalidValue);
+  } else {
+    if (pad16(lk) != 16 * NP) return launch_pairs<NP + 1>(lk, launch);
+    return launch.template run<NP>();
+  }
+}
+
+}  // namespace

@@ -21,23 +21,49 @@
 //
 // What the design does about it: q, k and v are read in their native
 // [B, L, H, Dh] layout through strides (no transposed or padded copies, as
-// the TPU version needed), each block stages one head's whole K and V in
-// shared memory once and serves a tile of query rows from it, and the mask
-// costs two O(Lk) vector loads per block.  One warp owns one query row at a
-// time: each lane scores its share of the keys, the warp reduces max and
-// sum with shuffles, and each lane then accumulates its share of the output
-// dimensions.  The products run on the FP32 pipes, not the tensor cores:
-// this first version is simple and exact, and a wgmma version is later
-// work (PERF.md carries its times against the byte bound).
+// the TPU version needed), and the mask costs O(Lk) vector loads per block.
+// Two kernels, chosen by the operand type (a dispatch, not a fallback):
+//
+// * bf16 (the serving path and the training step's frozen encoders):
+//   spec_attention_mma_kernel, on the tensor cores.  Its body is
+//   attention_mma_tile in attention_mma.cuh, shared with the dense-bias
+//   forward (one block of 4 warps per (batch, head, 64 query rows), K, V
+//   and the Q tile copied once by cp.async, the whole [16, Lk_pad] score
+//   tile of a warp in registers, mma.sync with ldmatrix; the design and the
+//   order of casts are noted there).  This file gives it the stage mask as
+//   a mask functor, whose value -((1 - vis) * 1e9) is added to the scaled
+//   score: x + (-n) rounds as x - n does, so the scores are the plain
+//   version's bit for bit.  FullStage (vis = valid[j]) stages that row in
+//   shared memory once per block.  ChunkStage (the chunk and cross stages,
+//   told apart by a block-uniform argument) stages the key-side valid and
+//   gi (8 bytes a key), holds each lane's two query rows' gi, rowfull and
+//   image flag in registers, and rebuilds vis per score from them in fp32
+//   with rounded operations (nothing contracted into an FMA).  Padded keys
+//   score -inf; a fully masked row adds -1e9 to every key and comes out
+//   uniform, as in the plain version.  Shared memory 65,280 B (full) and
+//   66,048 B (chunk, cross) at Lk = 190: 3 blocks per SM there, 4 up to
+//   Lk_pad = 160.  ptxas -v (chip_smoke.py phase 2): 46 to 168 registers,
+//   0 spill bytes in every instance.  It takes Dh = 64 and Lk <= 192 and
+//   16-byte aligned rows (the wrapper raises before launch otherwise).
+//
+// * fp32 (the parity checks): spec_attention_kernel, on the FP32 pipes.
+//   Each block stages one head's whole K and V in shared memory and serves
+//   a tile of 64 query rows from it.  One warp owns one query row at a
+//   time: each lane scores its share of the keys, the warp reduces max and
+//   sum with shuffles, and each lane then accumulates its share of the
+//   output dimensions.
 //
 // Plain C interface, loaded with ctypes (multimodal_context_reasoning_torch/
 // ops/spec_attention.py).  The launcher returns cudaGetLastError().
 
 #include <cstdint>
 
+#include "attention_mma.cuh"
 #include "common.cuh"
 
 namespace {
+
+// ------------------------------------------------------------------ fp32
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -172,6 +198,138 @@ int launch(const void* q, const void* k, const void* v, const float* valid,
   return int(cudaGetLastError());
 }
 
+
+// ------------------------------------------------------------------ bf16
+// The tile body, the launch and the key-count dispatch are in
+// attention_mma.cuh, shared with fused_attention.cu; here are the stage masks.
+
+constexpr float kMaskPenalty = 1e9f;
+
+// q, k, v, out, and the stage's vectors: valid, gi, rowfull contiguous
+// [B, Lk], the text length, chunk 0 or cross 1.
+struct SpecArgs {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  bf16* out;
+  const float* valid;
+  const int* gi;
+  const float* rowfull;
+  int lq, lk, n_heads;
+  int64_t sqb, sqi, sqh, skb, ski, skh, svb, svi, svh;
+  int text_len, cross;
+  float scale;
+};
+
+// The full stage: vis = valid[j], the same for every query row, so the row
+// -((1 - valid[j]) * 1e9) is staged in shared memory once per block.
+struct FullStage {
+  using Args = SpecArgs;
+  static constexpr int kKeyWords = 1;
+  const float* row_s;
+  __device__ static void stage(const SpecArgs& a, float* row_s, int b, int nkeys) {
+    const float* valid = a.valid + int64_t(b) * a.lk;
+    for (int j = threadIdx.x; j < nkeys; j += kMmaThreads)
+      row_s[j] = j < a.lk ? -__fmul_rn(1.f - __ldg(valid + j), kMaskPenalty) : 0.f;
+  }
+  __device__ static FullStage make(const SpecArgs&, const float* row_s, int,
+                                   const int (&)[2]) {
+    return {row_s};
+  }
+  __device__ float operator()(int, int j) const { return row_s[j]; }
+};
+
+// One key's side of the chunk and cross stages' mask.
+struct __align__(8) KeySide {
+  float valid;
+  int gi;
+};
+
+// The chunk and cross stages (Lq == Lk): the TPU kernel's algebra per score,
+// from the key's staged valid and gi and the lane's two query rows' terms.
+struct ChunkStage {
+  using Args = SpecArgs;
+  static constexpr int kKeyWords = 2;
+  const KeySide* key_s;
+  int row[2], gi_q[2];
+  float row_q[2], img_q[2];
+  int text_len;
+  bool cross;
+  __device__ static void stage(const SpecArgs& a, float* words, int b, int nkeys) {
+    KeySide* key_s = reinterpret_cast<KeySide*>(words);
+    const int64_t off = int64_t(b) * a.lk;
+    for (int j = threadIdx.x; j < nkeys; j += kMmaThreads)
+      key_s[j] = j < a.lk ? KeySide{__ldg(a.valid + off + j), __ldg(a.gi + off + j)}
+                          : KeySide{0.f, -1};
+  }
+  // rows at or past Lq read nothing
+  __device__ static ChunkStage make(const SpecArgs& a, const float* words, int b,
+                                    const int (&row)[2]) {
+    ChunkStage m;
+    m.key_s = reinterpret_cast<const KeySide*>(words);
+    const int64_t off = int64_t(b) * a.lk;
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const bool ok = row[hi] < a.lq;
+      m.row[hi] = row[hi];
+      m.gi_q[hi] = ok ? __ldg(a.gi + off + row[hi]) : -1;
+      m.row_q[hi] = ok ? __ldg(a.rowfull + off + row[hi]) : 0.f;
+      m.img_q[hi] = row[hi] >= a.text_len ? 1.f : 0.f;
+    }
+    m.text_len = a.text_len;
+    m.cross = a.cross != 0;
+    return m;
+  }
+  __device__ float operator()(int hi, int j) const {
+    const KeySide key = key_s[j];
+    const float img_k = j >= text_len ? 1.f : 0.f;
+    const float same = (gi_q[hi] == key.gi && gi_q[hi] >= 0) ? 1.f : 0.f;
+    const float eye = row[hi] == j ? 1.f : 0.f;
+    const float text_in = fminf(__fadd_rn(__fadd_rn(same, eye), row_q[hi]), 1.f);
+    const float text_rows =
+        __fmul_rn(__fadd_rn(__fmul_rn(1.f - img_k, text_in), img_k), key.valid);
+    const float img_rows = cross ? eye : __fmul_rn(img_k, key.valid);
+    const float vis =
+        __fadd_rn(__fmul_rn(img_q[hi], img_rows), __fmul_rn(1.f - img_q[hi], text_rows));
+    return -__fmul_rn(1.f - vis, kMaskPenalty);
+  }
+};
+
+template <int NP, class Mask>
+__global__ void __launch_bounds__(kMmaThreads, NP <= 10 ? 4 : 3)
+spec_attention_mma_kernel(const SpecArgs a) {
+  attention_mma_tile<NP, Mask>(a);
+}
+
+// The full or chunk/cross instance at Lk_pad = 16 NP.
+struct SpecLaunch {
+  const SpecArgs& a;
+  bool full;
+  int b;
+  cudaStream_t stream;
+  template <int NP>
+  int run() const {
+    return full ? launch_mma<spec_attention_mma_kernel<NP, FullStage>>(
+                      a, b, mma_smem_bytes(16 * NP, FullStage::kKeyWords), stream)
+                : launch_mma<spec_attention_mma_kernel<NP, ChunkStage>>(
+                      a, b, mma_smem_bytes(16 * NP, ChunkStage::kKeyWords), stream);
+  }
+};
+
+int launch_bf16(const void* q, const void* k, const void* v, const float* valid,
+                const int* gi, const float* rowfull, void* out, int b, int lq, int lk,
+                int h, int dh, int64_t sqb, int64_t sqi, int64_t sqh, int64_t skb,
+                int64_t ski, int64_t skh, int64_t svb, int64_t svi, int64_t svh,
+                int stage, int text_len, float scale, cudaStream_t stream) {
+  if (dh != kMmaDh || lk > 16 * kMaxPairs || (stage != kFull && lq != lk))
+    return int(cudaErrorInvalidValue);
+  const SpecArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                   static_cast<const bf16*>(v), static_cast<bf16*>(out), valid, gi, rowfull,
+                   lq, lk, h, sqb, sqi, sqh, skb, ski, skh, svb, svi, svh, text_len,
+                   stage == kCross, scale};
+  return launch_pairs<1>(lk, SpecLaunch{a, stage == kFull, b, stream});
+}
+
 }  // namespace
 
 extern "C" {
@@ -179,13 +337,15 @@ extern "C" {
 // Dynamic shared memory one block needs; the wrapper names it when a launch
 // is refused.
 long long spec_attention_smem_bytes(int lk, int dh, int is_bf16) {
-  return is_bf16 ? (long long)smem_bytes<__nv_bfloat16>(lk, dh)
+  return is_bf16 ? (long long)mma_smem_bytes(lk, ChunkStage::kKeyWords)
                  : (long long)smem_bytes<float>(lk, dh);
 }
 
 // q [B, Lq, H, Dh], k and v [B, Lk, H, Dh] with unit stride on Dh and the
 // given element strides on B, L and H; valid, rowfull fp32 and gi int32,
-// contiguous [B, Lk]; out contiguous [B, Lq, H, Dh] of q's type.
+// contiguous [B, Lk]; out contiguous [B, Lq, H, Dh] of q's type.  bf16 goes
+// to the tensor-core kernel (Dh 64, Lk <= 192, rows 16-byte aligned), fp32 to
+// the FP32-pipe kernel.
 int spec_attention_forward(const void* q, const void* k, const void* v,
                            const float* valid, const int* gi,
                            const float* rowfull, void* out, int b, int lq, int lk,
@@ -196,9 +356,8 @@ int spec_attention_forward(const void* q, const void* k, const void* v,
                            int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16>(q, k, v, valid, gi, rowfull, out, b, lq, lk, h, dh,
-                                 sqb, sqi, sqh, skb, ski, skh, svb, svi, svh, stage,
-                                 text_len, scale, s);
+    return launch_bf16(q, k, v, valid, gi, rowfull, out, b, lq, lk, h, dh, sqb, sqi, sqh,
+                       skb, ski, skh, svb, svi, svh, stage, text_len, scale, s);
   return launch<float>(q, k, v, valid, gi, rowfull, out, b, lq, lk, h, dh, sqb, sqi,
                        sqh, skb, ski, skh, svb, svi, svh, stage, text_len, scale, s);
 }

@@ -3,9 +3,11 @@
 Each kernel is one ``csrc/<name>.cu`` with a plain C interface.  ``nvcc``
 compiles it for ``sm_90a`` into a shared library under ``build/torch_kernels/``
 beside the package (a directory ``.gitignore`` lists), named by a hash of the
-source and of the shared ``csrc/common.cuh``, so an edited source or header
-is rebuilt and an unchanged one is loaded as it is.  Nothing here runs at import: the wrappers call :func:`load_library` on
-their first CUDA launch.
+source and of every shared header ``csrc/*.cuh`` (``common.cuh``,
+``attention_mma.cuh``), so an edit to a source or to any header rebuilds every
+library that may include it, and an unchanged one is loaded as it is.
+Nothing here runs at import: the wrappers call :func:`load_library` on their
+first CUDA launch.
 """
 
 from __future__ import annotations
@@ -21,7 +23,6 @@ from typing import Dict, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
-COMMON_HEADER = CSRC_DIR / "common.cuh"  # included by every kernel source
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,6 +44,16 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def source_digest(src: Path) -> str:
+    """Rebuild key of one kernel source: a hash of it and of every header in
+    ``csrc/``, in name order."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return h.hexdigest()[:16]
+
+
 def load_library(name: str) -> Tuple[ctypes.CDLL, str, float]:
     """Compile ``csrc/<name>.cu`` unless its library is already built, load
     it, and return ``(library, nvcc output, seconds spent building)``.
@@ -50,7 +61,7 @@ def load_library(name: str) -> Tuple[ctypes.CDLL, str, float]:
     if name in _LOADED:
         return _LOADED[name]
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + COMMON_HEADER.read_bytes()).hexdigest()[:16]
+    digest = source_digest(src)
     lib_path = BUILD_DIR / f"lib{name}_{digest}.so"
     log, seconds = "", 0.0
     if not lib_path.exists():

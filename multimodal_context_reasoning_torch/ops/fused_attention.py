@@ -22,7 +22,8 @@ v's dtype before PV.
 
 The helpers :func:`check_qkv`, :func:`check_bf16_limits` and
 :func:`bias_strides` are shared with the backward kernel's wrapper
-(ops/flash.py).
+(ops/flash.py); the first two with the stage-mask forward's
+(ops/spec_attention.py).
 """
 
 from __future__ import annotations
@@ -34,8 +35,8 @@ import torch
 
 MAX_DH = 128
 # The bf16 tensor-core kernels' limits (kMmaDh and the key count in
-# csrc/fused_attention.cu and csrc/flash_bwd.cu, whose launchers refuse
-# anything beyond them).
+# csrc/attention_mma.cuh, shared by the dense-bias and stage-mask forwards,
+# and in csrc/flash_bwd.cu; their launchers refuse anything beyond them).
 BF16_HEAD_DIM = 64
 BF16_MAX_KEYS = 192
 
@@ -96,10 +97,11 @@ def check_bf16_limits(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Te
                          f"(the kernel is built for {BF16_HEAD_DIM})")
     if lk > BF16_MAX_KEYS:
         raise ValueError(f"{kernel}: {lk} keys, at most {BF16_MAX_KEYS}")
-    named = (("q", q), ("k", k), ("v", v)) + tuple(("d_out", t) for t in others)
-    for name, t in named:
-        strides = [st for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
-        if t.data_ptr() % 16 or any(st % 8 for st in strides):
+    for name, t in zip(("q", "k", "v", "d_out"), (q, k, v, *others)):
+        # one pass per tensor: this runs before every bf16 launch
+        (sb, si, sh, _), (nb, ni, nh, _) = t.stride(), t.shape
+        if (t.data_ptr() % 16 or (nb > 1 and sb % 8) or (ni > 1 and si % 8)
+                or (nh > 1 and sh % 8)):
             raise ValueError(f"{kernel}: {name}'s rows are not 16-byte aligned "
                              f"(data_ptr % 16 = {t.data_ptr() % 16}, "
                              f"strides {tuple(t.stride())})")

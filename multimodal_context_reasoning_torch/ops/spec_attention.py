@@ -16,13 +16,26 @@ and a uniform row where every key is masked.
   what a CPU tensor gets, and the oracle the kernel is held against.
 - :data:`fused_attention_spec` is the wrapper.  On a CUDA tensor it launches
   ``csrc/spec_attention.cu`` (built at first use, ops/build.py) or raises;
-  it never falls back to the plain version there.  Its ``launches`` counter
-  grows by one per kernel launch.
-- The wrapper runs as a ``torch.autograd.Function`` that saves only its
-  inputs (under ``no_grad`` it records nothing).  Its backward
-  rebuilds the mask as the bias plane ``-1e9 * (1 - vis)`` (:func:`spec_bias`)
-  and runs the attention backward of ops/flash.py: the backward kernel on
-  the card, its plain version on the CPU.  The JAX package's spec kernel has
+  it never falls back to the plain version there.  Two routes, by dtype:
+  bf16 (the serving path and the training step's frozen encoders) goes to
+  ``spec_attention_mma_kernel`` on the tensor cores, the dense-bias
+  forward's tile (``csrc/attention_mma.cuh``) with the stage mask as its
+  mask functor; it takes head dim 64, at most 192 keys and rows that start
+  on 16 bytes, checked here before launch (:func:`check_bf16_limits`).
+  fp32 (the parity checks) goes to ``spec_attention_kernel`` on the FP32
+  pipes.  Its ``launches`` counter grows by one per kernel launch.
+- What bounds the kernel on the card is bytes (q, k, v read once, out
+  written once; about 95 FLOP/byte at the ModCR shapes, below the H100's
+  ridge): both routes read q, k, v in place through their strides and
+  rebuild the mask from O(Lk) vectors per block, so no mask or score plane
+  reaches device memory; the bf16 route keeps each warp's score tile in
+  registers and moves the products onto the tensor cores.
+- When q, k or v needs a gradient, the wrapper runs as a
+  ``torch.autograd.Function`` that saves only its inputs (otherwise it
+  calls the forward alone).  Its backward rebuilds the mask as the bias
+  plane ``-1e9 * (1 - vis)`` (:func:`spec_bias`) and runs the attention
+  backward of ops/flash.py: the backward kernel on the card, its plain
+  version on the CPU.  The JAX package's spec kernel has
   no VJP; its oracle for these gradients is autodiff of the dense path.
 """
 
@@ -33,7 +46,10 @@ import ctypes
 import torch
 
 from multimodal_context_reasoning_torch.ops.flash import flash_attention_bwd
-from multimodal_context_reasoning_torch.ops.fused_attention import check_qkv
+from multimodal_context_reasoning_torch.ops.fused_attention import (
+    check_bf16_limits,
+    check_qkv,
+)
 
 STAGES = {"full": 0, "chunk": 1, "cross": 2}
 MASK_PENALTY = 1e9
@@ -139,8 +155,13 @@ class SpecAttention:
 
     def __call__(self, q, k, v, valid, gi, rowfull, *, stage: str,
                  text_len: int) -> torch.Tensor:
-        return _SpecAttentionFn.apply(q, k, v, valid, gi, rowfull, stage, text_len,
-                                      self)
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return _SpecAttentionFn.apply(q, k, v, valid, gi, rowfull, stage,
+                                          text_len, self)
+        # nothing to differentiate (serving, the frozen encoders): the
+        # Function's bookkeeping would only add host time to every launch
+        return self.forward(q, k, v, valid, gi, rowfull, stage=stage, text_len=text_len)
 
     def forward(self, q, k, v, valid, gi, rowfull, *, stage: str,
                 text_len: int) -> torch.Tensor:
@@ -156,9 +177,9 @@ class SpecAttention:
 
     def launch(self, q, k, v, valid, gi, rowfull, *, stage: str,
                text_len: int) -> torch.Tensor:
-        """Launch the CUDA kernel; raises on anything it does not take,
-        K/V beyond the card's shared memory per block included (the launch
-        reports that)."""
+        """Launch the CUDA kernel; raises on anything it does not take (for
+        bf16 before launch), K/V beyond the card's shared memory per block
+        included (the launch reports that)."""
         if stage not in STAGES:
             raise ValueError(f"unknown stage {stage!r}")
         lq, lk = q.shape[1], k.shape[1]
@@ -176,8 +197,10 @@ class SpecAttention:
         if not (valid.is_contiguous() and gi.is_contiguous()
                 and rowfull.is_contiguous()):
             raise ValueError("valid, gi and rowfull must be contiguous")
-        lib = self._library()
         is_bf16 = int(q.dtype == torch.bfloat16)
+        if is_bf16:
+            check_bf16_limits("bf16 stage-mask attention forward", q, k, v)
+        lib = self._library()
 
         out = torch.empty((B, lq, H, dh), dtype=q.dtype, device=q.device)
         with torch.cuda.device(q.device):

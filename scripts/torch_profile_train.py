@@ -37,7 +37,8 @@ EXAMPLES = 32
 REPS = 5
 PROFILED = 2
 GROUPS = {
-    "spec_attention": ("spec_attention_kernel",),
+    # spec_attention_mma_kernel (bf16), spec_attention_kernel (fp32)
+    "spec_attention": ("spec_attention",),
     # dense_attention_mma_kernel (bf16), dense_attention_kernel (fp32)
     "dense_attention_forward": ("dense_attention",),
     "flash_backward": ("flash_bwd",),   # flash_bwd_mma_kernel (bf16), flash_bwd_kernel

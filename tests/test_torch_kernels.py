@@ -1,6 +1,6 @@
 """PyTorch port: the CUDA kernels against their plain versions, on the
-card: the stage-mask forward (and its autograd Function), the dense-bias
-forward and the attention backward.  Every test here needs a CUDA card and
+card: the stage-mask forward (both routes, and its autograd Function), the
+dense-bias forward and the attention backward.  Every test here needs a CUDA card and
 skips without one; the file imports neither JAX nor the JAX package, so it
 runs where only the port's dependencies are installed:
 
@@ -62,7 +62,8 @@ def _case(card, B=3, T=21, I=9, H=4, Dh=32, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("stage_idx", [0, 1, 2])
 def test_kernel_matches_plain(card, dtype, stage_idx):
-    (q, k, v), specs = _case(card)
+    # bf16 at Dh 64, the tensor-core route's head dim
+    (q, k, v), specs = _case(card, Dh=64 if dtype == torch.bfloat16 else 32)
     spec = specs[stage_idx]
     args = (q.to(dtype), k.to(dtype), v.to(dtype), spec.valid, spec.gi, spec.rowfull)
     before = fused_attention_spec.launches
@@ -381,3 +382,98 @@ def test_bf16_dense_forward_refuses_what_it_does_not_take(card):
         fused_attention(q, long_kv, long_kv, None)
     got = fused_attention(q, k, v, bias)   # no error left behind
     _close(got, fused_attention_plain(q, k, v, bias), TOL[torch.bfloat16])
+
+
+# ---------------------------------------------------------------- the bf16
+# stage-mask forward's tensor-core kernel (csrc/spec_attention.cu,
+# spec_attention_mma_kernel on the tile of csrc/attention_mma.cuh)
+
+@pytest.mark.parametrize("stage_idx", [0, 2])
+def test_bf16_spec_chunk_and_cross_stages_at_l190(card, stage_idx):
+    """The encoder's chunk and cross stages at Lq = Lk = 190 (140 text + 50
+    regions, 12 heads of 64), ragged text, chunks and regions."""
+    (q, k, v), specs = _case(card, B=2, T=140, I=50, H=12, Dh=64, seed=3)
+    spec = specs[stage_idx]
+    q, k, v = _bf16(q, k, v)
+    vec = (spec.valid, spec.gi, spec.rowfull)
+    kw = dict(stage=spec.stage, text_len=spec.text_len)
+    before = fused_attention_spec.launches
+    got = fused_attention_spec(q, k, v, *vec, **kw)
+    torch.cuda.synchronize()
+    assert fused_attention_spec.launches == before + 1
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), spec_attention_plain(q, k, v, *vec, **kw).float(),
+                               rtol=0, atol=TOL[torch.bfloat16])
+
+
+def test_bf16_spec_full_stage_prefixed_and_strided(card):
+    """RoBERTa's full stage, Lq 128 against Lk 138 (10 prefix slots), with
+    q, k, v as aligned views into one [B, Lk, H, 3 Dh] tensor."""
+    rng = np.random.default_rng(6)
+    B, Lq, P, H, Dh = 3, 128, 10, 16, 64
+    Lk = P + Lq
+    big = torch.from_numpy(rng.normal(size=(B, Lk, H, 3 * Dh)).astype(np.float32))
+    big = big.to(card, torch.bfloat16)
+    q, k, v = big[:, P:, :, :Dh], big[..., Dh:2 * Dh], big[..., 2 * Dh:]
+    assert not (q.is_contiguous() or k.is_contiguous() or v.is_contiguous())
+    valid = torch.ones(B, Lk, device=card)
+    valid[0, P + 100:] = 0.0
+    valid[2, P + 20:] = 0.0
+    gi = torch.full((B, Lk), -1, dtype=torch.int32, device=card)
+    rowfull = torch.zeros(B, Lk, device=card)
+    got = fused_attention_spec(q, k, v, valid, gi, rowfull, stage="full", text_len=Lq)
+    want = spec_attention_plain(q, k, v, valid, gi, rowfull, stage="full", text_len=Lq)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("stage", ["chunk", "full", "cross"])
+def test_bf16_spec_fully_masked_rows(card, stage):
+    """A batch row with no valid key: every row of it (every text row in the
+    cross stage) adds -1e9 to each key and comes out uniform, as in the
+    plain version."""
+    (q, k, v), specs = _case(card, Dh=64)
+    q, k, v = _bf16(q, k, v)
+    spec = specs[0]
+    valid = spec.valid.clone()
+    valid[1] = 0.0
+    kw = dict(stage=stage, text_len=spec.text_len)
+    got = fused_attention_spec(q, k, v, valid, spec.gi, spec.rowfull, **kw)
+    want = spec_attention_plain(q, k, v, valid, spec.gi, spec.rowfull, **kw)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("stage_idx", [0, 1])
+def test_bf16_spec_is_deterministic(card, stage_idx):
+    """No atomics: two launches agree bit for bit."""
+    (q, k, v), specs = _case(card, B=2, T=140, I=50, H=12, Dh=64, seed=4)
+    spec = specs[stage_idx]
+    args = (*_bf16(q, k, v), spec.valid, spec.gi, spec.rowfull)
+    kw = dict(stage=spec.stage, text_len=spec.text_len)
+    assert torch.equal(fused_attention_spec(*args, **kw), fused_attention_spec(*args, **kw))
+
+
+def test_bf16_spec_refuses_what_it_does_not_take(card):
+    """Head dim 32 and 193 keys raise ValueError before launch; the next
+    launch is clean."""
+    (q, k, v), specs = _case(card, Dh=64)
+    q, k, v = _bf16(q, k, v)
+    spec = specs[1]
+    vec = (spec.valid, spec.gi, spec.rowfull)
+    before = fused_attention_spec.launches
+    with pytest.raises(ValueError, match="head dim"):
+        narrow = [t[..., :32].contiguous() for t in (q, k, v)]
+        fused_attention_spec(*narrow, *vec, stage="full", text_len=spec.text_len)
+    with pytest.raises(ValueError, match="at most 192"):
+        B, H = q.shape[0], q.shape[2]
+        long_kv = torch.zeros(B, 193, H, 64, dtype=torch.bfloat16, device=card)
+        long_vec = (torch.ones(B, 193, device=card),
+                    torch.full((B, 193), -1, dtype=torch.int32, device=card),
+                    torch.zeros(B, 193, device=card))
+        fused_attention_spec(q, long_kv, long_kv, *long_vec, stage="full",
+                             text_len=spec.text_len)
+    assert fused_attention_spec.launches == before
+    got = fused_attention_spec(q, k, v, *vec, stage="full", text_len=spec.text_len)
+    want = spec_attention_plain(q, k, v, *vec, stage="full", text_len=spec.text_len)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=TOL[torch.bfloat16])

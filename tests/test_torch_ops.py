@@ -16,14 +16,18 @@ from multimodal_context_reasoning_tpu.ops.attention import (
 from multimodal_context_reasoning_tpu.ops.pallas_attention import (
     fused_attention_spec as j_spec,
 )
+from multimodal_context_reasoning_torch.core.config import ModCRConfig
+from multimodal_context_reasoning_torch.ops import build as tbuild
 from multimodal_context_reasoning_torch.ops import chunk as tchunk
 from multimodal_context_reasoning_torch.ops import masks as tmasks
 from multimodal_context_reasoning_torch.ops.attention import (
     dot_product_attention as t_attention,
 )
+from multimodal_context_reasoning_torch.ops.fused_attention import fused_attention_plain
 from multimodal_context_reasoning_torch.ops.spec_attention import (
     fused_attention_spec,
     spec_attention_plain,
+    spec_bias,
 )
 
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -136,6 +140,24 @@ def test_wrapper_takes_plain_version_on_cpu_without_counting(geometry):
     assert torch.equal(a, b)
 
 
+def test_wrapper_records_its_function_only_when_a_gradient_is_needed(geometry):
+    """q, k or v needing a gradient goes through the autograd Function (whose
+    backward is the backward kernel's); otherwise the forward alone runs, with
+    the same output."""
+    text_mask, img_mask, gi, q, k, v = geometry
+    spec = tmasks.stage_mask_specs(_t(text_mask), _t(img_mask), _t(gi))[0]
+    vec = (spec.valid, spec.gi, spec.rowfull)
+    kw = dict(stage="chunk", text_len=spec.text_len)
+    plain = fused_attention_spec(_t(q), _t(k), _t(v), *vec, **kw)
+    assert plain.grad_fn is None
+    leaves = [_t(x).requires_grad_() for x in (q, k, v)]
+    with torch.no_grad():
+        assert fused_attention_spec(*leaves, *vec, **kw).grad_fn is None
+    out = fused_attention_spec(*leaves, *vec, **kw)
+    assert type(out.grad_fn).__name__ == "_SpecAttentionFnBackward"
+    assert torch.equal(out.detach(), plain)
+
+
 def test_launch_refuses_cpu_tensors_and_bad_stages(geometry):
     text_mask, img_mask, gi, q, k, v = geometry
     spec = tmasks.stage_mask_specs(_t(text_mask), _t(img_mask), _t(gi))[1]
@@ -194,3 +216,63 @@ def test_dot_product_attention_matches_jax(geometry):
     got_out, got_p = t_attention(_t(q), _t(k), _t(v), _t(bias), return_probs=True)
     np.testing.assert_allclose(got_out.numpy(), np.asarray(want_out), **TOL)
     np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), **TOL)
+
+
+def _tiny_ragged_case(dtype, seed=5):
+    """``ModCRConfig.tiny()``'s encoder geometry (16 text + 8 regions, 4
+    heads of 8), ragged text, regions and chunks, and a third batch row with
+    no real token, whose every query row is fully masked in the full and
+    chunk stages (and every text row in the cross stage)."""
+    cfg = ModCRConfig.tiny()
+    enc = cfg.seq_encoder
+    T, I, H = cfg.text_len, cfg.img_len, enc.num_attention_heads
+    Dh = enc.hidden_size // H
+    text_mask, img_mask, gi, q, k, v = _geometry(B=3, T=T, I=I, H=H, Dh=Dh, seed=seed)
+    text_mask[2], img_mask[2], gi[2] = 0.0, 0.0, -1
+    specs = tmasks.stage_mask_specs(_t(text_mask), _t(img_mask), _t(gi))
+    return specs, [_t(x).to(dtype) for x in (q, k, v)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stage_idx,stage", [(0, "chunk"), (1, "full"), (2, "cross")])
+def test_spec_bias_through_dense_plain_is_spec_plain_bit_for_bit(dtype, stage_idx, stage):
+    """The stage-mask kernel adds -((1 - vis) * 1e9) where the plain version
+    subtracts (1 - vis) * 1e9: x + (-n) rounds as x - n does, so the dense
+    forward's plain version with :func:`spec_bias` gives the same bits."""
+    specs, (q, k, v) = _tiny_ragged_case(dtype)
+    spec = specs[stage_idx]
+    assert spec.stage == stage
+    vec = (spec.valid, spec.gi, spec.rowfull)
+    bias = spec_bias(*vec, stage=stage, text_len=spec.text_len, lq=q.shape[1])
+    got = fused_attention_plain(q, k, v, bias)
+    want = spec_attention_plain(q, k, v, *vec, stage=stage, text_len=spec.text_len)
+    assert got.dtype == want.dtype == dtype
+    assert torch.isfinite(want).all()
+    assert torch.equal(got, want)
+    # the fully masked rows come out uniform: the mean of v over all keys
+    masked = want[2].float()
+    if stage != "cross":
+        mean_v = v[2].float().mean(dim=0, keepdim=True).to(dtype).float()
+        torch.testing.assert_close(masked, mean_v.expand_as(masked), rtol=0, atol=1e-2)
+
+
+def test_rebuild_key_covers_every_header(tmp_path, monkeypatch):
+    """An edit to any ``csrc/*.cuh`` changes the rebuild key of every kernel
+    source, so a stale library is never loaded; an unrelated file does not."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in tbuild.CSRC_DIR.iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    assert {p.name for p in csrc.glob("*.cuh")} >= {"common.cuh", "attention_mma.cuh"}
+    monkeypatch.setattr(tbuild, "CSRC_DIR", csrc)
+    names = ("spec_attention", "fused_attention", "flash_bwd")
+    before = {n: tbuild.source_digest(csrc / f"{n}.cu") for n in names}
+    assert len(set(before.values())) == len(names)
+    (csrc / "notes.txt").write_text("not a header")
+    assert {n: tbuild.source_digest(csrc / f"{n}.cu") for n in names} == before
+    for header in ("attention_mma.cuh", "common.cuh"):
+        path = csrc / header
+        path.write_bytes(path.read_bytes() + b"\n// edited\n")
+        after = {n: tbuild.source_digest(csrc / f"{n}.cu") for n in names}
+        assert all(after[n] != before[n] for n in names), header
+        before = after
