@@ -1,5 +1,7 @@
 """GPU smoke run of the PyTorch port: build, check and time its three CUDA
-kernels, serve full-width PMR scoring, and train the PMR step at full width.
+kernels, serve full-width PMR scoring, train the PMR step at full width,
+and run the two commands (``cli/run_pmr.py``, ``cli/run_vcr.py``) at full
+width.
 
     python3 chip_smoke.py
 
@@ -21,7 +23,10 @@ the port is not beside this script, or when any phase fails.  Phases:
    calls it), bf16 at the micro-batch-8 shapes, CUDA events, median of 25
    calls each in its own window; then the kernel and SDPA as 25 launches
    back to back in one window, divided by 25 (median of 5 windows); each
-   summed over one forward's 60 launches;
+   summed over one forward's 60 launches; 4b: the kernel, plain version
+   and SDPA per call and back to back at the frozen encoders' shapes of a
+   32-example training step, (128, 190, 190, 12, 64) in the full and chunk
+   stages and (32, 51, 51, 12, 64);
 5. end-to-end parity: full-width fp32 ``ModCRConfig()`` scoring one example
    on the card (kernel) and on the CPU (plain version), same weights;
 6. serving: full-width bf16 ``ModCRScorer`` at micro-batch 8 and 32; every
@@ -54,7 +59,22 @@ the port is not beside this script, or when any phase fails.  Phases:
     through ``Trainer.fit`` with validation every 4 steps and a best-accuracy
     checkpoint in a temporary directory; every train step launches exactly
     36 stage-mask, 48 dense-forward and 24 backward kernels;
-11. the ``kernels`` JSON line, then the result line.
+11. the ``kernels`` JSON line (each kernel's ``launches`` from phase 10's
+    run and ``cli_launches`` from phase 12's), then the result line;
+12. (run before 11) the two commands through ``main(argv)``, full-width
+    bf16, on files written from the seed in a temporary directory (PMR
+    JSONL of 64 / 32 / 32 examples, a VCR JSON of 64, 50 x 2054 region
+    features per image as a pickle and an ``.mcrpack``): ``run_pmr
+    --do_train`` at the reference defaults otherwise (16 examples a step, 4
+    steps, validation every 2; dropout 0.1 in RoBERTa, so a train step
+    launches no kernel), checking finite losses, ``config.json`` and a best
+    checkpoint; ``run_pmr --do_test`` from that checkpoint on the
+    ``.mcrpack``, checking one prediction per example; ``run_vcr --do_train``
+    for 2 steps of 4 micro-batches, checking that the RoBERTa body is
+    bit-unchanged and its embeddings and the mapping networks trained; and
+    ``--max_img_seq_length 60`` in bf16 refused before any data is read.
+    Every validation and test forward must launch the stage-mask kernel
+    exactly ``spec_launches_per_eval_forward`` (57) times.
 """
 
 from __future__ import annotations
@@ -62,6 +82,8 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import os
+import pickle
 import re
 import shutil
 import statistics
@@ -87,6 +109,10 @@ KERNELS = ("spec_attention", "fused_attention", "flash_bwd")
 STEP_LAUNCHES = {"spec_attention": 36, "fused_attention": 48, "flash_bwd": 24}
 TRAIN_SHAPE = dict(B=128, lq=128, prefix=10, H=16, dh=64)
 TRAIN_EXAMPLES, TRAIN_STEPS, VALID_STEPS = 32, 8, 4
+# phase 12: examples per file, the train batch (the CLI's default eval batch
+# is 16 as well)
+CLI_SIZES = {"train": 64, "val": 32, "test": 32, "vcr": 64}
+CLI_BATCH = CLI_EVAL_BATCH = 16
 
 
 def check(ok: bool, what: str) -> None:
@@ -495,6 +521,22 @@ def training_parity(rng) -> dict:
     return dict(max_rel_diff=rel, cuda=runs["cuda"], cpu=runs["cpu"])
 
 
+def counted(fn, log):
+    """``fn`` that appends its seconds (synchronized), result and kernel
+    launches to ``log`` on each call."""
+    def run(*args):
+        before = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        after = read_counts()
+        log.append(dict(seconds=time.perf_counter() - t0, out=out,
+                        launches={k: after[k] - before[k] for k in after}))
+        return out
+    return run
+
+
 def train_slice(rng) -> dict:
     """Phase 10, the slice's main path: Trainer.fit at full width."""
     from multimodal_context_reasoning_torch.core.config import TrainConfig, pmr_training_config
@@ -517,19 +559,6 @@ def train_slice(rng) -> dict:
                       checkpoint_params_only=True)
     trainer.best_acc = -1.0   # the first validation saves a checkpoint
     steps, evals, saves = [], [], []
-
-    def counted(fn, log):
-        def run(*args):
-            before = read_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args)
-            torch.cuda.synchronize()
-            after = read_counts()
-            log.append(dict(seconds=time.perf_counter() - t0, out=out,
-                            launches={k: after[k] - before[k] for k in after}))
-            return out
-        return run
 
     trainer.train_step = counted(trainer.train_step, steps)
     trainer.eval_step = counted(trainer.eval_step, evals)
@@ -578,6 +607,213 @@ def train_slice(rng) -> dict:
                 ms_per_step=step_ms, losses=losses, fit_seconds=wall,
                 validation_launches=val_launches,
                 checkpoint_seconds=[s["seconds"] for s in saves])
+
+
+def time_training_spec_shapes(rng) -> list:
+    """Phase 4b: the stage-mask kernel at the frozen encoders' shapes of a
+    32-example training step, bf16: kernel, plain version and SDPA, per call
+    and back to back."""
+    from multimodal_context_reasoning_torch.ops.spec_attention import (
+        fused_attention_spec,
+        spec_attention_plain,
+    )
+
+    rows = []
+    for case in (
+        attention_case(rng, "train encoder full (128, 190, 190, 12, 64)", 128, 140, 50, 12,
+                       "full"),
+        attention_case(rng, "train encoder chunk (128, 190, 190, 12, 64)", 128, 140, 50, 12,
+                       "chunk"),
+        attention_case(rng, "train vision full (32, 51, 51, 12, 64)", 32, 1, 50, 12, "full"),
+    ):
+        args = cuda_args(case, torch.bfloat16)
+        kw = dict(stage=case["stage"], text_len=case["text_len"])
+        kernel = lambda: fused_attention_spec(*args, **kw)
+        plain = lambda: spec_attention_plain(*args, **kw)
+        sdpa = sdpa_call(*args, case)
+        b_ms, b_by = bound(case, torch.bfloat16)
+        row = dict(shape=case["name"], ms=median_ms(kernel), plain_ms=median_ms(plain),
+                   library_ms=median_ms(sdpa), b2b_ms=back_to_back_ms(kernel),
+                   plain_b2b_ms=back_to_back_ms(plain), library_b2b_ms=back_to_back_ms(sdpa),
+                   bound_ms=b_ms, bound_by=b_by)
+        rows.append(row)
+        print(f"[4b train shapes] {case['name']:44s} per call: kernel {row['ms']:.4f} | plain "
+              f"{row['plain_ms']:.4f} | sdpa {row['library_ms']:.4f} ms; back to back: kernel "
+              f"{row['b2b_ms']:.4f} | plain {row['plain_b2b_ms']:.4f} | sdpa "
+              f"{row['library_b2b_ms']:.4f} ms | bound {b_ms:.4f} ms ({b_by})")
+        del args
+    return rows
+
+
+def spec_launches_per_eval_forward(cfg) -> int:
+    """Stage-mask launches of one deterministic forward: the global encoder
+    twice (the vision pass and the text-image pass), the ChunkAlign encoder
+    without its cross-stage layers when they return the alignment
+    probabilities, and every RoBERTa layer.  Full width with the alignment
+    loss on: 12 + 12 + (12 - 3) + 24 = 57."""
+    cross = cfg.seq_encoder.num_hidden_layers - cfg.chunkalign.full_layers_end
+    return (2 * cfg.global_encoder.num_hidden_layers + cfg.seq_encoder.num_hidden_layers
+            - (cross if cfg.compute_alignment else 0) + cfg.roberta.num_hidden_layers)
+
+
+def cli_phase(rng) -> dict:
+    """Phase 12: ``run_pmr --do_train``, ``run_pmr --do_test`` from its
+    checkpoint and ``run_vcr --do_train`` through ``main(argv)``, full
+    width, bf16, at the reference defaults otherwise (dropout 0.1 in
+    RoBERTa, the encoders' ``--drop_out``, the alignment loss on), on data
+    written from the seed; then the bf16 key-limit refusal."""
+    from multimodal_context_reasoning_torch.cli import run_pmr, run_vcr
+    from multimodal_context_reasoning_torch.core.config import ModCRConfig
+    from multimodal_context_reasoning_torch.data.feature_store import write_pack
+    from multimodal_context_reasoning_torch.serving.synthetic import (
+        region_features,
+        task_rows,
+        write_rows,
+    )
+    from multimodal_context_reasoning_torch.train import trainer as trainer_mod
+
+    cfg = ModCRConfig()
+    tmp = tempfile.mkdtemp(prefix="modcr_cli_")
+    path = lambda name: f"{tmp}/{name}"
+    rows = {"train": task_rows(rng, CLI_SIZES["train"], cfg.img_len, first=0),
+            "val": task_rows(rng, CLI_SIZES["val"], cfg.img_len, first=10_000),
+            "test": task_rows(rng, CLI_SIZES["test"], cfg.img_len, first=20_000),
+            "vcr": task_rows(rng, CLI_SIZES["vcr"], cfg.img_len, vcr=True, first=30_000)}
+    for name, r in rows.items():
+        write_rows(path(f"{name}.jsonl"), r)
+    feats = region_features(rng, sum(rows.values(), []), cfg.img_len,
+                            cfg.global_encoder.img_feature_dim)
+    with open(path("feats.pkl"), "wb") as f:
+        pickle.dump({k: {"features": v} for k, v in feats.items()}, f)
+    write_pack(feats, path("feats.mcrpack"))
+    common = ["--per_gpu_train_batch_size", str(CLI_BATCH), "--compute_dtype", "bfloat16",
+              "--seed", str(SEED)]
+    per_forward = spec_launches_per_eval_forward(cfg)
+    steps, evals, snapshots = [], [], []
+    train_step, eval_step = trainer_mod.train_step, trainer_mod.eval_step
+    fit = trainer_mod.Trainer.fit
+
+    def snapshot_fit(self, state=None):
+        if self.freeze_roberta_body:   # run_vcr: what its checks compare
+            snapshots.append({n: p.detach().clone() for n, p in self.model.named_parameters()
+                              if n.startswith(("roberta.", "mapping_network_"))})
+        return fit(self, state)
+
+    trainer_mod.train_step = counted(train_step, steps)
+    trainer_mod.eval_step = counted(eval_step, evals)
+    run_pmr.eval_step = counted(eval_step, evals)
+    trainer_mod.Trainer.fit = snapshot_fit
+    out: dict = {}
+    try:
+        reset_counts()
+        # 1. PMR training at the reference defaults
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run_pmr.main(["--do_train", "--train_file", path("train.jsonl"),
+                      "--val_file", path("val.jsonl"), "--img_feat_file", path("feats.pkl"),
+                      "--output_dir", path("pmr"), "--max_steps", "4", "--valid_steps", "2",
+                      "--epoch_begin", "0", *common])
+        train_wall = time.perf_counter() - t0
+        train_peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = [float(s["out"]["loss"]) for s in steps]
+        step_ms = [1e3 * s["seconds"] for s in steps]
+        check(len(steps) == 4 and np.isfinite(losses).all(), f"PMR train losses {losses}")
+        check(all(all(v == 0 for v in s["launches"].values()) for s in steps),
+              f"train steps under dropout launched {[s['launches'] for s in steps]}")
+        ckpts = [d for d in os.listdir(path("pmr/ckpt")) if d.isdigit()]
+        check(bool(ckpts) and os.path.exists(path("pmr/config.json")),
+              f"checkpoints {ckpts}, config.json written")
+        val_counts = [e["launches"]["spec_attention"] for e in evals]
+        check(len(evals) == 2 * CLI_SIZES["val"] // CLI_EVAL_BATCH
+              and all(c == per_forward for c in val_counts),
+              f"validation forwards launched {val_counts}, {per_forward} each expected")
+        steady = statistics.median(step_ms[1:])
+        out["pmr_train"] = dict(losses=losses, ms_per_step=step_ms, steady_ms_per_step=steady,
+                                examples_per_s=CLI_BATCH / steady * 1e3, peak_gib=train_peak,
+                                wall_s=train_wall, validation_launches=val_counts,
+                                checkpoints=ckpts)
+        print(f"[12 cli] run_pmr --do_train, bf16 full width, {CLI_BATCH} examples a step, "
+              f"dropout on, alignment loss on: losses {np.round(losses, 4).tolist()} | ms per "
+              f"step {np.round(step_ms, 2).tolist()} -> steady (median of steps 2-4) "
+              f"{steady:.2f} ms = {CLI_BATCH / steady * 1e3:.2f} examples/s | peak "
+              f"{train_peak:.2f} GiB | main() {train_wall:.2f} s | train-step launches 0 "
+              f"(dropout: plain attention) | validation forwards {val_counts} stage-mask "
+              f"launches | checkpoints {ckpts}")
+
+        # 2. PMR test from that run's best checkpoint, features from the .mcrpack
+        del evals[:]
+        t0 = time.perf_counter()
+        acc = run_pmr.main(["--do_test", "--test_file", path("test.jsonl"),
+                            "--img_feat_file", path("feats.mcrpack"),
+                            "--eval_model_dir", path("pmr"), "--output_dir", path("pmr_test"),
+                            *common])
+        test_wall = time.perf_counter() - t0
+        with open(path("pmr_test/result_test_ModICR_pmr.json")) as f:
+            preds = [json.loads(line) for line in f]
+        test_counts = [e["launches"]["spec_attention"] for e in evals]
+        n_forwards = -(-CLI_SIZES["test"] // CLI_EVAL_BATCH)
+        check(len(preds) == CLI_SIZES["test"] and all(0 <= p["prediction"] < 4 for p in preds),
+              f"{len(preds)} prediction lines")
+        check(len(evals) == n_forwards and all(c == per_forward for c in test_counts),
+              f"test forwards launched {test_counts}, {per_forward} each expected")
+        test_forward_s = sum(e["seconds"] for e in evals)
+        out["pmr_test"] = dict(accuracy=acc, forwards=len(evals), spec_launches=test_counts,
+                               launches_per_forward=per_forward,
+                               examples_per_s=CLI_SIZES["test"] / test_forward_s,
+                               wall_s=test_wall)
+        print(f"[12 cli] run_pmr --do_test --eval_model_dir (.mcrpack features): "
+              f"{len(preds)} prediction lines, accuracy {acc:.4f} | {len(evals)} forwards "
+              f"launched {test_counts} stage-mask kernels ({per_forward} each expected) | "
+              f"{CLI_SIZES['test'] / test_forward_s:.2f} examples/s over the forwards | "
+              f"main() {test_wall:.2f} s")
+        shutil.rmtree(path("pmr"))
+
+        # 3. VCR training: the RoBERTa body frozen, 4 accumulated micro-batches
+        del steps[:], snapshots[:]
+        t0 = time.perf_counter()
+        state = run_vcr.main(["--do_train", "--train_file", path("vcr.jsonl"),
+                              "--img_feat_file", path("feats.pkl"), "--output_dir", path("vcr"),
+                              "--max_steps", "2", *common])
+        vcr_wall = time.perf_counter() - t0
+        start = snapshots[0]
+        params = dict(state.model.named_parameters())
+        body = [n for n in params if n.startswith("roberta.encoder.")]
+        moved = ("roberta.embeddings.word_embeddings.weight", "mapping_network_vision.1.weight",
+                 "mapping_network_alignment.4.weight")
+        vcr_losses = [float(s["out"]["loss"]) for s in steps]
+        check(len(steps) == 8 and state.step == 8 and np.isfinite(vcr_losses).all(),
+              f"VCR micro-steps {len(steps)}, losses {vcr_losses}")
+        check(bool(body) and all(torch.equal(params[n], start[n]) for n in body),
+              "a frozen RoBERTa body weight changed")
+        check(all(not torch.equal(params[n], start[n]) for n in moved),
+              "RoBERTa embeddings or a mapping network did not train")
+        out["vcr_train"] = dict(losses=vcr_losses, micro_steps=len(steps), wall_s=vcr_wall,
+                                body_tensors_unchanged=len(body))
+        print(f"[12 cli] run_vcr --do_train: {len(steps)} micro-steps (2 optimizer steps of 4) "
+              f"losses {np.round(vcr_losses, 4).tolist()} | {len(body)} RoBERTa body tensors "
+              f"bit-unchanged, {', '.join(moved)} changed | main() {vcr_wall:.2f} s")
+        del state, params, start, snapshots[:]
+
+        # 4. the bf16 key limit, refused before any data is read
+        try:
+            run_pmr.main(["--do_test", "--max_img_seq_length", "60",
+                          "--test_file", path("absent.jsonl"), "--img_feat_file",
+                          path("absent.pkl"), "--output_dir", path("refused")])
+            refused = None
+        except SystemExit as e:
+            refused = str(e)
+        check(refused is not None and "BF16_MAX_KEYS = 192" in refused
+              and not os.path.exists(path("refused")), f"key-limit refusal: {refused}")
+        print(f"[12 cli] --max_img_seq_length 60 in bf16 refused: {refused}")
+        out["launches"] = read_counts()
+    finally:
+        trainer_mod.train_step, trainer_mod.eval_step = train_step, eval_step
+        run_pmr.eval_step, trainer_mod.Trainer.fit = eval_step, fit
+        shutil.rmtree(tmp)
+    check(out["launches"]["spec_attention"] > 0, f"phase 12 launches {out['launches']}")
+    print(f"[12 cli] launches over the phase {out['launches']}")
+    return out
 
 
 # ---------------------------------------------------------------- main
@@ -698,6 +934,7 @@ def main() -> int:
             bytes_share += n_fwd * b_ms
     print("[4 time] one micro-batch-8 forward's 60 launches: " + " | ".join(
         f"{k} {v:.4f}" for k, v in totals.items()))
+    train_spec = time_training_spec_shapes(rng)
 
     # 5. end-to-end parity, full width fp32: card (kernel) vs CPU (plain)
     # serving needs logits only: no alignment loss, so no layer returns
@@ -782,12 +1019,17 @@ def main() -> int:
 
     # 10. training, the slice's main path
     train = train_slice(rng)
+    torch.cuda.empty_cache()
+
+    # 12. the two commands at full width (before 11's closing lines)
+    cli = cli_phase(rng)
 
     # 11. kernels line, then the result line
     print(card)
     print(json.dumps({"serving": serving, "e2e_fp32_max_abs_diff": e2e_err,
                       "train_parity_max_rel_diff": parity["max_rel_diff"],
-                      "training": {k: v for k, v in train.items() if k != "launches"}}))
+                      "training": {k: v for k, v in train.items() if k != "launches"},
+                      "cli": {k: v for k, v in cli.items() if k != "launches"}}))
     main_path = train["launches"]
     shape = "bf16 (128, 128, 138, 16, 64), one launch, as one RoBERTa layer of the slice"
     print(json.dumps({"kernels": [{
@@ -797,6 +1039,7 @@ def main() -> int:
         "replaces": "multimodal_context_reasoning_tpu/ops/pallas_attention.py:187",
         "launches": main_path["spec_attention"],
         "serving_launches": launches,
+        "cli_launches": cli["launches"]["spec_attention"],
         "max_abs_err": max(max_err, train_err["spec_attention"]),
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],
@@ -808,12 +1051,14 @@ def main() -> int:
         "timed_as": "sum over one micro-batch-8 forward's 60 launches, bf16 (ms, plain_ms, "
                     "library_ms per call; b2b_ms, library_b2b_ms back to back)",
         "shapes": per_shape,
+        "training_shapes": train_spec,
     }, {
         "name": "fused_attention",
         "route": "cuda",
         "source": "multimodal_context_reasoning_torch/csrc/fused_attention.cu",
         "replaces": "multimodal_context_reasoning_tpu/ops/pallas_attention.py:73",
         "launches": main_path["fused_attention"],
+        "cli_launches": cli["launches"]["fused_attention"],
         "max_abs_err": train_err["fused_attention"],
         **train_times["fused_attention"],
         "timed_as": shape,
@@ -823,6 +1068,7 @@ def main() -> int:
         "source": "multimodal_context_reasoning_torch/csrc/flash_bwd.cu",
         "replaces": "multimodal_context_reasoning_tpu/ops/flash.py:190",
         "launches": main_path["flash_bwd"],
+        "cli_launches": cli["launches"]["flash_bwd"],
         "max_abs_err": train_err["flash_bwd"],
         **train_times["flash_bwd"],
         "timed_as": shape + ", no dbias plane",

@@ -110,6 +110,14 @@ class PMRDataset:
             return 1.0 if ans_idx in answer_label else 0.0
         return 1.0 if ans_idx == answer_label else 0.0
 
+    def bert_answer(self, ans: str) -> str:
+        """The answer text of the BERT stream."""
+        return ans
+
+    def roberta_answer(self, ans: str) -> str:
+        """The answer text of the RoBERTa stream, after its prefix."""
+        return ANSWER_PREFIX + " ".join(ans.split(" , "))
+
     def featurize(self, ex: RawExample) -> List[CandidateFeatures]:
         """One example → num_labels candidate feature rows."""
         spec = self.spec
@@ -118,7 +126,7 @@ class PMRDataset:
 
         out: List[CandidateFeatures] = []
         for ans_idx, ans in enumerate(ex.answer_choices):
-            ans_tokens = self.bert.tokenize(ans)
+            ans_tokens = self.bert.tokenize(self.bert_answer(ans))
             toks = (
                 [self.bert.cls_token] + premise_tokens + [self.bert.sep_token]
                 + ans_tokens + [self.bert.sep_token]
@@ -145,7 +153,7 @@ class PMRDataset:
             )
 
             # RoBERTa stream
-            r_ans = self.roberta.tokenize(ANSWER_PREFIX + " ".join(ans.split(" , ")))
+            r_ans = self.roberta.tokenize(self.roberta_answer(ans))
             r_toks = (
                 [self.roberta.cls_token] + r_que + [self.roberta.sep_token]
                 + r_ans + [self.roberta.sep_token]

@@ -174,6 +174,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import pkgutil, sys, importlib\n"
         "import multimodal_context_reasoning_torch as p\n"
         "import chip_smoke\n"
+        "from multimodal_context_reasoning_torch.cli import run_pmr, run_vcr\n"
+        "from multimodal_context_reasoning_torch.interop import assemble\n"
+        "from multimodal_context_reasoning_torch.data import subword\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
@@ -185,4 +188,4 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 20
+    assert int(proc.stdout.strip()) >= 30
