@@ -1,7 +1,8 @@
 """GPU smoke run of the PyTorch port: build, check and time its three CUDA
 kernels, serve full-width PMR scoring, train the PMR step at full width,
-and run the two commands (``cli/run_pmr.py``, ``cli/run_vcr.py``) at full
-width.
+run the two commands (``cli/run_pmr.py``, ``cli/run_vcr.py``) at full width,
+hold every kernel route to its plain version past 192 keys, and serve
+concurrent HTTP clients through the serve command (``cli/serve.py``).
 
     python3 chip_smoke.py
 
@@ -60,7 +61,8 @@ the port is not beside this script, or when any phase fails.  Phases:
     checkpoint in a temporary directory; every train step launches exactly
     36 stage-mask, 48 dense-forward and 24 backward kernels;
 11. the ``kernels`` JSON line (each kernel's ``launches`` from phase 10's
-    run and ``cli_launches`` from phase 12's), then the result line;
+    run, ``cli_launches`` from phase 12's, ``serve_launches`` from phase
+    14's, and ``long_keys`` from phase 13), then the result line;
 12. (run before 11) the two commands through ``main(argv)``, full-width
     bf16, on files written from the seed in a temporary directory (PMR
     JSONL of 64 / 32 / 32 examples, a VCR JSON of 64, 50 x 2054 region
@@ -72,9 +74,32 @@ the port is not beside this script, or when any phase fails.  Phases:
     ``.mcrpack``, checking one prediction per example; ``run_vcr --do_train``
     for 2 steps of 4 micro-batches, checking that the RoBERTa body is
     bit-unchanged and its embeddings and the mapping networks trained; and
-    ``--max_img_seq_length 60`` in bf16 refused before any data is read.
-    Every validation and test forward must launch the stage-mask kernel
-    exactly ``spec_launches_per_eval_forward`` (57) times.
+    ``run_pmr --do_test --max_img_seq_length 100`` (random init, 100 regions
+    an image: 240 encoder keys, the bf16 kernels' key-looped instances),
+    checking one prediction per example.  Every validation and test forward
+    must launch the stage-mask kernel exactly
+    ``spec_launches_per_eval_forward`` (57) times;
+13. (run before 11) long keys: the stage-mask forward (full, chunk, cross),
+    the dense forward (row and plane bias) and the backward with dbias, fp32
+    and bf16, against their plain versions at Lk 240 and 520 (32 rows, 12
+    heads; tolerances as phases 3 and 7), fully masked rows, and two bf16
+    launches bit-equal at 240; then bf16 kernel, plain version, SDPA and
+    bound per call and back to back at (128, 240, 240, 12, 64) full and
+    chunk stage and at (128, 230, 240, 16, 64) for the dense forward and
+    the backward;
+14. (run before 11) serving, the slice's main path: ``python -m
+    multimodal_context_reasoning_torch.cli.serve`` as a subprocess on a free
+    port (full width, bf16, micro-batch 8, seeded random init, an
+    ``.mcrpack``), polled on ``/healthz``; 16 concurrent clients send 4
+    requests each of 1-4 examples (after a warm-up round of 16 one-example
+    requests); every reply must be 200 with finite logits within 2e-2 of
+    max |logit| of direct ``ModCRScorer.score`` on the same weights, and the
+    same prediction wherever the direct top two logits are more than twice
+    that apart; examples/s, p50/p99 request latency and the mean dispatch
+    size (``/stats``) are printed; the server must exit on SIGTERM.  The same
+    load then runs in-process through ``serve(block=False)`` on the direct
+    scorer with the kernel counts set to 0 before and read after: 57
+    stage-mask launches per dispatched forward.
 """
 
 from __future__ import annotations
@@ -86,11 +111,15 @@ import os
 import pickle
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -113,6 +142,12 @@ TRAIN_EXAMPLES, TRAIN_STEPS, VALID_STEPS = 32, 8, 4
 # is 16 as well)
 CLI_SIZES = {"train": 64, "val": 32, "test": 32, "vcr": 64}
 CLI_BATCH = CLI_EVAL_BATCH = 16
+LONG_IMG_LEN = 100          # phase 12's last run: 140 + 100 = 240 encoder keys
+LONG_KEYS = (240, 520)      # phase 13: past the bf16 kernels' resident 192 keys
+# phase 14: concurrent clients, requests per client, examples per request
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_EXAMPLES = 16, 4, (1, 4)
+SERVE_MICRO_BATCH = 8
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def check(ok: bool, what: str) -> None:
@@ -795,17 +830,37 @@ def cli_phase(rng) -> dict:
               f"bit-unchanged, {', '.join(moved)} changed | main() {vcr_wall:.2f} s")
         del state, params, start, snapshots[:]
 
-        # 4. the bf16 key limit, refused before any data is read
-        try:
-            run_pmr.main(["--do_test", "--max_img_seq_length", "60",
-                          "--test_file", path("absent.jsonl"), "--img_feat_file",
-                          path("absent.pkl"), "--output_dir", path("refused")])
-            refused = None
-        except SystemExit as e:
-            refused = str(e)
-        check(refused is not None and "BF16_MAX_KEYS = 192" in refused
-              and not os.path.exists(path("refused")), f"key-limit refusal: {refused}")
-        print(f"[12 cli] --max_img_seq_length 60 in bf16 refused: {refused}")
+        # 4. --do_test at --max_img_seq_length 100: 240 encoder keys, past the
+        # 192 the bf16 kernels hold resident (their key-looped instances)
+        long_feats = region_features(rng, rows["test"], LONG_IMG_LEN,
+                                     cfg.global_encoder.img_feature_dim)
+        with open(path("feats_long.pkl"), "wb") as f:
+            pickle.dump({k: {"features": v} for k, v in long_feats.items()}, f)
+        del evals[:]
+        t0 = time.perf_counter()
+        long_acc = run_pmr.main(["--do_test", "--max_img_seq_length", str(LONG_IMG_LEN),
+                                 "--test_file", path("test.jsonl"),
+                                 "--img_feat_file", path("feats_long.pkl"),
+                                 "--output_dir", path("pmr_long"), *common])
+        long_wall = time.perf_counter() - t0
+        with open(path("pmr_long/result_test_ModICR_pmr.json")) as f:
+            long_preds = [json.loads(line) for line in f]
+        long_counts = [e["launches"]["spec_attention"] for e in evals]
+        check(len(long_preds) == CLI_SIZES["test"]
+              and all(0 <= p["prediction"] < 4 for p in long_preds),
+              f"{len(long_preds)} prediction lines at {LONG_IMG_LEN} regions")
+        check(len(evals) == n_forwards and all(c == per_forward for c in long_counts),
+              f"240-key test forwards launched {long_counts}, {per_forward} each expected")
+        long_forward_s = sum(e["seconds"] for e in evals)
+        out["pmr_test_240_keys"] = dict(
+            accuracy=long_acc, forwards=len(evals), spec_launches=long_counts,
+            examples_per_s=CLI_SIZES["test"] / long_forward_s, wall_s=long_wall)
+        print(f"[12 cli] run_pmr --do_test --max_img_seq_length {LONG_IMG_LEN} (140 + "
+              f"{LONG_IMG_LEN} = {140 + LONG_IMG_LEN} encoder keys, bf16, random init): "
+              f"{len(long_preds)} prediction lines | {len(evals)} forwards launched "
+              f"{long_counts} stage-mask kernels ({per_forward} each expected) | "
+              f"{CLI_SIZES['test'] / long_forward_s:.2f} examples/s over the forwards | "
+              f"main() {long_wall:.2f} s")
         out["launches"] = read_counts()
     finally:
         trainer_mod.train_step, trainer_mod.eval_step = train_step, eval_step
@@ -813,6 +868,384 @@ def cli_phase(rng) -> dict:
         shutil.rmtree(tmp)
     check(out["launches"]["spec_attention"] > 0, f"phase 12 launches {out['launches']}")
     print(f"[12 cli] launches over the phase {out['launches']}")
+    return out
+
+
+def long_key_phase(rng) -> dict:
+    """Phase 13: every route past the bf16 kernels' resident 192 keys and
+    past the fp32 kernels' shared memory, against the plain versions at
+    Lk 240 and 520; then bf16 kernel, plain version, SDPA and bound at
+    (128, 240, 240, 12, 64) in the full and chunk stages and at the RoBERTa
+    training shape with Lk 240 (128, 230, 240, 16, 64), dense forward and
+    backward.  Returns the worst absolute error per kernel and the timings."""
+    from multimodal_context_reasoning_torch.ops.flash import (
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+    )
+    from multimodal_context_reasoning_torch.ops.fused_attention import (
+        fused_attention,
+        fused_attention_plain,
+    )
+    from multimodal_context_reasoning_torch.ops.masks import padding_bias
+    from multimodal_context_reasoning_torch.ops.spec_attention import (
+        fused_attention_spec,
+        spec_attention_plain,
+        spec_bias,
+    )
+
+    worst = {k: 0.0 for k in KERNELS}
+
+    def hold(kernel, what, got, want, dtype, relative):
+        err, rel = errors(got, want)
+        ok = torch.isfinite(got).all().item() and (
+            rel <= BWD_TOL[dtype] if relative else err <= TOL[dtype])
+        check(ok, f"long keys {kernel} {what} {dtype}: abs {err} rel {rel}")
+        worst[kernel] = max(worst[kernel], err)
+        return f"{err:.2e}" + (f" ({rel:.1e} rel)" if relative else "")
+
+    for L in LONG_KEYS:
+        for dtype in (torch.float32, torch.bfloat16):
+            line = []
+            for stage in ("full", "chunk", "cross"):
+                case = attention_case(rng, f"L={L} {stage}", 32, 140, L - 140, 12, stage)
+                args = cuda_args(case, dtype)
+                kw = dict(stage=case["stage"], text_len=case["text_len"])
+                got = fused_attention_spec(*args, **kw)
+                torch.cuda.synchronize()
+                line.append(f"spec {stage} " + hold("spec_attention", f"{stage} L={L}", got,
+                                                     spec_attention_plain(*args, **kw), dtype,
+                                                     False))
+                if stage == "chunk":   # its mask plane as the dense routes' bias
+                    q, k, v, *vecs = args
+                    plane = spec_bias(*vecs, stage="chunk", text_len=case["text_len"],
+                                      lq=q.shape[1])
+                    d_out = torch.randn(q.shape, device="cuda", dtype=dtype,
+                                        generator=torch.Generator("cuda").manual_seed(L))
+                del args, got
+            row = dense_case(rng, 32, L - 10, 10, 12, 64)
+            rq, rk, rv, rd = (row[n].to("cuda", dtype) for n in ("q", "k", "v", "d_out"))
+            rbias = padding_bias(row["valid"].cuda())
+            for name, (a, b_, c, bias, dout) in (("row", (rq, rk, rv, rbias, rd)),
+                                                 ("plane", (q, k, v, plane, d_out))):
+                got = fused_attention(a, b_, c, bias)
+                torch.cuda.synchronize()
+                line.append(f"dense {name} " + hold(
+                    "fused_attention", f"{name} L={L}", got,
+                    fused_attention_plain(a, b_, c, bias), dtype, name == "plane"))
+                grads = flash_attention_bwd(a, b_, c, bias, dout, want_dbias=True)
+                torch.cuda.synchronize()
+                want = flash_attention_bwd_plain(a, b_, c, bias, dout)
+                line.append(f"backward {name} " + ", ".join(
+                    f"{out} " + hold("flash_bwd", f"{out} {name} L={L}", g, w, dtype, True)
+                    for out, g, w in zip(("dq", "dk", "dv", "dbias"), grads, want)))
+                del got, grads, want
+            # a batch row with no valid key, through all three
+            masked = attention_case(rng, "masked", 4, 140, L - 140, 4, "chunk")
+            masked["vecs"] = (torch.zeros_like(masked["vecs"][0]),) + masked["vecs"][1:]
+            mq, mk, mv, *mvecs = cuda_args(masked, dtype)
+            got = fused_attention_spec(mq, mk, mv, *mvecs, stage="chunk",
+                                       text_len=masked["text_len"])
+            hold("spec_attention", f"masked L={L}", got,
+                 spec_attention_plain(mq, mk, mv, *mvecs, stage="chunk",
+                                      text_len=masked["text_len"]), dtype, False)
+            mbias = padding_bias(mvecs[0])
+            hold("fused_attention", f"masked L={L}", fused_attention(mq, mk, mv, mbias),
+                 fused_attention_plain(mq, mk, mv, mbias), dtype, False)
+            for g, w in zip(flash_attention_bwd(mq, mk, mv, mbias, torch.ones_like(mq)),
+                            flash_attention_bwd_plain(mq, mk, mv, mbias, torch.ones_like(mq))):
+                hold("flash_bwd", f"masked L={L}", g, w, dtype, True)
+            line.append("fully masked rows finite and as plain")
+            print(f"[13 long keys] Lk {L} {str(dtype):15s} " + " | ".join(line))
+            if L == LONG_KEYS[0] and dtype == torch.bfloat16:
+                same = [torch.equal(fused_attention_spec(q, k, v, *vecs, stage="chunk",
+                                                         text_len=140),
+                                    fused_attention_spec(q, k, v, *vecs, stage="chunk",
+                                                         text_len=140)),
+                        torch.equal(fused_attention(q, k, v, plane),
+                                    fused_attention(q, k, v, plane))]
+                runs = [flash_attention_bwd(q, k, v, plane, d_out, want_dbias=False)[:3]
+                        for _ in range(2)]
+                same.append(all(torch.equal(a, b_) for a, b_ in zip(*runs)))
+                print(f"[13 long keys] bf16 two launches at Lk {L}: stage-mask, dense "
+                      f"forward, backward dq/dk/dv bit-equal {same}")
+                check(all(same), "long keys: two bf16 launches differ")
+                del runs
+            del q, k, v, plane, d_out, rq, rk, rv, rd, rbias
+    print(f"[13 long keys] worst |kernel - plain| {worst} (forward tol {TOL}, backward and "
+          f"plane-bias tol of max |plain| {BWD_TOL})")
+
+    timed = {k: [] for k in KERNELS}
+    dt = torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for stage in ("full", "chunk"):
+        case = attention_case(rng, f"(128, 240, 240, 12, 64) {stage}", 128, 140, 100, 12,
+                              stage)
+        args = cuda_args(case, dt)
+        kw = dict(stage=case["stage"], text_len=case["text_len"])
+        kernel = lambda: fused_attention_spec(*args, **kw)
+        lib = sdpa_call(*args, case)
+        b_ms, b_by = bound(case, dt)
+        row = dict(shape=case["name"], ms=median_ms(kernel), b2b_ms=back_to_back_ms(kernel),
+                   plain_ms=median_ms(lambda: spec_attention_plain(*args, **kw)),
+                   library_ms=median_ms(lib), library_b2b_ms=back_to_back_ms(lib),
+                   bound_ms=b_ms, bound_by=b_by)
+        timed["spec_attention"].append(row)
+        del args
+    case = dense_case(rng, 128, 230, 10, 16, 64)
+    q, k, v, d_out = (case[n].to("cuda", dt) for n in ("q", "k", "v", "d_out"))
+    bias = padding_bias(case["valid"].cuda())
+    mask = bias.to(dt)
+    q4, k4, v4 = (t.transpose(1, 2) for t in (q, k, v))
+    qt, kt, vt = (t.detach().requires_grad_() for t in (q4, k4, v4))
+    out_t = sdpa(qt, kt, vt, attn_mask=mask)
+    d_out_t = d_out.transpose(1, 2)
+    for name, kind, kernel, plain, lib in (
+        ("fused_attention", "forward", lambda: fused_attention(q, k, v, bias),
+         lambda: fused_attention_plain(q, k, v, bias),
+         lambda: sdpa(q4, k4, v4, attn_mask=mask)),
+        ("flash_bwd", "backward",
+         lambda: flash_attention_bwd(q, k, v, bias, d_out, want_dbias=False),
+         lambda: flash_attention_bwd_plain(q, k, v, bias, d_out),
+         lambda: torch.autograd.grad(out_t, (qt, kt, vt), d_out_t, retain_graph=True)),
+    ):
+        b_ms, b_by = train_bound(case, dt, kind)
+        timed[name].append(dict(
+            shape="(128, 230, 240, 16, 64), bias [B, 1, 1, Lk]", ms=median_ms(kernel),
+            b2b_ms=back_to_back_ms(kernel), plain_ms=median_ms(plain),
+            library_ms=median_ms(lib), library_b2b_ms=back_to_back_ms(lib), bound_ms=b_ms,
+            bound_by=b_by))
+    for name, rows in timed.items():
+        for r in rows:
+            print(f"[13 long keys time] {name:16s} bf16 {r['shape']:44s} per call: kernel "
+                  f"{r['ms']:.4f} | plain {r['plain_ms']:.4f} | sdpa {r['library_ms']:.4f} ms; "
+                  f"back to back: kernel {r['b2b_ms']:.4f} | sdpa {r['library_b2b_ms']:.4f} ms "
+                  f"| bound {r['bound_ms']:.4f} ms ({r['bound_by']}), kernel at "
+                  f"{r['bound_ms'] / r['b2b_ms']:.2%} of it")
+    return dict(max_abs_err=worst, timed=timed, largest_lk=max(LONG_KEYS))
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def http(port: int, path: str, body=None, timeout: float = 120.0):
+    """(status, JSON reply, seconds) of one request to the local server."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 method="GET" if body is None else "POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            code, out = r.status, json.load(r)
+    except urllib.error.HTTPError as e:
+        code, out = e.code, json.loads(e.read() or b"{}")
+    return code, out, time.perf_counter() - t0
+
+
+def http_load(port: int, plan) -> tuple:
+    """Each client of ``plan`` (a list of request bodies per client) sends its
+    requests one after another, all clients at once; returns the replies as
+    ``plan`` lays them out and the wall seconds from the first send to the
+    last reply."""
+    replies = [[None] * len(bodies) for bodies in plan]
+    barrier = threading.Barrier(len(plan))
+
+    def client(c):
+        barrier.wait(timeout=60)
+        for r, body in enumerate(plan[c]):
+            replies[c][r] = http(port, "/score", body)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(plan)) as pool:
+        list(pool.map(client, range(len(plan))))
+    return replies, time.perf_counter() - t0
+
+
+def load_summary(replies, wall: float, direct: dict, what: str) -> dict:
+    """Check every reply of an HTTP load (200, finite logits that agree with
+    direct scoring within 2e-2 of max |logit|, the same prediction wherever
+    the direct top two logits are more than twice that apart) and sum it up:
+    examples/s, p50/p99 request latency."""
+    flat = [x for row in replies for x in row]
+    codes = sorted({code for code, _, _ in flat})
+    check(codes == [200], f"{what}: reply codes {codes}")
+    got = {r["example_id"]: np.asarray(r["logits"]) for _, out, _ in flat
+           for r in out["results"]}
+    check(set(got) == set(direct) and all(np.isfinite(g).all() for g in got.values()),
+          f"{what}: {len(got)} finite replies for {len(direct)} examples")
+    tol = 2e-2 * max(np.abs(w).max() for w in direct.values())
+    err = max(np.abs(got[e] - direct[e]).max() for e in direct)
+    decided = [e for e in direct if np.diff(np.sort(direct[e])[-2:])[0] > 2 * tol]
+    flipped = [e for e in decided if got[e].argmax() != direct[e].argmax()]
+    check(err <= tol and not flipped,
+          f"{what}: max |http - direct| {err} (tol {tol}), predictions differ at {flipped}")
+    lat = np.asarray([t for _, _, t in flat]) * 1e3
+    return dict(examples=len(got), requests=len(flat), wall_s=wall,
+                examples_per_s=len(got) / wall, p50_ms=float(np.percentile(lat, 50)),
+                p99_ms=float(np.percentile(lat, 99)), max_abs_diff=err, tol=tol,
+                predictions_checked=len(decided))
+
+
+def serve_phase(rng) -> dict:
+    """Phase 14, the slice's main path: ``python -m
+    multimodal_context_reasoning_torch.cli.serve`` as a subprocess at full
+    width in bf16, micro-batch 8, loaded by concurrent clients through HTTP
+    and held against direct ``ModCRScorer.score`` of the same examples; then
+    the same load in-process through ``serve(block=False)`` on the direct
+    scorer, with the kernel counts set to 0 before and read after."""
+    from multimodal_context_reasoning_torch.core.config import ModCRConfig
+    from multimodal_context_reasoning_torch.data.feature_store import write_pack
+    from multimodal_context_reasoning_torch.models.modcr import ModCRModel
+    from multimodal_context_reasoning_torch.serving.scorer import ModCRScorer
+    from multimodal_context_reasoning_torch.serving.server import serve
+    from multimodal_context_reasoning_torch.serving.synthetic import (
+        hash_tokenizers,
+        synthetic_requests,
+    )
+
+    cfg = ModCRConfig().with_dtype("bfloat16")   # the serve command's, alignment on
+    sizes = rng.integers(SERVE_EXAMPLES[0], SERVE_EXAMPLES[1] + 1,
+                         (SERVE_CLIENTS, SERVE_REQUESTS))
+    feats, examples = synthetic_requests(rng, int(sizes.sum()) + SERVE_CLIENTS, cfg,
+                                         first=50_000)
+    as_json = lambda ex: {"example_id": ex.example_id, "img_id": ex.img_id,
+                          "premise": ex.premise, "answer_choices": ex.answer_choices}
+    warm_plan = [[{"examples": [as_json(ex)]}] for ex in examples[:SERVE_CLIENTS]]
+    it = iter(examples[SERVE_CLIENTS:])
+    plan = [[{"examples": [as_json(next(it)) for _ in range(n)]} for n in row]
+            for row in sizes]
+    measured = examples[SERVE_CLIENTS:]
+    tmp = tempfile.mkdtemp(prefix="modcr_serve_")
+    pack = os.path.join(tmp, "feats.mcrpack")
+    write_pack({k: v.features for k, v in feats.items()}, pack)
+    out: dict = {}
+    try:
+        # 1. the command, a process of its own
+        port = free_port()
+        log_path = os.path.join(tmp, "serve.log")
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "multimodal_context_reasoning_torch.cli.serve",
+                 "--port", str(port), "--img_feat_file", pack,
+                 "--micro_batch", str(SERVE_MICRO_BATCH), "--compute_dtype", "bfloat16"],
+                cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            t0 = time.perf_counter()
+            while True:
+                check(proc.poll() is None, "the serve command exited: "
+                      + open(log_path).read()[-2000:])
+                check(time.perf_counter() - t0 < 600, "no /healthz within 600 s")
+                try:
+                    if http(port, "/healthz", timeout=5)[0] == 200:
+                        break
+                except OSError:
+                    pass
+                time.sleep(0.5)
+            startup = time.perf_counter() - t0
+            http_load(port, warm_plan)
+            replies, wall = http_load(port, plan)
+            stats = http(port, "/stats")[1]
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=60)
+                exited = True
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                exited = False
+        check(exited, "the serve command did not exit on SIGTERM")
+        started = [ln for ln in open(log_path).read().splitlines() if "serving on" in ln]
+        print(f"[14 serve] the command: {started} after {startup:.2f} s (model build, "
+              f"kernel load, warm-up) | exit code {proc.returncode} after SIGTERM")
+
+        # 2. direct scoring of the same examples, the same weights (seed 0)
+        model = ModCRModel(cfg, device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(0))
+        scorer = ModCRScorer(cfg, model, *hash_tokenizers(cfg), feats,
+                             micro_batch=SERVE_MICRO_BATCH, device="cuda")
+        scorer.warm_up()
+        # seconds of each score_featurized call (collate, copy, forward and
+        # the logits' readback): does the load slow the forward, or idle it?
+        calls = []
+        score_featurized = scorer.score_featurized
+
+        def timed_score(feats_, ids):
+            t = time.perf_counter()
+            res = score_featurized(feats_, ids)
+            calls.append(time.perf_counter() - t)
+            return res
+
+        scorer.score_featurized = timed_score
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = scorer.score(measured)
+        torch.cuda.synchronize()
+        direct_wall = time.perf_counter() - t0
+        direct_calls = calls[:]
+        direct = {r["example_id"]: np.asarray(r["logits"]) for r in rows}
+        route = stats["routes"]["score"]
+        out["http_command"] = dict(load_summary(replies, wall, direct, "serve command"),
+                                   startup_s=startup,
+                                   forwards=route["device_dispatches"],
+                                   mean_dispatch=route["mean_device_batch"])
+        out["direct"] = dict(examples=len(rows), wall_s=direct_wall,
+                             examples_per_s=len(rows) / direct_wall,
+                             forwards=len(direct_calls),
+                             ms_per_forward=1e3 * statistics.mean(direct_calls),
+                             forward_share=sum(direct_calls) / direct_wall)
+
+        # 3. the same load in-process, counting the kernel launches
+        server = serve(scorer, "127.0.0.1", 0, block=False)
+        try:
+            sport = server.server_address[1]
+            http_load(sport, warm_plan)
+            before = server.modcr_batcher.telemetry()
+            torch.cuda.synchronize()
+            del calls[:]
+            reset_counts()
+            replies, wall = http_load(sport, plan)
+            torch.cuda.synchronize()
+            launches = read_counts()
+            load_calls = calls[:]
+            dispatched = server.modcr_batcher.telemetry()[len(before):]
+        finally:
+            server.modcr_close()
+        per_forward = spec_launches_per_eval_forward(cfg)
+        out["http_in_process"] = dict(load_summary(replies, wall, direct, "in-process serve"),
+                                      forwards=len(dispatched),
+                                      mean_dispatch=sum(dispatched) / len(dispatched),
+                                      ms_per_forward=1e3 * statistics.mean(load_calls),
+                                      forward_share=sum(load_calls) / wall)
+        check(launches["spec_attention"] == per_forward * len(dispatched),
+              f"serving launches {launches} over {len(dispatched)} forwards, "
+              f"{per_forward} stage-mask launches each expected")
+        out["launches"] = launches
+        out["launches_per_forward"] = per_forward
+        del scorer, model
+    finally:
+        shutil.rmtree(tmp)
+    for name in ("http_command", "http_in_process"):
+        r = out[name]
+        print(f"[14 serve] {name}: {SERVE_CLIENTS} clients x {SERVE_REQUESTS} requests of "
+              f"{SERVE_EXAMPLES[0]}-{SERVE_EXAMPLES[1]} examples ({r['examples']} examples): "
+              f"{r['examples_per_s']:.2f} ex/s over {r['wall_s']:.3f} s | request latency p50 "
+              f"{r['p50_ms']:.2f} ms, p99 {r['p99_ms']:.2f} ms | {r['forwards']} forwards, mean "
+              f"dispatch {r['mean_dispatch']:.2f} examples | max |http - direct| "
+              f"{r['max_abs_diff']:.3e} (tol {r['tol']:.3e}), {r['predictions_checked']} "
+              f"predictions held")
+    d, h = out["direct"], out["http_in_process"]
+    print(f"[14 serve] direct ModCRScorer.score at micro-batch {SERVE_MICRO_BATCH}, the same "
+          f"{d['examples']} examples in order: {d['examples_per_s']:.2f} ex/s "
+          f"({d['forwards']} forwards, {d['wall_s']:.3f} s)")
+    print(f"[14 serve] score_featurized (collate, copy, forward, readback) per call: direct "
+          f"{d['ms_per_forward']:.2f} ms, {d['forward_share']:.1%} of the wall | under the "
+          f"in-process HTTP load {h['ms_per_forward']:.2f} ms, {h['forward_share']:.1%} of the "
+          f"wall (the rest: the dispatcher waiting for featurized examples)")
+    print(f"[14 serve] in-process launches {out['launches']} = {out['launches_per_forward']} "
+          f"stage-mask launches x {out['http_in_process']['forwards']} forwards")
     return out
 
 
@@ -853,7 +1286,8 @@ def main() -> int:
         ptxas = []  # per kernel instance: its name, registers and spill bytes
         for ln in log.splitlines():
             entry = re.search(r"entry function '.*?\d([a-z][a-z_]*_kernel)"
-                              r"(?:ILi(\d+)E(?:\w*?\d([A-Z][A-Za-z]*?(?:Bias|Stage)))?)?", ln)
+                              r"(?:I(?:Li(\d+)E)?(?:\w*?\d([A-Z][A-Za-z]*?(?:Bias|Stage)))?)?",
+                              ln)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
             regs = re.search(r"Used (\d+) registers", ln)
             if entry:
@@ -1023,15 +1457,28 @@ def main() -> int:
 
     # 12. the two commands at full width (before 11's closing lines)
     cli = cli_phase(rng)
+    torch.cuda.empty_cache()
+
+    # 13. every route at long keys
+    long_keys = long_key_phase(rng)
+    torch.cuda.empty_cache()
+
+    # 14. the serve command, the slice's main path
+    served = serve_phase(rng)
 
     # 11. kernels line, then the result line
     print(card)
     print(json.dumps({"serving": serving, "e2e_fp32_max_abs_diff": e2e_err,
                       "train_parity_max_rel_diff": parity["max_rel_diff"],
                       "training": {k: v for k, v in train.items() if k != "launches"},
-                      "cli": {k: v for k, v in cli.items() if k != "launches"}}))
+                      "cli": {k: v for k, v in cli.items() if k != "launches"},
+                      "serve": {k: v for k, v in served.items() if k != "launches"}}))
     main_path = train["launches"]
     shape = "bf16 (128, 128, 138, 16, 64), one launch, as one RoBERTa layer of the slice"
+
+    def long_key_row(name):
+        return dict(largest_lk=long_keys["largest_lk"],
+                    max_abs_err=long_keys["max_abs_err"][name], timed=long_keys["timed"][name])
     print(json.dumps({"kernels": [{
         "name": "spec_attention",
         "route": "cuda",
@@ -1040,7 +1487,9 @@ def main() -> int:
         "launches": main_path["spec_attention"],
         "serving_launches": launches,
         "cli_launches": cli["launches"]["spec_attention"],
-        "max_abs_err": max(max_err, train_err["spec_attention"]),
+        "serve_launches": served["launches"]["spec_attention"],
+        "max_abs_err": max(max_err, train_err["spec_attention"],
+                           long_keys["max_abs_err"]["spec_attention"]),
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],
         "bound_ms": totals["bound_ms"],
@@ -1052,6 +1501,7 @@ def main() -> int:
                     "library_ms per call; b2b_ms, library_b2b_ms back to back)",
         "shapes": per_shape,
         "training_shapes": train_spec,
+        "long_keys": long_key_row("spec_attention"),
     }, {
         "name": "fused_attention",
         "route": "cuda",
@@ -1059,9 +1509,12 @@ def main() -> int:
         "replaces": "multimodal_context_reasoning_tpu/ops/pallas_attention.py:73",
         "launches": main_path["fused_attention"],
         "cli_launches": cli["launches"]["fused_attention"],
-        "max_abs_err": train_err["fused_attention"],
+        "serve_launches": served["launches"]["fused_attention"],
+        "max_abs_err": max(train_err["fused_attention"],
+                           long_keys["max_abs_err"]["fused_attention"]),
         **train_times["fused_attention"],
         "timed_as": shape,
+        "long_keys": long_key_row("fused_attention"),
     }, {
         "name": "flash_bwd",
         "route": "cuda",
@@ -1069,9 +1522,11 @@ def main() -> int:
         "replaces": "multimodal_context_reasoning_tpu/ops/flash.py:190",
         "launches": main_path["flash_bwd"],
         "cli_launches": cli["launches"]["flash_bwd"],
-        "max_abs_err": train_err["flash_bwd"],
+        "serve_launches": served["launches"]["flash_bwd"],
+        "max_abs_err": max(train_err["flash_bwd"], long_keys["max_abs_err"]["flash_bwd"]),
         **train_times["flash_bwd"],
         "timed_as": shape + ", no dbias plane",
+        "long_keys": long_key_row("flash_bwd"),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -8,8 +8,7 @@ port does not honour yet are refused before any data is read, each with the
 ROADMAP item that ports it: ``--quantize int8``, a data or model mesh over
 more than one device, ``--multihost``, ``--device_features``,
 ``--profile_dir``, ``--tensorboard_dir`` and the HuggingFace tokenizer
-directories.  So is a bf16 run on the card whose attention has more keys
-than the tensor-core kernels take (``BF16_MAX_KEYS``).
+directories.
 """
 
 from __future__ import annotations
@@ -21,7 +20,6 @@ import pickle
 from typing import Dict, Tuple
 
 import numpy as np
-import torch
 
 from multimodal_context_reasoning_torch.core.config import ModCRConfig, TrainConfig
 from multimodal_context_reasoning_torch.data.collate import BatchSpec
@@ -30,7 +28,7 @@ from multimodal_context_reasoning_torch.data.tokenization import (
     HashTokenizer,
     RobertaHashTokenizer,
 )
-from multimodal_context_reasoning_torch.ops.fused_attention import BF16_MAX_KEYS
+
 
 def build_arg_parser(task: str) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=f"ModCR {task} trainer (PyTorch/CUDA port)")
@@ -147,10 +145,18 @@ def build_arg_parser(task: str) -> argparse.ArgumentParser:
     return p
 
 
+def refuse(refused) -> None:
+    """SystemExit for the first ``(flag, given, ROADMAP item)`` given."""
+    for flag, given, item in refused:
+        if given:
+            raise SystemExit(f"{flag}: the port does not honour it yet "
+                             f"(ROADMAP Queue 1 item {item})")
+
+
 def refuse_unported(args) -> None:
     """SystemExit for each flag the port does not honour yet, naming the
     ROADMAP item that ports it."""
-    refused = [
+    refuse([
         ("--quantize int8", args.quantize != "none", 6),
         ("--mesh_data > 1", args.mesh_data > 1, 9),
         ("--mesh_model > 1", args.mesh_model > 1, 9),
@@ -160,31 +166,7 @@ def refuse_unported(args) -> None:
         ("--tensorboard_dir", bool(args.tensorboard_dir), 9),
         ("--bert_tokenizer_dir", bool(args.bert_tokenizer_dir), 11),
         ("--roberta_tokenizer_dir", bool(args.roberta_tokenizer_dir), 11),
-    ]
-    for flag, given, item in refused:
-        if given:
-            raise SystemExit(f"{flag}: the port does not honour it yet "
-                             f"(ROADMAP Queue 1 item {item})")
-
-
-def check_kernel_limits(cfg: ModCRConfig, device: str) -> None:
-    """SystemExit for a bf16 run on the card whose attention has more keys
-    than the tensor-core kernels take (``BF16_MAX_KEYS``,
-    ops/fused_attention.py), before it reaches the first encoder layer's
-    ``ValueError``.  The JAX package's Pallas kernels take any length
-    (ROADMAP Queue 3)."""
-    if torch.device(device).type != "cuda":
-        return
-    towers = (("encoder", cfg.global_encoder.dtype, cfg.seq_len,
-               f"text {cfg.text_len} + --max_img_seq_length {cfg.img_len}"),
-              ("RoBERTa", cfg.roberta.dtype, cfg.roberta_len + cfg.total_prefix_len,
-               f"{cfg.roberta_len} tokens + {cfg.total_prefix_len} prefix slots"))
-    for tower, dtype, keys, parts in towers:
-        if dtype == "bfloat16" and keys > BF16_MAX_KEYS:
-            raise SystemExit(
-                f"{tower} attention over {keys} keys ({parts}): the bf16 "
-                f"tensor-core kernels take at most BF16_MAX_KEYS = {BF16_MAX_KEYS} "
-                f"(ROADMAP Queue 3); use --compute_dtype float32 or fewer keys")
+    ])
 
 
 def configs_from_args(args) -> Tuple[ModCRConfig, TrainConfig]:
@@ -228,7 +210,6 @@ def configs_from_args(args) -> Tuple[ModCRConfig, TrainConfig]:
     if args.scan_layers:
         cfg = dataclasses.replace(
             cfg, roberta=dataclasses.replace(cfg.roberta, scan_layers=True))
-    check_kernel_limits(cfg, args.device)
     tcfg = TrainConfig(
         learning_rate=args.learning_rate,
         weight_decay=args.weight_decay,
@@ -261,16 +242,17 @@ def _is_json_vocab(path: str) -> bool:
 def load_tokenizers(args, cfg: ModCRConfig):
     """Tokenizer per tower: the in-tree subword loaders from vocab files
     (data/subword.py, the reference's exact file formats), else the
-    hermetic hash tokenizers.  A byte-BPE ``vocab.json`` given without
+    hermetic hash tokenizers (the serve command has no vocab-file flags, as
+    in the JAX package).  A byte-BPE ``vocab.json`` given without
     ``--roberta_merges_file`` raises: read as a roberta-style WordPiece
     vocab, it would become a vocab of a few dozen ids without an error."""
-    if args.bert_vocab_file:
+    if getattr(args, "bert_vocab_file", ""):
         from multimodal_context_reasoning_torch.data.subword import WordPieceTokenizer
 
         bert = WordPieceTokenizer.from_vocab_file(args.bert_vocab_file)
     else:
         bert = HashTokenizer(vocab_size=cfg.global_encoder.vocab_size)
-    if args.roberta_vocab_file:
+    if getattr(args, "roberta_vocab_file", ""):
         from multimodal_context_reasoning_torch.data.subword import (
             ByteBPETokenizer,
             WordPieceTokenizer,

@@ -29,7 +29,6 @@ import torch
 from multimodal_context_reasoning_torch.cli.common import (
     batch_spec,
     build_arg_parser,
-    check_kernel_limits,
     configs_from_args,
     load_image_features,
     load_tokenizers,
@@ -64,7 +63,6 @@ def main(argv=None, *, task="pmr", dataset_cls=PMRDataset, load_fn=load_pmr_json
     if restored:
         with open(cfg_path) as f:
             cfg = ModCRConfig.from_json(f.read())
-        check_kernel_limits(cfg, args.device)
     if not (args.do_train or args.do_test):
         raise SystemExit("pass --do_train or --do_test")
     device = resolve_device(args.device)

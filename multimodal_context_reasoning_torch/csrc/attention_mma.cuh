@@ -42,9 +42,24 @@
 // 65,280 B at Lk = 190 with one word a key: 4 resident blocks (16 warps) per
 // SM up to Lk_pad = 160 and 3 above, so one block's copies overlap another's
 // products; the kernels' __launch_bounds__ ask for that residency (at most
-// 128 registers a thread for 4 blocks, 168 for 3).  It takes Dh = 64 and
-// Lk <= 192 (the wrappers raise before launch otherwise) and 16-byte aligned
-// rows.
+// 128 registers a thread for 4 blocks, 168 for 3).  These instances take
+// Lk_pad <= 192 (NP <= kMaxPairs).
+//
+// Longer keys (the encoders at --max_img_seq_length > 52) go to the
+// key-looped instance attention_mma_tile_long<Mask>; the Pallas kernels need
+// none, as a TPU core holds the whole key axis in VMEM.  K and V
+// are staged in blocks of kBlkKeys = 64 keys, double-buffered (cp.async, the
+// next block's copy in flight while the current one is multiplied), and the
+// block sweeps the key axis twice.  Sweep 1 reads K alone and keeps each
+// row's running max m and fp32 sum l (rescaled by exp(m_old - m_new) when
+// the max grows); sweep 2 recomputes S per block, forms P = exp(S - m) / l,
+// rounds it to bf16 after the normalisation, as the short instances do, and
+// accumulates O += P V.  So the order of casts is the TPU kernels' (no
+// unnormalised P is ever rounded); only the sum's order differs (the
+// running rescale).  Shared memory 47,104 B with two mask words a key,
+// whatever Lk: up to 4 blocks per SM.  No atomics: two launches give the
+// same bits.  Both instances take Dh = 64 (the wrappers raise before launch
+// otherwise) and 16-byte aligned rows; the key count is unbounded.
 //
 // A Mask functor provides:
 //   using Args;                       the kernel's one argument, a struct
@@ -53,11 +68,14 @@
 //       sqi, sqh, skb, ski, skh, svb, svi, svh; out contiguous
 //       [B, Lq, H, Dh]), lq, lk, n_heads and scale, and the mask's own;
 //   static constexpr int kKeyWords;   shared-memory words it stages per key
-//   static void stage(a, mask_s, b, nkeys)   all threads, before the
-//       block's barrier: fill mask_s for keys 0..nkeys-1 of batch row b;
-//   static Mask make(a, mask_s, b, row)      per lane, for its two rows;
+//   static void stage(a, mask_s, b, key0, nkeys)   all threads, before the
+//       block's barrier: fill mask_s[0, nkeys) for keys key0..key0+nkeys-1
+//       of batch row b (zeros past Lk);
+//   static Mask make(a, mask_s, b, row)      per lane, for its two rows,
+//       reading mask_s as staged from key 0;
+//   void rebase(mask_s, key0)         read mask_s as staged from key0 on;
 //   float operator()(hi, j)           what is added to the scaled score of
-//       the lane's row row[hi] and key j < Lk.
+//       the lane's row row[hi] and key j < Lk (j counts from key 0).
 
 #pragma once
 
@@ -73,7 +91,9 @@ constexpr int kMmaWarps = 4;
 constexpr int kMmaThreads = kMmaWarps * 32;
 constexpr int kTileRows = 16 * kMmaWarps;  // query rows per block, 16 per warp
 constexpr int kMmaDh = 64;                 // the one head dim instantiated
-constexpr int kMaxPairs = 12;              // 16-key steps: Lk <= 192
+constexpr int kMaxPairs = 12;              // 16-key steps of the resident instances
+constexpr int kBlkKeys = 64;               // keys per block of the key-looped instance
+constexpr int kBlkPairs = kBlkKeys / 16;
 constexpr int kRowPad = 8;                 // elements (16 bytes) after each smem row
 constexpr int kS = kMmaDh + kRowPad;       // row stride of K, V and Q in shared memory
 
@@ -82,6 +102,13 @@ constexpr int kS = kMmaDh + kRowPad;       // row stride of K, V and Q in shared
 size_t mma_smem_bytes(int lk, int key_words) {
   const size_t lkp = pad16(lk);
   return sizeof(bf16) * (2 * lkp + kTileRows) * kS + sizeof(float) * key_words * lkp;
+}
+
+// The key-looped instance's: two K and two V blocks, the Q tile, and two
+// blocks of mask words.
+size_t mma_long_smem_bytes(int key_words) {
+  return sizeof(bf16) * (4 * kBlkKeys + kTileRows) * kS +
+         sizeof(float) * 2 * key_words * kBlkKeys;
 }
 
 // Accumulator layout of an m16n8 tile: c[e] sits at row lane / 4 + 8 (e / 2),
@@ -133,7 +160,7 @@ __device__ __forceinline__ void attention_mma_tile(const typename Mask::Args& a)
     cp_async16(v_s + j * kS + d, vb + (ok ? j : 0) * a.svi + d, ok);
   }
   cp_async_commit();
-  Mask::stage(a, mask_s, b, kLkp);
+  Mask::stage(a, mask_s, b, 0, kLkp);
   cp_async_wait<1>();
   __syncthreads();
 
@@ -233,6 +260,185 @@ __device__ __forceinline__ void attention_mma_tile(const typename Mask::Args& a)
   }
 }
 
+// The key-looped instance for any Lk (used above Lk_pad = 192): the same
+// per-warp rows, fragments and order of casts as attention_mma_tile, over
+// key blocks of kBlkKeys in two sweeps (the design is in the header note).
+template <class Mask>
+__device__ __forceinline__ void attention_mma_tile_long(const typename Mask::Args& a) {
+  constexpr int kChunks = kMmaDh / 8;
+  constexpr int kSteps = kMmaDh / 16;
+  constexpr int kDt = kMmaDh / 8;
+  constexpr int kBuf = kBlkKeys * kS;                     // one K or V block
+  constexpr int kMaskBuf = kBlkKeys * Mask::kKeyWords;    // one block of mask words
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem);                       // [2][kBlkKeys][kS]
+  bf16* v_s = k_s + 2 * kBuf;                                      // [2][kBlkKeys][kS]
+  bf16* q_s = v_s + 2 * kBuf;                                      // [kTileRows][kS], then O
+  float* mask_s = reinterpret_cast<float*>(q_s + kTileRows * kS);  // [2][kMaskBuf]
+
+  const int i0 = blockIdx.x * kTileRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int r0 = 16 * warp;
+  const int n_blocks = (a.lk + kBlkKeys - 1) / kBlkKeys;
+  const int n_steps = 2 * n_blocks;  // sweep 1 (K), then sweep 2 (K and V)
+
+  const bf16* qb = a.q + b * a.sqb + h * a.sqh;
+  const bf16* kb = a.k + b * a.skb + h * a.skh;
+  const bf16* vb = a.v + b * a.svb + h * a.svh;
+  // step it's copies into buffer it & 1: the key block's K (and in sweep 2
+  // its V) as one cp.async group, and its mask words
+  auto load = [&](int it) {
+    const int buf = it & 1;
+    const int key0 = (it < n_blocks ? it : it - n_blocks) * kBlkKeys;
+    for (int c = threadIdx.x; c < kBlkKeys * kChunks; c += kMmaThreads) {
+      const int r = c / kChunks;
+      const int d = (c % kChunks) * 8;
+      const int j = key0 + r;
+      const bool ok = j < a.lk;
+      cp_async16(k_s + buf * kBuf + r * kS + d, kb + (ok ? j : 0) * a.ski + d, ok);
+      if (it >= n_blocks)
+        cp_async16(v_s + buf * kBuf + r * kS + d, vb + (ok ? j : 0) * a.svi + d, ok);
+    }
+    cp_async_commit();
+    Mask::stage(a, mask_s + buf * kMaskBuf, b, key0, kBlkKeys);
+  };
+
+  for (int c = threadIdx.x; c < kTileRows * kChunks; c += kMmaThreads) {
+    const int r = c / kChunks;
+    const int d = (c % kChunks) * 8;
+    const bool ok = i0 + r < a.lq;
+    cp_async16(q_s + r * kS + d, qb + (ok ? i0 + r : 0) * a.sqi + d, ok);
+  }
+  load(0);  // the Q tile rides in step 0's group
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int row[2] = {i0 + r0 + g, i0 + r0 + g + 8};
+  Mask mask = Mask::make(a, mask_s, b, row);
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float o[kDt][4];
+#pragma unroll
+  for (int n = 0; n < kDt; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  for (int it = 0; it < n_steps; ++it) {
+    // buffer (it + 1) & 1 was last read in step it - 1, before its barrier
+    if (it + 1 < n_steps) load(it + 1);
+    const int buf = it & 1;
+    const int key0 = (it < n_blocks ? it : it - n_blocks) * kBlkKeys;
+    const bf16* kk = k_s + buf * kBuf;
+    mask.rebase(mask_s + buf * kMaskBuf, key0);
+
+    // S = Q K^T for this warp's 16 rows and the block's keys, scaled and masked
+    float sc[kBlkPairs][2][4];
+#pragma unroll
+    for (int jp = 0; jp < kBlkPairs; ++jp)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[jp][n][e] = 0.f;
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      uint32_t qa[4];
+      ldsm_x4(qa, q_s + (r0 + (lane & 15)) * kS + 16 * s + 8 * (lane >> 4));
+#pragma unroll
+      for (int jp = 0; jp < kBlkPairs; ++jp) {
+        uint32_t y[4];
+        ldsm_x4(y, kk + (16 * jp + (lane & 7) + 8 * (lane >> 4)) * kS + 16 * s +
+                       8 * ((lane >> 3) & 1));
+        mma16816(sc[jp][0], qa, y[0], y[1]);
+        mma16816(sc[jp][1], qa, y[2], y[3]);
+      }
+    }
+#pragma unroll
+    for (int jp = 0; jp < kBlkPairs; ++jp)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = key0 + 16 * jp + 8 * n + 2 * t + (e & 1);
+          const float x = __fmul_rn(sc[jp][n][e], a.scale);
+          sc[jp][n][e] = j < a.lk ? x + mask(e >> 1, j) : -INFINITY;
+        }
+
+    if (it < n_blocks) {
+      // sweep 1: the running row max (quad-uniform) and this lane's sum
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int jp = 0; jp < kBlkPairs; ++jp)
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+            mx = fmaxf(mx, fmaxf(sc[jp][n][2 * hi], sc[jp][n][2 * hi + 1]));
+        const float mn = fmaxf(m[hi], quad_max(mx));
+        float sum = l[hi] * expf(m[hi] - mn);
+#pragma unroll
+        for (int jp = 0; jp < kBlkPairs; ++jp)
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+            sum += expf(sc[jp][n][2 * hi] - mn) + expf(sc[jp][n][2 * hi + 1] - mn);
+        m[hi] = mn;
+        l[hi] = sum;
+      }
+      if (it == n_blocks - 1) {
+        l[0] = quad_sum(l[0]);
+        l[1] = quad_sum(l[1]);
+      }
+    } else {
+      // sweep 2: P = exp(S - m) / l rounded to bf16, then O += P V
+      uint32_t pa[kBlkPairs][4];
+#pragma unroll
+      for (int jp = 0; jp < kBlkPairs; ++jp)
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi)
+            pa[jp][2 * n + hi] =
+                pack_bf16(expf(sc[jp][n][2 * hi] - m[hi]) / l[hi],
+                          expf(sc[jp][n][2 * hi + 1] - m[hi]) / l[hi]);
+      const bf16* vv = v_s + buf * kBuf;
+#pragma unroll
+      for (int jp = 0; jp < kBlkPairs; ++jp)
+#pragma unroll
+        for (int s = 0; s < kSteps; ++s) {
+          uint32_t y[4];
+          ldsm_x4_t(y, vv + (16 * jp + (lane & 15)) * kS + 16 * s + 8 * (lane >> 4));
+          mma16816(o[2 * s], pa[jp], y[0], y[1]);
+          mma16816(o[2 * s + 1], pa[jp], y[2], y[3]);
+        }
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+
+  // O through this warp's own Q rows to 16-byte stores, as attention_mma_tile
+  bf16* o_s = q_s + r0 * kS;
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi)
+#pragma unroll
+    for (int n = 0; n < kDt; ++n)
+      *reinterpret_cast<uint32_t*>(o_s + (g + 8 * hi) * kS + 8 * n + 2 * t) =
+          pack_bf16(o[n][2 * hi], o[n][2 * hi + 1]);
+  __syncwarp();
+  for (int c = lane; c < 16 * kChunks; c += 32) {
+    const int r = c / kChunks;
+    const int d = (c % kChunks) * 8;
+    const int i = i0 + r0 + r;
+    if (i < a.lq)
+      *reinterpret_cast<uint4*>(a.out + ((int64_t(b) * a.lq + i) * a.n_heads + h) * kMmaDh + d) =
+          *reinterpret_cast<const uint4*>(o_s + r * kS + d);
+  }
+}
+
 // Reserve `Kernel`'s shared memory and launch it on a (ceil(Lq / 64), H, B)
 // grid; returns cudaGetLastError().
 template <auto Kernel, class Args>
@@ -245,11 +451,12 @@ int launch_mma(const Args& a, int b, size_t smem, cudaStream_t stream) {
 }
 
 // `launch.template run<NP>()` for the instance whose score tile holds
-// Lk_pad = pad16(lk) = 16 NP keys.
+// Lk_pad = pad16(lk) = 16 NP keys; `launch.run_long()`, the key-looped
+// instance, above 16 kMaxPairs keys.
 template <int NP, class Launch>
 int launch_pairs(int lk, const Launch& launch) {
   if constexpr (NP > kMaxPairs) {
-    return int(cudaErrorInvalidValue);
+    return launch.run_long();
   } else {
     if (pad16(lk) != 16 * NP) return launch_pairs<NP + 1>(lk, launch);
     return launch.template run<NP>();

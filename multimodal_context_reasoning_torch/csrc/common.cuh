@@ -41,6 +41,31 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// The widest head the FP32-pipe kernels take (MAX_DH in
+// ops/fused_attention.py): their streaming variants keep a row of q (and dO)
+// and kMaxDh / 32 output columns per lane.
+constexpr int kMaxDh = 128;
+
+// True when one block may opt in to `smem` bytes of dynamic shared memory on
+// the current device (227 KB on an H100); the FP32-pipe kernels stage K and
+// V there while this holds and stream them from device memory beyond it.
+inline bool fits_smem(size_t smem) {
+  constexpr int kMaxDevices = 64;
+  static int limit[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return false;
+  int lim = dev < kMaxDevices ? limit[dev] : 0;
+  if (lim == 0) {
+    if (cudaDeviceGetAttribute(&lim, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+        cudaSuccess) {
+      cudaGetLastError();
+      return false;
+    }
+    if (dev < kMaxDevices) limit[dev] = lim;
+  }
+  return smem <= size_t(lim);
+}
+
 // Opt `Kernel` in to `smem` bytes of dynamic shared memory on the current
 // device, once: the size is set again only when a launch needs more.  A size
 // beyond the card's per-block limit fails here; the error is cleared so that

@@ -58,8 +58,11 @@
 //   tile, and at Lk = 190 a second buffer (36 KB) would not fit.
 //   Budget: shared memory 156,160 B at Lk = 138 and 194,560 B at Lk = 190,
 //   one block (8 warps) per SM; registers and spills as ptxas -v reports
-//   them (chip_smoke.py phase 2, PERF.md).  It takes Dh = 64 and Lk <= 192
-//   (the wrapper raises before launch otherwise) and 16-byte aligned rows.
+//   them (chip_smoke.py phase 2, PERF.md).  That holds K and V for up to
+//   kResidentKeys = 192 keys; above, flash_bwd_mma_long_kernel sweeps the
+//   keys in blocks of 64 (its note below; 92,160 B of shared memory at any
+//   Lk).  Both take Dh = 64 (the wrapper raises before launch otherwise) and
+//   16-byte aligned rows.
 //
 // * fp32: flash_bwd_kernel, on the FP32 pipes.  A block stages its head's
 //   K and V in shared memory and walks the query rows in rounds of eight:
@@ -68,7 +71,9 @@
 //   dimensions), and then all 256 threads fold the round's eight rounded P
 //   and dS rows into fp32 dK and dV accumulators in shared memory, each
 //   thread owning fixed (key, dimension) cells.  155 KB of shared memory
-//   at Lk = 138, 212 KB at Lk = 190.
+//   at Lk = 138, 212 KB at Lk = 190.  Beyond one block's shared memory
+//   (about 208 keys at Dh 64) flash_bwd_stream_kernel reads K and V from
+//   device memory and keeps the dK and dV sums in the outputs.
 //
 // Plain C interface, loaded with ctypes (multimodal_context_reasoning_torch/
 // ops/flash.py).  The launcher returns cudaGetLastError().
@@ -232,6 +237,138 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// Lk beyond one block's shared memory (about 208 keys at Dh 64): the same
+// rounds of eight rows and the same order of sums, with K and V read from
+// device memory and the dK and dV sums kept in the fp32 outputs themselves.
+// Per row, a warp first takes the running max and sum over its lanes' keys
+// (merged across the warp) and D = rowsum(dP o P); then the block walks the
+// keys 32 at a time: each warp writes its row's P and dS for the chunk to
+// shared memory (the dbias atomics as above) and adds the chunk to its dQ,
+// and after a barrier each thread folds the round's rows, in order, into
+// fixed (key, dimension) cells of dK and dV.  Any Lk.
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_stream_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ dout,
+                        const float* __restrict__ bias, float* __restrict__ dq,
+                        float* __restrict__ dk, float* __restrict__ dv,
+                        float* __restrict__ dbias, int lq, int lk, int n_heads, int dh,
+                        int64_t sqb, int64_t sqi, int64_t sqh, int64_t skb, int64_t ski,
+                        int64_t skh, int64_t svb, int64_t svi, int64_t svh, int64_t sob,
+                        int64_t soi, int64_t soh, int64_t sbb, int64_t sbq, int64_t sbk,
+                        float scale) {
+  __shared__ float q_s[kWarps][kMaxDh];
+  __shared__ float do_s[kWarps][kMaxDh];
+  __shared__ float p_s[kWarps][32];   // P of the chunk, one row per warp
+  __shared__ float ds_s[kWarps][32];  // dS / sqrt(Dh) of the chunk
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const float* kb = k + b * skb + h * skh;
+  const float* vb = v + b * svb + h * svh;
+  float* q_row = q_s[warp];
+  float* do_row = do_s[warp];
+
+  for (int i0 = 0; i0 < lq; i0 += kWarps) {
+    const int i = i0 + warp;  // warp-uniform
+    const bool active = i < lq;
+    const int n_rows = min(kWarps, lq - i0);
+    if (active) {
+      const float* qi = q + b * sqb + i * sqi + h * sqh;
+      const float* doi = dout + b * sob + i * soi + h * soh;
+      for (int d = lane; d < dh; d += 32) {
+        q_row[d] = qi[d];
+        do_row[d] = doi[d];
+      }
+    }
+    __syncwarp();
+    const float* bias_row = (bias != nullptr && active) ? bias + b * sbb + i * sbq : nullptr;
+    // S = (q . k) * scale + bias and dP = dO . v for key j
+    auto score = [&](int j, float& dpj) {
+      const float* kj = kb + j * ski;
+      const float* vj = vb + j * svi;
+      float s = 0.f;
+      float dp = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < dh; ++d) {
+        s = fmaf(q_row[d], kj[d], s);
+        dp = fmaf(do_row[d], vj[d], dp);
+      }
+      s *= scale;
+      if (bias_row != nullptr) s += __ldg(bias_row + j * sbk);
+      dpj = dp;
+      return s;
+    };
+
+    float m = -INFINITY, l = 0.f, row_dot = 0.f;
+    if (active) {
+      float dpj;
+      for (int j = lane; j < lk; j += 32) {
+        const float s = score(j, dpj);
+        const float mn = fmaxf(m, s);
+        l = l * expf(m - mn) + expf(s - mn);
+        m = mn;
+      }
+      const float mw = warp_max(m);
+      l = warp_sum(m == -INFINITY ? 0.f : l * expf(m - mw));
+      m = mw;
+      for (int j = lane; j < lk; j += 32) {
+        const float s = score(j, dpj);
+        row_dot = fmaf(dpj, expf(s - m) / l, row_dot);
+      }
+      row_dot = warp_sum(row_dot);
+    }
+
+    float dq_r[kMaxDh / 32] = {};
+    for (int j0 = 0; j0 < lk; j0 += 32) {
+      const int j = j0 + lane;
+      float pj = 0.f, dsj = 0.f;
+      if (active && j < lk) {
+        float dpj;
+        const float s = score(j, dpj);
+        pj = expf(s - m) / l;
+        dsj = pj * (dpj - row_dot);
+        if (dbias != nullptr) atomicAdd(dbias + (int64_t(b) * lq + i) * lk + j, dsj);
+        dsj *= scale;
+      }
+      p_s[warp][lane] = pj;
+      ds_s[warp][lane] = dsj;
+      __syncthreads();
+      const int n = min(32, lk - j0);
+      if (active) {
+#pragma unroll
+        for (int r = 0; r < kMaxDh / 32; ++r) {
+          const int d = lane + 32 * r;
+          if (d < dh)
+            for (int jj = 0; jj < n; ++jj)
+              dq_r[r] = fmaf(ds_s[warp][jj], kb[(j0 + jj) * ski + d], dq_r[r]);
+        }
+      }
+      // dV += P^T dO and dK += dS^T Q over the round's rows, in order
+      for (int c = threadIdx.x; c < n * dh; c += kThreads) {
+        const int jj = c / dh;
+        const int d = c - jj * dh;
+        const int64_t o = ((int64_t(b) * lk + j0 + jj) * n_heads + h) * dh + d;
+        float ak = i0 == 0 ? 0.f : dk[o];
+        float av = i0 == 0 ? 0.f : dv[o];
+        for (int r = 0; r < n_rows; ++r) {
+          av = fmaf(p_s[r][jj], do_s[r][d], av);
+          ak = fmaf(ds_s[r][jj], q_s[r][d], ak);
+        }
+        dk[o] = ak;
+        dv[o] = av;
+      }
+      __syncthreads();  // the chunk buffers are rewritten by the next chunk
+    }
+    if (active) {
+      float* dqi = dq + ((int64_t(b) * lq + i) * n_heads + h) * dh;
+#pragma unroll
+      for (int r = 0; r < kMaxDh / 32; ++r)
+        if (lane + 32 * r < dh) dqi[lane + 32 * r] = dq_r[r];
+    }
+  }
+}
+
 // ------------------------------------------------------------------ bf16
 
 using bf16 = __nv_bfloat16;
@@ -240,15 +377,26 @@ constexpr int kMmaWarps = 8;
 constexpr int kMmaThreads = kMmaWarps * 32;
 constexpr int kTileRows = 16 * kMmaWarps;  // query rows per tile, 16 per warp
 constexpr int kMmaDh = 64;                 // the one head dim instantiated
-constexpr int kMaxLk = 192;
+constexpr int kResidentKeys = 192;         // K and V resident in flash_bwd_mma_kernel
 constexpr int kRowPad = 8;                 // elements (16 bytes) after each smem row
-// dK and dV units of 16 keys x Dh: 2 * kMaxLk / 16 = 24 over 8 warps
-constexpr int kMaxUnits = 2 * kMaxLk / 16 / kMmaWarps;
+// dK and dV units of 16 keys x Dh: 2 * kResidentKeys / 16 = 24 over 8 warps
+constexpr int kMaxUnits = 2 * kResidentKeys / 16 / kMmaWarps;
+// flash_bwd_mma_long_kernel's key blocks: 2 * 64 / 16 = 8 units, one per warp
+constexpr int kBlkKeys = 64;
+constexpr int kBlkPairs = kBlkKeys / 16;
 
 size_t mma_smem_bytes(int lk, int dh) {
   const size_t lkp = pad16(lk);
   return sizeof(bf16) * (2 * lkp * (dh + kRowPad) + 2 * size_t(kTileRows) * (dh + kRowPad)
                          + 2 * size_t(kTileRows) * (lkp + kRowPad));
+}
+
+// The key-looped kernel's: one K and one V block, the Q and dO tiles, and
+// P and dS for the tile's rows against one key block; 92,160 B at Dh 64.
+size_t mma_long_smem_bytes(int dh) {
+  return sizeof(bf16) * (2 * size_t(kBlkKeys) * (dh + kRowPad) +
+                         2 * size_t(kTileRows) * (dh + kRowPad) +
+                         2 * size_t(kTileRows) * (kBlkKeys + kRowPad));
 }
 
 // Accumulator layout of an m16n8 tile: c[e] sits at row lane / 4 + 8 (e / 2),
@@ -504,14 +652,305 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// Lk > kResidentKeys: the same three passes per 16 query rows, with the key
+// axis in blocks of kBlkKeys that each pass sweeps in order (K and V copied
+// into shared memory per block).  Per tile of 128 query rows: sweep 1 takes
+// each row's running max and sum (rescaled when the max grows), sweep 2
+// D = rowsum(dP o P), both kept in registers by the lanes that own the row;
+// sweep 3 recomputes S and dP per block, forms dS, adds the dbias atomics,
+// accumulates dQ += dS K in registers across the blocks in key order (one
+// owner per element, written once per tile), writes the rounded P and dS of
+// the block to shared memory, and then each warp runs one 16-key unit of the
+// block's dV or dK over the tile's rows.  A unit's sum starts from zero on
+// the first query tile and from its owner's fp32 partial in `part` (device
+// memory, [2][B][H][Lk][Dh], dV then dK) on later ones, and goes back there,
+// or to dk and dv in bf16 after the last tile: the same thread reads and
+// writes the same elements in tile order, so no atomics touch dq, dk or dv
+// and two launches give the same bits.  `part` is needed only when Lq > 128.
+template <int Dh>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+flash_bwd_mma_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const float* __restrict__ bias, bf16* __restrict__ dq,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          float* __restrict__ dbias, float* __restrict__ part, int lq,
+                          int lk, int n_heads, int64_t sqb, int64_t sqi, int64_t sqh,
+                          int64_t skb, int64_t ski, int64_t skh, int64_t svb, int64_t svi,
+                          int64_t svh, int64_t sob, int64_t soi, int64_t soh, int64_t sbb,
+                          int64_t sbq, int64_t sbk, float scale) {
+  constexpr int kS = Dh + kRowPad;        // row stride of K, V, Q, dO in shared memory
+  constexpr int kPs = kBlkKeys + kRowPad;  // row stride of P and dS
+  constexpr int kChunks = Dh / 8;
+  constexpr int kSteps = Dh / 16;
+  constexpr int kDt = Dh / 8;
+  static_assert(2 * kBlkPairs == kMmaWarps, "one dV or dK unit of a key block per warp");
+  const int n_blocks = (lk + kBlkKeys - 1) / kBlkKeys;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem);  // [kBlkKeys][kS]
+  bf16* v_s = k_s + kBlkKeys * kS;            // [kBlkKeys][kS]
+  bf16* q_s = v_s + kBlkKeys * kS;            // [kTileRows][kS]
+  bf16* do_s = q_s + kTileRows * kS;          // [kTileRows][kS]
+  bf16* p_s = do_s + kTileRows * kS;          // [kTileRows][kPs], P rounded
+  bf16* ds_s = p_s + kTileRows * kPs;         // [kTileRows][kPs], dS / sqrt(Dh) rounded
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int r0 = 16 * warp;
+
+  const bf16* kb = k + b * skb + h * skh;
+  const bf16* vb = v + b * svb + h * svh;
+  const bf16* qb = q + b * sqb + h * sqh;
+  const bf16* ob = dout + b * sob + h * soh;
+  // this warp's unit: dV (even warps) or dK of 16 keys from kl in each block
+  const bool is_dk = warp & 1;
+  const int kl = 16 * (warp >> 1);
+  float* part_u = part == nullptr ? nullptr
+                                  : part + (is_dk ? int64_t(gridDim.y) * n_heads * lk * Dh : 0) +
+                                        (int64_t(b) * n_heads + h) * lk * Dh;
+  bf16* out_u = is_dk ? dk : dv;
+
+  // key block blk's K (and V) into shared memory, after every copy issued so
+  // far (the Q and dO tile's too) has landed
+  auto load_kv = [&](int blk, bool with_v) {
+    const int key0 = blk * kBlkKeys;
+    for (int c = threadIdx.x; c < kBlkKeys * kChunks; c += kMmaThreads) {
+      const int r = c / kChunks;
+      const int d = (c % kChunks) * 8;
+      const int j = key0 + r;
+      const bool ok = j < lk;
+      cp_async16(k_s + r * kS + d, kb + (ok ? j : 0) * ski + d, ok);
+      if (with_v) cp_async16(v_s + r * kS + d, vb + (ok ? j : 0) * svi + d, ok);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  };
+
+  for (int i0 = 0; i0 < lq; i0 += kTileRows) {
+    for (int c = threadIdx.x; c < kTileRows * kChunks; c += kMmaThreads) {
+      const int r = c / kChunks;
+      const int d = (c % kChunks) * 8;
+      const bool ok = i0 + r < lq;
+      const int i = ok ? i0 + r : 0;
+      cp_async16(q_s + r * kS + d, qb + i * sqi + d, ok);
+      cp_async16(do_s + r * kS + d, ob + i * soi + d, ok);
+    }
+
+    int row[2];
+    const float* brow[2];
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      row[hi] = i0 + r0 + g + 8 * hi;
+      brow[hi] = (bias != nullptr && row[hi] < lq) ? bias + b * sbb + row[hi] * sbq : nullptr;
+    }
+    uint32_t qa[kSteps][4], oa[kSteps][4];
+    auto product = [&](const uint32_t (&xa)[kSteps][4], const bf16* y_s, int jp,
+                       float (&out)[2][4]) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) out[n][e] = 0.f;
+#pragma unroll
+      for (int s = 0; s < kSteps; ++s) {
+        uint32_t y[4];
+        ldsm_x4(y, y_s + (16 * jp + (lane & 7) + 8 * (lane >> 4)) * kS + 16 * s +
+                       8 * ((lane >> 3) & 1));
+        mma16816(out[0], xa[s], y[0], y[1]);
+        mma16816(out[1], xa[s], y[2], y[3]);
+      }
+    };
+    auto scores = [&](int key0, int jp, float (&sc)[2][4]) {
+      product(qa, k_s, jp, sc);
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = key0 + 16 * jp + 8 * n + 2 * t + (e & 1);
+          const float* br = brow[e >> 1];
+          float x = __fmul_rn(sc[n][e], scale);
+          if (j >= lk)
+            x = -INFINITY;
+          else if (br != nullptr)
+            x += __ldg(br + j * sbk);
+          sc[n][e] = x;
+        }
+    };
+
+    // sweep 1: row max and sum of exp, online over the key blocks
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};
+    for (int blk = 0; blk < n_blocks; ++blk) {
+      load_kv(blk, false);
+      if (blk == 0) {
+#pragma unroll
+        for (int s = 0; s < kSteps; ++s) {
+          const int off = (r0 + (lane & 15)) * kS + 16 * s + 8 * (lane >> 4);
+          ldsm_x4(qa[s], q_s + off);
+          ldsm_x4(oa[s], do_s + off);
+        }
+      }
+      for (int jp = 0; jp < kBlkPairs; ++jp) {
+        float sc[2][4];
+        scores(blk * kBlkKeys, jp, sc);
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          const float mx = quad_max(fmaxf(fmaxf(sc[0][2 * hi], sc[0][2 * hi + 1]),
+                                          fmaxf(sc[1][2 * hi], sc[1][2 * hi + 1])));
+          const float mn = fmaxf(m[hi], mx);
+          float sum = l[hi] * expf(m[hi] - mn);
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+            sum += expf(sc[n][2 * hi] - mn) + expf(sc[n][2 * hi + 1] - mn);
+          m[hi] = mn;
+          l[hi] = sum;
+        }
+      }
+      __syncthreads();  // the next block overwrites K
+    }
+    l[0] = quad_sum(l[0]);
+    l[1] = quad_sum(l[1]);
+
+    // sweep 2: D = rowsum(dP o P) with the fp32 P
+    float dsum[2] = {0.f, 0.f};
+    for (int blk = 0; blk < n_blocks; ++blk) {
+      load_kv(blk, true);
+      for (int jp = 0; jp < kBlkPairs; ++jp) {
+        float sc[2][4], dp[2][4];
+        scores(blk * kBlkKeys, jp, sc);
+        product(oa, v_s, jp, dp);
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dsum[e >> 1] += dp[n][e] * (expf(sc[n][e] - m[e >> 1]) / l[e >> 1]);
+      }
+      __syncthreads();
+    }
+    const float dd[2] = {quad_sum(dsum[0]), quad_sum(dsum[1])};
+
+    // sweep 3: dS, dbias, dQ; then the block's dV and dK units
+    float dqa[kDt][4];
+#pragma unroll
+    for (int n = 0; n < kDt; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
+    const bool first_tile = i0 == 0;
+    const bool last_tile = i0 + kTileRows >= lq;
+    const int rows_here = pad16(min(kTileRows, lq - i0));
+    for (int blk = 0; blk < n_blocks; ++blk) {
+      const int key0 = blk * kBlkKeys;
+      load_kv(blk, true);
+      for (int jp = 0; jp < kBlkPairs; ++jp) {
+        float sc[2][4], dp[2][4];
+        scores(key0, jp, sc);
+        product(oa, v_s, jp, dp);
+        uint32_t a[4];
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const int col = 16 * jp + 8 * n + 2 * t;  // in the block
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi) {
+            float p[2], ds[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              p[e] = expf(sc[n][2 * hi + e] - m[hi]) / l[hi];
+              ds[e] = p[e] * (dp[n][2 * hi + e] - dd[hi]);
+              if (dbias != nullptr && row[hi] < lq && key0 + col + e < lk)
+                atomicAdd(dbias + (int64_t(b) * lq + row[hi]) * lk + key0 + col + e, ds[e]);
+            }
+            a[2 * n + hi] = pack_bf16(ds[0] * scale, ds[1] * scale);
+            *reinterpret_cast<uint32_t*>(ds_s + (r0 + g + 8 * hi) * kPs + col) = a[2 * n + hi];
+            *reinterpret_cast<uint32_t*>(p_s + (r0 + g + 8 * hi) * kPs + col) =
+                pack_bf16(p[0], p[1]);
+          }
+        }
+#pragma unroll
+        for (int s = 0; s < kSteps; ++s) {
+          uint32_t y[4];
+          ldsm_x4_t(y, k_s + (16 * jp + (lane & 15)) * kS + 16 * s + 8 * (lane >> 4));
+          mma16816(dqa[2 * s], a, y[0], y[1]);
+          mma16816(dqa[2 * s + 1], a, y[2], y[3]);
+        }
+      }
+      __syncthreads();
+
+      // this warp's unit: dV += P^T dO or dK += dS^T Q over the tile's rows
+      float acc[kDt][4];
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int j = key0 + kl + g + 8 * hi;
+#pragma unroll
+        for (int n = 0; n < kDt; ++n) {
+          float2 prev = make_float2(0.f, 0.f);
+          if (!first_tile && j < lk)
+            prev = *reinterpret_cast<const float2*>(part_u + int64_t(j) * Dh + 8 * n + 2 * t);
+          acc[n][2 * hi] = prev.x;
+          acc[n][2 * hi + 1] = prev.y;
+        }
+      }
+      const bf16* a_s = is_dk ? ds_s : p_s;
+      const bf16* b_s = is_dk ? q_s : do_s;
+      for (int r = 0; r < rows_here; r += 16) {
+        uint32_t a[4];
+        ldsm_x4_t(a, a_s + (r + (lane & 7) + 8 * (lane >> 4)) * kPs + kl +
+                         8 * ((lane >> 3) & 1));
+#pragma unroll
+        for (int s = 0; s < kSteps; ++s) {
+          uint32_t y[4];
+          ldsm_x4_t(y, b_s + (r + (lane & 15)) * kS + 16 * s + 8 * (lane >> 4));
+          mma16816(acc[2 * s], a, y[0], y[1]);
+          mma16816(acc[2 * s + 1], a, y[2], y[3]);
+        }
+      }
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int j = key0 + kl + g + 8 * hi;
+        if (j >= lk) continue;
+#pragma unroll
+        for (int n = 0; n < kDt; ++n) {
+          if (last_tile)
+            *reinterpret_cast<uint32_t*>(out_u + ((int64_t(b) * lk + j) * n_heads + h) * Dh +
+                                         8 * n + 2 * t) =
+                pack_bf16(acc[n][2 * hi], acc[n][2 * hi + 1]);
+          else
+            *reinterpret_cast<float2*>(part_u + int64_t(j) * Dh + 8 * n + 2 * t) =
+                make_float2(acc[n][2 * hi], acc[n][2 * hi + 1]);
+        }
+      }
+      __syncthreads();  // the next block overwrites K, V, P and dS
+    }
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      if (row[hi] >= lq) continue;
+      bf16* out = dq + ((int64_t(b) * lq + row[hi]) * n_heads + h) * Dh + 2 * t;
+#pragma unroll
+      for (int n = 0; n < kDt; ++n)
+        *reinterpret_cast<uint32_t*>(out + 8 * n) = pack_bf16(dqa[n][2 * hi], dqa[n][2 * hi + 1]);
+    }
+  }
+}
+
 int launch_fp32(const void* q, const void* k, const void* v, const void* dout,
                 const float* bias, void* dq, void* dk, void* dv, float* dbias, int b,
                 int lq, int lk, int h, int dh, const long long* st, float scale,
                 cudaStream_t stream) {
+  const dim3 grid(h, b);
   const size_t smem = smem_bytes<float>(lk, dh);
+  if (!fits_smem(smem)) {
+    flash_bwd_stream_kernel<<<grid, kThreads, 0, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), bias,
+        static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), dbias,
+        lq, lk, h, dh, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
+        st[10], st[11], st[12], st[13], st[14], scale);
+    return int(cudaGetLastError());
+  }
   const cudaError_t err = reserve_smem<flash_bwd_kernel<float>>(smem);
   if (err != cudaSuccess) return int(err);
-  const dim3 grid(h, b);
   flash_bwd_kernel<float><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), bias,
@@ -521,15 +960,34 @@ int launch_fp32(const void* q, const void* k, const void* v, const void* dout,
   return int(cudaGetLastError());
 }
 
+// The fp32 floats flash_bwd_mma_long_kernel keeps between query tiles (none
+// when it has one tile, or when K and V are resident).
+size_t long_part_floats(int b, int lq, int lk, int h, int dh) {
+  return lk > kResidentKeys && lq > kTileRows ? 2 * size_t(b) * h * lk * dh : 0;
+}
+
 int launch_bf16(const void* q, const void* k, const void* v, const void* dout,
-                const float* bias, void* dq, void* dk, void* dv, float* dbias, int b,
-                int lq, int lk, int h, int dh, const long long* st, float scale,
+                const float* bias, void* dq, void* dk, void* dv, float* dbias, float* part,
+                int b, int lq, int lk, int h, int dh, const long long* st, float scale,
                 cudaStream_t stream) {
-  if (dh != kMmaDh || lk > kMaxLk) return int(cudaErrorInvalidValue);
+  if (dh != kMmaDh) return int(cudaErrorInvalidValue);
+  const dim3 grid(h, b);
+  if (lk > kResidentKeys) {
+    if (part == nullptr && long_part_floats(b, lq, lk, h, dh) > 0)
+      return int(cudaErrorInvalidValue);
+    const size_t smem = mma_long_smem_bytes(dh);
+    const cudaError_t err = reserve_smem<flash_bwd_mma_long_kernel<kMmaDh>>(smem);
+    if (err != cudaSuccess) return int(err);
+    flash_bwd_mma_long_kernel<kMmaDh><<<grid, kMmaThreads, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(dout), bias, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), dbias, part, lq, lk, h, st[0], st[1], st[2], st[3], st[4],
+        st[5], st[6], st[7], st[8], st[9], st[10], st[11], st[12], st[13], st[14], scale);
+    return int(cudaGetLastError());
+  }
   const size_t smem = mma_smem_bytes(lk, dh);
   const cudaError_t err = reserve_smem<flash_bwd_mma_kernel<kMmaDh>>(smem);
   if (err != cudaSuccess) return int(err);
-  const dim3 grid(h, b);
   flash_bwd_mma_kernel<kMmaDh><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), bias, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
@@ -542,10 +1000,9 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* dout,
 
 extern "C" {
 
-// Dynamic shared memory one block needs; the wrapper names it when a launch
-// is refused.
-long long flash_bwd_smem_bytes(int lk, int dh, int is_bf16) {
-  return is_bf16 ? (long long)mma_smem_bytes(lk, dh) : (long long)smem_bytes<float>(lk, dh);
+// fp32 scratch floats the wrapper allocates and passes as `part` (0: none).
+long long flash_bwd_part_floats(int b, int lq, int lk, int h, int dh, int is_bf16) {
+  return is_bf16 ? (long long)long_part_floats(b, lq, lk, h, dh) : 0;
 }
 
 // q and dout [B, Lq, H, Dh], k and v [B, Lk, H, Dh], all with unit stride on
@@ -553,17 +1010,19 @@ long long flash_bwd_smem_bytes(int lk, int dh, int is_bf16) {
 // then (b, i, j) of the bias, addressed as bias[b*sbb + i*sbq + j*sbk]
 // (null: no bias).  dq, dk, dv are contiguous in q's layout and type; dbias,
 // when not null, is a zeroed contiguous fp32 [B, Lq, Lk] plane the kernel
-// adds the head-summed dS into.  bf16 goes to the tensor-core kernel (Dh 64,
-// Lk <= 192, rows 16-byte aligned), fp32 to the FP32-pipe kernel.
+// adds the head-summed dS into; `part` holds flash_bwd_part_floats() fp32
+// (null when that is 0).  bf16 goes to the tensor-core kernels (Dh 64, rows
+// 16-byte aligned; resident K/V up to 192 keys, key-looped above), fp32 to
+// the FP32-pipe kernels (staged K/V while they fit, streamed above).
 int flash_attention_backward(const void* q, const void* k, const void* v,
                              const void* dout, const float* bias, void* dq, void* dk,
-                             void* dv, float* dbias, int b, int lq, int lk, int h,
-                             int dh, const long long* strides, float scale,
+                             void* dv, float* dbias, float* part, int b, int lq, int lk,
+                             int h, int dh, const long long* strides, float scale,
                              int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_bf16(q, k, v, dout, bias, dq, dk, dv, dbias, b, lq, lk, h, dh, strides,
-                       scale, s);
+    return launch_bf16(q, k, v, dout, bias, dq, dk, dv, dbias, part, b, lq, lk, h, dh,
+                       strides, scale, s);
   return launch_fp32(q, k, v, dout, bias, dq, dk, dv, dbias, b, lq, lk, h, dh, strides,
                      scale, s);
 }

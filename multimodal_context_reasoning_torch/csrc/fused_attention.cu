@@ -34,8 +34,10 @@
 //   Lk = 190.  ptxas -v (chip_smoke.py phase 2 prints it per instance): 0
 //   spill bytes in every instance; 128 registers at Lk_pad = 144 (the
 //   training path) and 160, 168 at 176 and 192, 45 to 128 below.
-//   It takes Dh = 64 and Lk <= 192 (the wrapper raises before launch
-//   otherwise) and 16-byte aligned rows.  Why not one 8-warp block per
+//   Above 192 keys the key-looped dense_attention_mma_long_kernel runs the
+//   tile's key loop (attention_mma_tile_long).  It takes Dh = 64 (the
+//   wrapper raises before launch otherwise), 16-byte aligned rows and any
+//   Lk.  Why not one 8-warp block per
 //   (batch, head), staging K and V once: twice the shared memory per block
 //   and half the blocks, while the second 64-row block's K/V read mostly
 //   hits L2.
@@ -45,7 +47,9 @@
 //   from it; the bias row of a query is read from memory.  One warp owns one
 //   query row at a time: each lane scores its share of the keys, the warp
 //   reduces max and sum with shuffles, and each lane then accumulates its
-//   share of the output dimensions.
+//   share of the output dimensions.  Where K and V do not fit in one block's
+//   shared memory (about 417 keys at Dh 64), dense_attention_stream_kernel
+//   reads them from device memory instead, 32 keys at a time per warp.
 //
 // Plain C interface, loaded with ctypes (multimodal_context_reasoning_torch/
 // ops/fused_attention.py).  The launcher returns cudaGetLastError().
@@ -146,16 +150,100 @@ dense_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// K and V beyond one block's shared memory: the same rows, warps and order
+// of casts, with each warp streaming its row's keys from device memory
+// (through L1 and L2) in two passes: a running max and sum per lane, merged
+// across the warp; then P for 32 keys at a time into a warp buffer and
+// out += P V, lanes over the output dimensions.  Any Lk.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dense_attention_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                              const T* __restrict__ v, const float* __restrict__ bias,
+                              T* __restrict__ out, int lq, int lk, int n_heads, int dh,
+                              int64_t sqb, int64_t sqi, int64_t sqh, int64_t skb,
+                              int64_t ski, int64_t skh, int64_t svb, int64_t svi,
+                              int64_t svh, int64_t sbb, int64_t sbq, int64_t sbk,
+                              float scale) {
+  __shared__ float q_s[kWarps][kMaxDh];
+  __shared__ float p_s[kWarps][32];
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const T* kb = k + b * skb + h * skh;
+  const T* vb = v + b * svb + h * svh;
+  float* q_row = q_s[warp];
+  float* p = p_s[warp];
+
+  const int row_end = min(lq, int(blockIdx.x + 1) * kRowsPerBlock);
+  for (int i = blockIdx.x * kRowsPerBlock + warp; i < row_end; i += kWarps) {
+    const T* qi = q + b * sqb + i * sqi + h * sqh;
+    for (int d = lane; d < dh; d += 32) q_row[d] = to_f(qi[d]);
+    __syncwarp();
+    const float* bias_row = bias == nullptr ? nullptr : bias + b * sbb + i * sbq;
+    auto score = [&](int j) {
+      const T* kj = kb + j * ski;
+      float acc = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < dh; ++d) acc = fmaf(q_row[d], to_f(kj[d]), acc);
+      float s = acc * scale;
+      if (bias_row != nullptr) s += __ldg(bias_row + j * sbk);
+      return s;
+    };
+
+    float m = -INFINITY, l = 0.f;
+    for (int j = lane; j < lk; j += 32) {
+      const float s = score(j);
+      const float mn = fmaxf(m, s);
+      l = l * expf(m - mn) + expf(s - mn);
+      m = mn;
+    }
+    const float mw = warp_max(m);
+    const float sum = warp_sum(m == -INFINITY ? 0.f : l * expf(m - mw));
+
+    float acc[kMaxDh / 32] = {};
+    for (int j0 = 0; j0 < lk; j0 += 32) {
+      const int j = j0 + lane;
+      // normalise, then round P to V's type before PV, as the TPU kernel does
+      p[lane] = j < lk ? to_f(from_f<T>(expf(score(j) - mw) / sum)) : 0.f;
+      __syncwarp();
+      const int n = min(32, lk - j0);
+#pragma unroll
+      for (int r = 0; r < kMaxDh / 32; ++r) {
+        const int d = lane + 32 * r;
+        if (d < dh)
+          for (int jj = 0; jj < n; ++jj)
+            acc[r] = fmaf(p[jj], to_f(vb[(j0 + jj) * svi + d]), acc[r]);
+      }
+      __syncwarp();
+    }
+    T* oi = out + ((int64_t(b) * lq + i) * n_heads + h) * dh;
+#pragma unroll
+    for (int r = 0; r < kMaxDh / 32; ++r)
+      if (lane + 32 * r < dh) oi[lane + 32 * r] = from_f<T>(acc[r]);
+    __syncwarp();  // q_row is rewritten by this warp's next row
+  }
+}
+
+// The staged kernel when K and V fit in one block's shared memory, else the
+// streaming one.
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const float* bias, void* out,
            int b, int lq, int lk, int h, int dh, int64_t sqb, int64_t sqi,
            int64_t sqh, int64_t skb, int64_t ski, int64_t skh, int64_t svb,
            int64_t svi, int64_t svh, int64_t sbb, int64_t sbq, int64_t sbk,
            float scale, cudaStream_t stream) {
+  const dim3 grid((lq + kRowsPerBlock - 1) / kRowsPerBlock, h, b);
   const size_t smem = smem_bytes<T>(lk, dh);
+  if (!fits_smem(smem)) {
+    dense_attention_stream_kernel<T><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        bias, static_cast<T*>(out), lq, lk, h, dh, sqb, sqi, sqh, skb, ski, skh, svb,
+        svi, svh, sbb, sbq, sbk, scale);
+    return int(cudaGetLastError());
+  }
   const cudaError_t err = reserve_smem<dense_attention_kernel<T>>(smem);
   if (err != cudaSuccess) return int(err);
-  const dim3 grid((lq + kRowsPerBlock - 1) / kRowsPerBlock, h, b);
   dense_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       bias, static_cast<T*>(out), lq, lk, h, dh, sqb, sqi, sqh, skb, ski, skh, svb,
@@ -186,14 +274,21 @@ struct RowBias {
   using Args = MmaArgs;
   static constexpr int kKeyWords = 1;
   const float* row_s;
-  __device__ static void stage(const MmaArgs& a, float* bias_s, int b, int nkeys) {
+  int key0;
+  __device__ static void stage(const MmaArgs& a, float* bias_s, int b, int key0, int nkeys) {
     for (int j = threadIdx.x; j < nkeys; j += kMmaThreads)
-      bias_s[j] = (a.bias != nullptr && j < a.lk) ? __ldg(a.bias + b * a.sbb + j * a.sbk) : 0.f;
+      bias_s[j] = (a.bias != nullptr && key0 + j < a.lk)
+                      ? __ldg(a.bias + b * a.sbb + (key0 + j) * a.sbk)
+                      : 0.f;
   }
   __device__ static RowBias make(const MmaArgs&, const float* bias_s, int, const int (&)[2]) {
-    return {bias_s};
+    return {bias_s, 0};
   }
-  __device__ float operator()(int, int j) const { return row_s[j]; }
+  __device__ void rebase(const float* bias_s, int k0) {
+    row_s = bias_s;
+    key0 = k0;
+  }
+  __device__ float operator()(int, int j) const { return row_s[j - key0]; }
 };
 
 // A [B|1, 1, Lq, Lk] plane read through its strides; rows past Lq read nothing.
@@ -202,7 +297,7 @@ struct PlaneBias {
   static constexpr int kKeyWords = 1;  // the row's space, unused
   const float* rows[2];
   int64_t sbk;
-  __device__ static void stage(const MmaArgs&, float*, int, int) {}
+  __device__ static void stage(const MmaArgs&, float*, int, int, int) {}
   __device__ static PlaneBias make(const MmaArgs& a, const float*, int b,
                                    const int (&row)[2]) {
     PlaneBias m;
@@ -212,6 +307,7 @@ struct PlaneBias {
     m.sbk = a.sbk;
     return m;
   }
+  __device__ void rebase(const float*, int) {}
   __device__ float operator()(int hi, int j) const {
     return rows[hi] != nullptr ? __ldg(rows[hi] + j * sbk) : 0.f;
   }
@@ -223,7 +319,14 @@ dense_attention_mma_kernel(const MmaArgs a) {
   attention_mma_tile<NP, Mask>(a);
 }
 
-// The row or plane instance at Lk_pad = 16 NP.
+// Lk > 192: the key-looped instance (attention_mma.cuh).
+template <class Mask>
+__global__ void __launch_bounds__(kMmaThreads, 4)
+dense_attention_mma_long_kernel(const MmaArgs a) {
+  attention_mma_tile_long<Mask>(a);
+}
+
+// The row or plane instance at Lk_pad = 16 NP, or the key-looped one.
 struct DenseLaunch {
   const MmaArgs& a;
   int b;
@@ -235,13 +338,19 @@ struct DenseLaunch {
                ? launch_mma<dense_attention_mma_kernel<NP, RowBias>>(a, b, smem, stream)
                : launch_mma<dense_attention_mma_kernel<NP, PlaneBias>>(a, b, smem, stream);
   }
+  int run_long() const {
+    const size_t smem = mma_long_smem_bytes(RowBias::kKeyWords);
+    return a.sbq == 0
+               ? launch_mma<dense_attention_mma_long_kernel<RowBias>>(a, b, smem, stream)
+               : launch_mma<dense_attention_mma_long_kernel<PlaneBias>>(a, b, smem, stream);
+  }
 };
 
 int launch_bf16(const void* q, const void* k, const void* v, const float* bias, void* out,
                 int b, int lq, int lk, int h, int dh, int64_t sqb, int64_t sqi, int64_t sqh,
                 int64_t skb, int64_t ski, int64_t skh, int64_t svb, int64_t svi, int64_t svh,
                 int64_t sbb, int64_t sbq, int64_t sbk, float scale, cudaStream_t stream) {
-  if (dh != kMmaDh || lk > 16 * kMaxPairs) return int(cudaErrorInvalidValue);
+  if (dh != kMmaDh) return int(cudaErrorInvalidValue);
   const MmaArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                   static_cast<const bf16*>(v), bias, static_cast<bf16*>(out), lq, lk, h,
                   sqb, sqi, sqh, skb, ski, skh, svb, svi, svh, sbb, sbq, sbk, scale};
@@ -252,18 +361,12 @@ int launch_bf16(const void* q, const void* k, const void* v, const float* bias, 
 
 extern "C" {
 
-// Dynamic shared memory one block needs; the wrapper names it when a launch
-// is refused.
-long long dense_attention_smem_bytes(int lk, int dh, int is_bf16) {
-  return is_bf16 ? (long long)mma_smem_bytes(lk, RowBias::kKeyWords)
-                 : (long long)smem_bytes<float>(lk, dh);
-}
-
 // q [B, Lq, H, Dh], k and v [B, Lk, H, Dh] with unit stride on Dh and the
 // given element strides on B, L and H; bias fp32 addressed as
 // bias[b * sbb + i * sbq + j * sbk] (null: no bias); out contiguous
-// [B, Lq, H, Dh] of q's type.  bf16 goes to the tensor-core kernel (Dh 64,
-// Lk <= 192, rows 16-byte aligned), fp32 to the FP32-pipe kernel.
+// [B, Lq, H, Dh] of q's type.  bf16 goes to the tensor-core kernels (Dh 64,
+// rows 16-byte aligned; resident K/V up to 192 keys, key-looped above), fp32
+// to the FP32-pipe kernels (staged K/V while they fit, streamed above).
 int dense_attention_forward(const void* q, const void* k, const void* v,
                             const float* bias, void* out, int b, int lq, int lk,
                             int h, int dh, long long sqb, long long sqi,

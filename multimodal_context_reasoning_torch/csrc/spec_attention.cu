@@ -43,15 +43,20 @@
 //   uniform, as in the plain version.  Shared memory 65,280 B (full) and
 //   66,048 B (chunk, cross) at Lk = 190: 3 blocks per SM there, 4 up to
 //   Lk_pad = 160.  ptxas -v (chip_smoke.py phase 2): 46 to 168 registers,
-//   0 spill bytes in every instance.  It takes Dh = 64 and Lk <= 192 and
-//   16-byte aligned rows (the wrapper raises before launch otherwise).
+//   0 spill bytes in every instance.  Above 192 keys the key-looped
+//   spec_attention_mma_long_kernel runs the tile's key loop
+//   (attention_mma_tile_long: K and V in double-buffered blocks of 64 keys,
+//   the mask staged per block).  It takes Dh = 64 and 16-byte aligned rows
+//   (the wrapper raises before launch otherwise), and any Lk.
 //
 // * fp32 (the parity checks): spec_attention_kernel, on the FP32 pipes.
 //   Each block stages one head's whole K and V in shared memory and serves
 //   a tile of 64 query rows from it.  One warp owns one query row at a
 //   time: each lane scores its share of the keys, the warp reduces max and
 //   sum with shuffles, and each lane then accumulates its share of the
-//   output dimensions.
+//   output dimensions.  Where K and V do not fit in one block's shared
+//   memory (about 411 keys at Dh 64), spec_attention_stream_kernel reads
+//   them from device memory instead, 32 keys at a time per warp.
 //
 // Plain C interface, loaded with ctypes (multimodal_context_reasoning_torch/
 // ops/spec_attention.py).  The launcher returns cudaGetLastError().
@@ -76,6 +81,22 @@ size_t smem_bytes(int lk, int dh) {
   const size_t kv = 2ull * lk * (dh + row_pad<T>()) * sizeof(T);
   return kv + sizeof(float) * (size_t(kWarps) * lk + size_t(kWarps) * dh + lk) +
          sizeof(int) * size_t(lk);
+}
+
+// vis of query row i and key j in fp32 (the FP32-pipe kernels): the TPU
+// kernel's algebra, from the key's valid and gi and the row's gi, rowfull and
+// image flag.
+__device__ __forceinline__ float visibility(int stage, int text_len, int i, int j, int gi_q,
+                                            float row_q, float img_q, float valid_k,
+                                            int gi_k) {
+  if (stage == kFull) return valid_k;
+  const float img_k = j >= text_len ? 1.f : 0.f;
+  const float same = (gi_q == gi_k && gi_q >= 0) ? 1.f : 0.f;
+  const float eye = (i == j) ? 1.f : 0.f;
+  const float text_in = fminf(same + eye + row_q, 1.f);
+  const float text_rows = ((1.f - img_k) * text_in + img_k) * valid_k;
+  const float img_rows = stage == kChunk ? img_k * valid_k : eye;
+  return img_q * img_rows + (1.f - img_q) * text_rows;
 }
 
 template <typename T>
@@ -140,19 +161,8 @@ spec_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float acc = 0.f;
 #pragma unroll 8
       for (int d = 0; d < dh; ++d) acc = fmaf(q_row[d], to_f(kj[d]), acc);
-      const float valid_k = valid_s[j];
-      float vis;
-      if (stage == kFull) {
-        vis = valid_k;
-      } else {
-        const float img_k = j >= text_len ? 1.f : 0.f;
-        const float same = (gi_q == gi_s[j] && gi_q >= 0) ? 1.f : 0.f;
-        const float eye = (i == j) ? 1.f : 0.f;
-        const float text_in = fminf(same + eye + row_q, 1.f);
-        const float text_rows = ((1.f - img_k) * text_in + img_k) * valid_k;
-        const float img_rows = stage == kChunk ? img_k * valid_k : eye;
-        vis = img_q * img_rows + (1.f - img_q) * text_rows;
-      }
+      const float vis = visibility(stage, text_len, i, j, gi_q, row_q, img_q, valid_s[j],
+                                   gi_s[j]);
       const float s = acc * scale - (1.f - vis) * 1e9f;
       p[j] = s;
       m = fmaxf(m, s);
@@ -181,16 +191,104 @@ spec_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// K and V beyond one block's shared memory: the same rows, warps, mask and
+// order of casts, with each warp streaming its row's keys (and their valid
+// and gi) from device memory in two passes: a running max and sum per lane,
+// merged across the warp; then P for 32 keys at a time into a warp buffer
+// and out += P V, lanes over the output dimensions.  Any Lk.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+spec_attention_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v, const float* __restrict__ valid,
+                             const int* __restrict__ gi, const float* __restrict__ rowfull,
+                             T* __restrict__ out, int lq, int lk, int n_heads, int dh,
+                             int64_t sqb, int64_t sqi, int64_t sqh, int64_t skb,
+                             int64_t ski, int64_t skh, int64_t svb, int64_t svi,
+                             int64_t svh, int stage, int text_len, float scale) {
+  __shared__ float q_s[kWarps][kMaxDh];
+  __shared__ float p_s[kWarps][32];
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const T* kb = k + b * skb + h * skh;
+  const T* vb = v + b * svb + h * svh;
+  const float* valid_b = valid + int64_t(b) * lk;
+  const int* gi_b = gi + int64_t(b) * lk;
+  float* q_row = q_s[warp];
+  float* p = p_s[warp];
+
+  const int row_end = min(lq, int(blockIdx.x + 1) * kRowsPerBlock);
+  for (int i = blockIdx.x * kRowsPerBlock + warp; i < row_end; i += kWarps) {
+    const T* qi = q + b * sqb + i * sqi + h * sqh;
+    for (int d = lane; d < dh; d += 32) q_row[d] = to_f(qi[d]);
+    __syncwarp();
+    const int gi_q = stage != kFull ? __ldg(gi_b + i) : -1;
+    const float row_q = stage != kFull ? __ldg(rowfull + int64_t(b) * lk + i) : 0.f;
+    const float img_q = i >= text_len ? 1.f : 0.f;
+    auto score = [&](int j) {
+      const T* kj = kb + j * ski;
+      float acc = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < dh; ++d) acc = fmaf(q_row[d], to_f(kj[d]), acc);
+      const float vis = visibility(stage, text_len, i, j, gi_q, row_q, img_q,
+                                   __ldg(valid_b + j), __ldg(gi_b + j));
+      return acc * scale - (1.f - vis) * 1e9f;
+    };
+
+    float m = -INFINITY, l = 0.f;
+    for (int j = lane; j < lk; j += 32) {
+      const float s = score(j);
+      const float mn = fmaxf(m, s);
+      l = l * expf(m - mn) + expf(s - mn);
+      m = mn;
+    }
+    const float mw = warp_max(m);
+    const float sum = warp_sum(m == -INFINITY ? 0.f : l * expf(m - mw));
+
+    float acc[kMaxDh / 32] = {};
+    for (int j0 = 0; j0 < lk; j0 += 32) {
+      const int j = j0 + lane;
+      // normalise, then round P to V's type before PV, as the TPU kernel does
+      p[lane] = j < lk ? to_f(from_f<T>(expf(score(j) - mw) / sum)) : 0.f;
+      __syncwarp();
+      const int n = min(32, lk - j0);
+#pragma unroll
+      for (int r = 0; r < kMaxDh / 32; ++r) {
+        const int d = lane + 32 * r;
+        if (d < dh)
+          for (int jj = 0; jj < n; ++jj)
+            acc[r] = fmaf(p[jj], to_f(vb[(j0 + jj) * svi + d]), acc[r]);
+      }
+      __syncwarp();
+    }
+    T* oi = out + ((int64_t(b) * lq + i) * n_heads + h) * dh;
+#pragma unroll
+    for (int r = 0; r < kMaxDh / 32; ++r)
+      if (lane + 32 * r < dh) oi[lane + 32 * r] = from_f<T>(acc[r]);
+    __syncwarp();  // q_row is rewritten by this warp's next row
+  }
+}
+
+// The staged kernel when K and V fit in one block's shared memory, else the
+// streaming one.
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const float* valid,
            const int* gi, const float* rowfull, void* out, int b, int lq, int lk,
            int h, int dh, int64_t sqb, int64_t sqi, int64_t sqh, int64_t skb,
            int64_t ski, int64_t skh, int64_t svb, int64_t svi, int64_t svh,
            int stage, int text_len, float scale, cudaStream_t stream) {
+  const dim3 grid((lq + kRowsPerBlock - 1) / kRowsPerBlock, h, b);
   const size_t smem = smem_bytes<T>(lk, dh);
+  if (!fits_smem(smem)) {
+    spec_attention_stream_kernel<T><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        valid, gi, rowfull, static_cast<T*>(out), lq, lk, h, dh, sqb, sqi, sqh, skb,
+        ski, skh, svb, svi, svh, stage, text_len, scale);
+    return int(cudaGetLastError());
+  }
   const cudaError_t err = reserve_smem<spec_attention_kernel<T>>(smem);
   if (err != cudaSuccess) return int(err);
-  const dim3 grid((lq + kRowsPerBlock - 1) / kRowsPerBlock, h, b);
   spec_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       valid, gi, rowfull, static_cast<T*>(out), lq, lk, h, dh, sqb, sqi, sqh, skb,
@@ -227,16 +325,21 @@ struct FullStage {
   using Args = SpecArgs;
   static constexpr int kKeyWords = 1;
   const float* row_s;
-  __device__ static void stage(const SpecArgs& a, float* row_s, int b, int nkeys) {
-    const float* valid = a.valid + int64_t(b) * a.lk;
+  int key0;
+  __device__ static void stage(const SpecArgs& a, float* row_s, int b, int key0, int nkeys) {
+    const float* valid = a.valid + int64_t(b) * a.lk + key0;
     for (int j = threadIdx.x; j < nkeys; j += kMmaThreads)
-      row_s[j] = j < a.lk ? -__fmul_rn(1.f - __ldg(valid + j), kMaskPenalty) : 0.f;
+      row_s[j] = key0 + j < a.lk ? -__fmul_rn(1.f - __ldg(valid + j), kMaskPenalty) : 0.f;
   }
   __device__ static FullStage make(const SpecArgs&, const float* row_s, int,
                                    const int (&)[2]) {
-    return {row_s};
+    return {row_s, 0};
   }
-  __device__ float operator()(int, int j) const { return row_s[j]; }
+  __device__ void rebase(const float* s, int k0) {
+    row_s = s;
+    key0 = k0;
+  }
+  __device__ float operator()(int, int j) const { return row_s[j - key0]; }
 };
 
 // One key's side of the chunk and cross stages' mask.
@@ -251,22 +354,24 @@ struct ChunkStage {
   using Args = SpecArgs;
   static constexpr int kKeyWords = 2;
   const KeySide* key_s;
+  int key0;
   int row[2], gi_q[2];
   float row_q[2], img_q[2];
   int text_len;
   bool cross;
-  __device__ static void stage(const SpecArgs& a, float* words, int b, int nkeys) {
+  __device__ static void stage(const SpecArgs& a, float* words, int b, int key0, int nkeys) {
     KeySide* key_s = reinterpret_cast<KeySide*>(words);
-    const int64_t off = int64_t(b) * a.lk;
+    const int64_t off = int64_t(b) * a.lk + key0;
     for (int j = threadIdx.x; j < nkeys; j += kMmaThreads)
-      key_s[j] = j < a.lk ? KeySide{__ldg(a.valid + off + j), __ldg(a.gi + off + j)}
-                          : KeySide{0.f, -1};
+      key_s[j] = key0 + j < a.lk ? KeySide{__ldg(a.valid + off + j), __ldg(a.gi + off + j)}
+                                 : KeySide{0.f, -1};
   }
   // rows at or past Lq read nothing
   __device__ static ChunkStage make(const SpecArgs& a, const float* words, int b,
                                     const int (&row)[2]) {
     ChunkStage m;
     m.key_s = reinterpret_cast<const KeySide*>(words);
+    m.key0 = 0;
     const int64_t off = int64_t(b) * a.lk;
 #pragma unroll
     for (int hi = 0; hi < 2; ++hi) {
@@ -280,8 +385,12 @@ struct ChunkStage {
     m.cross = a.cross != 0;
     return m;
   }
+  __device__ void rebase(const float* words, int k0) {
+    key_s = reinterpret_cast<const KeySide*>(words);
+    key0 = k0;
+  }
   __device__ float operator()(int hi, int j) const {
-    const KeySide key = key_s[j];
+    const KeySide key = key_s[j - key0];
     const float img_k = j >= text_len ? 1.f : 0.f;
     const float same = (gi_q[hi] == key.gi && gi_q[hi] >= 0) ? 1.f : 0.f;
     const float eye = row[hi] == j ? 1.f : 0.f;
@@ -301,7 +410,14 @@ spec_attention_mma_kernel(const SpecArgs a) {
   attention_mma_tile<NP, Mask>(a);
 }
 
-// The full or chunk/cross instance at Lk_pad = 16 NP.
+// Lk > 192: the key-looped instance (attention_mma.cuh).
+template <class Mask>
+__global__ void __launch_bounds__(kMmaThreads, 4)
+spec_attention_mma_long_kernel(const SpecArgs a) {
+  attention_mma_tile_long<Mask>(a);
+}
+
+// The full or chunk/cross instance at Lk_pad = 16 NP, or the key-looped one.
 struct SpecLaunch {
   const SpecArgs& a;
   bool full;
@@ -314,6 +430,12 @@ struct SpecLaunch {
                 : launch_mma<spec_attention_mma_kernel<NP, ChunkStage>>(
                       a, b, mma_smem_bytes(16 * NP, ChunkStage::kKeyWords), stream);
   }
+  int run_long() const {
+    return full ? launch_mma<spec_attention_mma_long_kernel<FullStage>>(
+                      a, b, mma_long_smem_bytes(FullStage::kKeyWords), stream)
+                : launch_mma<spec_attention_mma_long_kernel<ChunkStage>>(
+                      a, b, mma_long_smem_bytes(ChunkStage::kKeyWords), stream);
+  }
 };
 
 int launch_bf16(const void* q, const void* k, const void* v, const float* valid,
@@ -321,7 +443,7 @@ int launch_bf16(const void* q, const void* k, const void* v, const float* valid,
                 int h, int dh, int64_t sqb, int64_t sqi, int64_t sqh, int64_t skb,
                 int64_t ski, int64_t skh, int64_t svb, int64_t svi, int64_t svh,
                 int stage, int text_len, float scale, cudaStream_t stream) {
-  if (dh != kMmaDh || lk > 16 * kMaxPairs || (stage != kFull && lq != lk))
+  if (dh != kMmaDh || (stage != kFull && lq != lk))
     return int(cudaErrorInvalidValue);
   const SpecArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                    static_cast<const bf16*>(v), static_cast<bf16*>(out), valid, gi, rowfull,
@@ -334,18 +456,12 @@ int launch_bf16(const void* q, const void* k, const void* v, const float* valid,
 
 extern "C" {
 
-// Dynamic shared memory one block needs; the wrapper names it when a launch
-// is refused.
-long long spec_attention_smem_bytes(int lk, int dh, int is_bf16) {
-  return is_bf16 ? (long long)mma_smem_bytes(lk, ChunkStage::kKeyWords)
-                 : (long long)smem_bytes<float>(lk, dh);
-}
-
 // q [B, Lq, H, Dh], k and v [B, Lk, H, Dh] with unit stride on Dh and the
 // given element strides on B, L and H; valid, rowfull fp32 and gi int32,
 // contiguous [B, Lk]; out contiguous [B, Lq, H, Dh] of q's type.  bf16 goes
-// to the tensor-core kernel (Dh 64, Lk <= 192, rows 16-byte aligned), fp32 to
-// the FP32-pipe kernel.
+// to the tensor-core kernels (Dh 64, rows 16-byte aligned; resident K/V up to
+// 192 keys, key-looped above), fp32 to the FP32-pipe kernels (staged K/V
+// while they fit, streamed above).
 int spec_attention_forward(const void* q, const void* k, const void* v,
                            const float* valid, const int* gi,
                            const float* rowfull, void* out, int b, int lq, int lk,

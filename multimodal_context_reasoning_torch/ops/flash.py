@@ -10,10 +10,14 @@ CUDA backward kernel's wrapper (port of the JAX package's ``ops/flash.py``).
 - :data:`flash_attention_bwd` is the wrapper.  On a CUDA tensor it launches
   ``csrc/flash_bwd.cu`` (built at first use, ops/build.py) or raises; it
   never falls back to the plain version there.  bf16 goes to the source's
-  tensor-core kernel, which takes head dim 64, at most 192 keys and rows
-  that start on 16 bytes (checked here before launch); fp32 to its
-  FP32-pipe kernel.  Its ``launches`` counter grows by one per kernel
-  launch.
+  tensor-core kernels (K and V resident up to 192 keys; above, a key loop
+  whose dK and dV sums pass between 128-row query tiles through an fp32
+  buffer this wrapper allocates), which take head dim 64 and rows that start
+  on 16 bytes (checked here before launch); fp32 to its FP32-pipe kernels
+  (K and V staged in shared memory while they fit, read from device memory
+  above), which take head dims up to 128.  Both take any key count; batch
+  and head count are at most 65535 (the grid).  Its ``launches`` counter
+  grows by one per kernel launch.
 - :func:`mem_efficient_attention` is a ``torch.autograd.Function`` that
   saves only (q, k, v, bias): its forward is the dense-bias attention
   (ops/fused_attention.py), its backward the function above.  No
@@ -75,12 +79,12 @@ class FlashAttentionBwd:
 
             lib, _, _ = load_library("flash_bwd")
             lib.flash_attention_backward.argtypes = (
-                [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
             )
             lib.flash_attention_backward.restype = ctypes.c_int
-            lib.flash_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
-            lib.flash_bwd_smem_bytes.restype = ctypes.c_longlong
+            lib.flash_bwd_part_floats.argtypes = [ctypes.c_int] * 6
+            lib.flash_bwd_part_floats.restype = ctypes.c_longlong
             self._lib = lib
         return self._lib
 
@@ -94,9 +98,8 @@ class FlashAttentionBwd:
         return self.launch(q, k, v, bias, d_out, want_dbias=want_dbias)
 
     def launch(self, q, k, v, bias, d_out, *, want_dbias: bool = True) -> Grads:
-        """Launch the CUDA kernel; raises on anything it does not take, a
-        head beyond the card's shared memory per block included (the launch
-        reports that)."""
+        """Launch the CUDA kernel; raises on anything it does not take
+        (before launch) and on a refused launch."""
         B, lq, lk, H, dh = check_qkv(q, k, v, d_out)
         bias_ptr, *bstrides = bias_strides(bias, q, lk)
         is_bf16 = int(q.dtype == torch.bfloat16)
@@ -112,19 +115,21 @@ class FlashAttentionBwd:
         dv = torch.empty_like(dk)
         dbias = (torch.zeros((B, lq, lk), dtype=torch.float32, device=q.device)
                  if want_dbias else None)
+        n_part = lib.flash_bwd_part_floats(B, lq, lk, H, dh, is_bf16)
+        part = (torch.empty(n_part, dtype=torch.float32, device=q.device)
+                if n_part else None)
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
             err = lib.flash_attention_backward(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(), bias_ptr,
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 dbias.data_ptr() if dbias is not None else 0,
+                part.data_ptr() if part is not None else 0,
                 B, lq, lk, H, dh, strides, 1.0 / dh ** 0.5, is_bf16, stream,
             )
         if err != 0:
-            smem = lib.flash_bwd_smem_bytes(lk, dh, is_bf16)
             raise RuntimeError(f"flash_bwd kernel launch failed: CUDA error {err} "
-                               f"(Lk={lk}, Dh={dh} in {q.dtype} need {smem} B of "
-                               "shared memory in one block)")
+                               f"(B={B}, Lq={lq}, Lk={lk}, H={H}, Dh={dh}, {q.dtype})")
         self.launches += 1
         return dq, dk, dv, dbias
 

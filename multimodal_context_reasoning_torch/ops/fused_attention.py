@@ -15,9 +15,12 @@ v's dtype before PV.
 - :data:`fused_attention` is the wrapper.  On a CUDA tensor it launches
   ``csrc/fused_attention.cu`` (built at first use, ops/build.py) or raises;
   it never falls back to the plain version there.  bf16 goes to the source's
-  tensor-core kernel, which takes head dim 64, at most 192 keys and rows
-  that start on 16 bytes (checked here before launch); fp32 to its
-  FP32-pipe kernel.  Its ``launches`` counter grows by one per kernel
+  tensor-core kernels (K and V resident up to 192 keys, a key loop above),
+  which take head dim 64 and rows that start on 16 bytes (checked here
+  before launch); fp32 to its FP32-pipe kernels (K and V staged in shared
+  memory while they fit, read from device memory above), which take head
+  dims up to 128.  Both take any key count; batch and head count are at
+  most 65535 (the grid).  Its ``launches`` counter grows by one per kernel
   launch.
 
 The helpers :func:`check_qkv`, :func:`check_bf16_limits` and
@@ -33,12 +36,11 @@ from typing import Optional, Tuple
 
 import torch
 
-MAX_DH = 128
-# The bf16 tensor-core kernels' limits (kMmaDh and the key count in
-# csrc/attention_mma.cuh, shared by the dense-bias and stage-mask forwards,
-# and in csrc/flash_bwd.cu; their launchers refuse anything beyond them).
+MAX_DH = 128   # kMaxDh, csrc/common.cuh
+# The bf16 tensor-core kernels' head dim (kMmaDh in csrc/attention_mma.cuh,
+# shared by the dense-bias and stage-mask forwards, and in csrc/flash_bwd.cu;
+# their launchers refuse any other).
 BF16_HEAD_DIM = 64
-BF16_MAX_KEYS = 192
 
 
 def fused_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -88,15 +90,13 @@ def check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def check_bf16_limits(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       *others: torch.Tensor) -> None:
     """Raise ``ValueError`` on a bf16 input the tensor-core ``kernel`` does
-    not take: another head dim, more keys than it holds in shared memory, or
-    a row (16 bytes and more) that its 16-byte copies cannot read.
-    ``others`` (the output gradient) are shaped like q."""
-    dh, lk = q.shape[-1], k.shape[1]
+    not take: another head dim, or a row (16 bytes and more) that its
+    16-byte copies cannot read.  ``others`` (the output gradient) are shaped
+    like q."""
+    dh = q.shape[-1]
     if dh != BF16_HEAD_DIM:
         raise ValueError(f"{kernel}: head dim {dh} not taken "
                          f"(the kernel is built for {BF16_HEAD_DIM})")
-    if lk > BF16_MAX_KEYS:
-        raise ValueError(f"{kernel}: {lk} keys, at most {BF16_MAX_KEYS}")
     for name, t in zip(("q", "k", "v", "d_out"), (q, k, v, *others)):
         # one pass per tensor: this runs before every bf16 launch
         (sb, si, sh, _), (nb, ni, nh, _) = t.stride(), t.shape
@@ -148,8 +148,6 @@ class DenseBiasAttention:
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
             )
             lib.dense_attention_forward.restype = ctypes.c_int
-            lib.dense_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
-            lib.dense_attention_smem_bytes.restype = ctypes.c_longlong
             self._lib = lib
         return self._lib
 
@@ -161,9 +159,8 @@ class DenseBiasAttention:
         return self.launch(q, k, v, bias)
 
     def launch(self, q, k, v, bias) -> torch.Tensor:
-        """Launch the CUDA kernel; raises on anything it does not take, K/V
-        beyond the card's shared memory per block included (the launch
-        reports that)."""
+        """Launch the CUDA kernel; raises on anything it does not take
+        (before launch) and on a refused launch."""
         B, lq, lk, H, dh = check_qkv(q, k, v)
         bias_ptr, sbb, sbq, sbk = bias_strides(bias, q, lk)
         is_bf16 = int(q.dtype == torch.bfloat16)
@@ -181,10 +178,8 @@ class DenseBiasAttention:
                 1.0 / dh ** 0.5, is_bf16, stream,
             )
         if err != 0:
-            smem = lib.dense_attention_smem_bytes(lk, dh, is_bf16)
             raise RuntimeError(f"fused_attention kernel launch failed: CUDA error {err} "
-                               f"(K/V of Lk={lk}, Dh={dh} need {smem} B of shared "
-                               "memory in one block)")
+                               f"(B={B}, Lq={lq}, Lk={lk}, H={H}, Dh={dh}, {q.dtype})")
         self.launches += 1
         return out
 

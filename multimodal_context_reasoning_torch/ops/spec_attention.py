@@ -20,10 +20,14 @@ and a uniform row where every key is masked.
   bf16 (the serving path and the training step's frozen encoders) goes to
   ``spec_attention_mma_kernel`` on the tensor cores, the dense-bias
   forward's tile (``csrc/attention_mma.cuh``) with the stage mask as its
-  mask functor; it takes head dim 64, at most 192 keys and rows that start
-  on 16 bytes, checked here before launch (:func:`check_bf16_limits`).
+  mask functor, K and V resident up to 192 keys and in a key loop above
+  (``spec_attention_mma_long_kernel``); it takes head dim 64 and rows that
+  start on 16 bytes, checked here before launch (:func:`check_bf16_limits`).
   fp32 (the parity checks) goes to ``spec_attention_kernel`` on the FP32
-  pipes.  Its ``launches`` counter grows by one per kernel launch.
+  pipes (K and V staged in shared memory while they fit, read from device
+  memory above; head dims up to 128).  Both take any key count; batch and
+  head count are at most 65535 (the grid).  Its ``launches`` counter grows
+  by one per kernel launch.
 - What bounds the kernel on the card is bytes (q, k, v read once, out
   written once; about 95 FLOP/byte at the ModCR shapes, below the H100's
   ridge): both routes read q, k, v in place through their strides and
@@ -148,8 +152,6 @@ class SpecAttention:
                    ctypes.c_void_p]
             )
             lib.spec_attention_forward.restype = ctypes.c_int
-            lib.spec_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
-            lib.spec_attention_smem_bytes.restype = ctypes.c_longlong
             self._lib = lib
         return self._lib
 
@@ -177,9 +179,8 @@ class SpecAttention:
 
     def launch(self, q, k, v, valid, gi, rowfull, *, stage: str,
                text_len: int) -> torch.Tensor:
-        """Launch the CUDA kernel; raises on anything it does not take (for
-        bf16 before launch), K/V beyond the card's shared memory per block
-        included (the launch reports that)."""
+        """Launch the CUDA kernel; raises on anything it does not take
+        (before launch) and on a refused launch."""
         if stage not in STAGES:
             raise ValueError(f"unknown stage {stage!r}")
         lq, lk = q.shape[1], k.shape[1]
@@ -213,10 +214,8 @@ class SpecAttention:
                 STAGES[stage], int(text_len), 1.0 / dh ** 0.5, is_bf16, stream,
             )
         if err != 0:
-            smem = lib.spec_attention_smem_bytes(lk, dh, is_bf16)
             raise RuntimeError(f"spec_attention kernel launch failed: CUDA error {err} "
-                               f"(K/V of Lk={lk}, Dh={dh} need {smem} B of shared memory "
-                               "in one block)")
+                               f"(B={B}, Lq={lq}, Lk={lk}, H={H}, Dh={dh}, {q.dtype})")
         self.launches += 1
         return out
 

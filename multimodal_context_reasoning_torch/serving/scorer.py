@@ -5,7 +5,10 @@ Requests are featurized on the host (numpy), padded by repetition to a
 fixed micro-batch of examples, collated to ``micro_batch × num_labels``
 candidate rows, and scored by one deterministic ``ModCRModel`` forward under
 ``torch.inference_mode()``.  The scorer runs on the GPU unless the caller
-passes ``device="cpu"``; asking for CUDA where there is none raises.
+passes ``device="cpu"``; asking for CUDA where there is none raises.  A CUDA
+device is held with its index (the current device at construction), so a
+thread other than the constructing one, such as the batcher's dispatcher
+(serving/batcher.py), scores on the same card.
 """
 
 from __future__ import annotations
@@ -100,6 +103,8 @@ class ModCRScorer:
     ):
         self.config = config
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         if isinstance(weights, nn.Module):
             model = weights.to(self.device)
         else:
@@ -116,6 +121,17 @@ class ModCRScorer:
             [], image_features, bert_tokenizer, roberta_tokenizer,
             spec=spec, max_chunks=config.max_chunks,
         )
+        self.features = image_features
+
+    def warm_up(self) -> None:
+        """Score one example of the first image (the JAX scorer's
+        ``_warmup``): on the card its first forward builds and loads the
+        kernels, so no request pays for that."""
+        self.score([RawExample(
+            example_id="warm", img_id=next(iter(self.features.keys())),
+            premise="warm up .", answer_choices=["a ."] * self.config.num_labels,
+            answer_label=0,
+        )])
 
     def featurize(self, ex: RawExample):
         """Host-side featurization of one example (numpy only)."""

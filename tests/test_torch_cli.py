@@ -23,6 +23,7 @@ import dataclasses
 import json
 import os
 import pickle
+import types
 
 import jax
 import numpy as np
@@ -61,6 +62,7 @@ from multimodal_context_reasoning_torch.serving.synthetic import (
     write_rows,
 )
 from multimodal_context_reasoning_torch.train import trainer as ttrainer
+from multimodal_context_reasoning_torch.train.checkpoint import CheckpointManager, save_config
 from tests.test_torch_models import make_batch
 
 LOGITS = dict(rtol=0, atol=1e-5)
@@ -423,23 +425,34 @@ def test_unported_flags_are_refused_before_any_data_is_read(tmp_path, flags, nam
     assert not (tmp_path / "out").exists()
 
 
-def test_bf16_key_limit_is_refused_on_the_card_only(tmp_path):
-    """140 text + 60 regions = 200 keys: past the bf16 tensor-core kernels'
-    192 on the card (the default device), before any data load; taken on
-    the CPU and in fp32, whose attention takes any length."""
-    absent = ["--test_file", str(tmp_path / "absent.jsonl"),
-              "--img_feat_file", str(tmp_path / "absent.pkl")]
-    with pytest.raises(SystemExit, match=r"200 keys.*BF16_MAX_KEYS = 192"):
-        trun_pmr.main(["--do_test", "--max_img_seq_length", "60", *absent])
+def test_long_image_lengths_run_on_every_device(data, monkeypatch):
+    """Past the 192 keys the bf16 tensor-core kernels once held:
+    --max_img_seq_length 60 (140 text + 60 regions = 200 keys) builds a bf16
+    config on the card (the default device) and on the CPU, nothing refuses
+    it up front, and run_pmr --do_test --tiny runs from a model directory
+    whose config.json has a longer image length than the tiny default."""
     parse = tcommon.build_arg_parser("pmr").parse_args
-    for flags in (["--device", "cpu"], ["--compute_dtype", "float32"]):
+    for flags in ([], ["--device", "cpu"]):
         cfg, _ = tcommon.configs_from_args(parse(["--max_img_seq_length", "60", *flags]))
-        assert cfg.seq_len == 200
-    cfg, _ = tcommon.configs_from_args(parse(["--max_img_seq_length", "52"]))
-    assert cfg.seq_len == 192
-    with pytest.raises(SystemExit, match="RoBERTa attention over 228 keys"):
-        tcommon.check_kernel_limits(
-            dataclasses.replace(TConfig().with_dtype("bfloat16"), roberta_len=218), "cuda")
+        assert cfg.seq_len == 200 and cfg.global_encoder.dtype == "bfloat16"
+    assert not hasattr(tcommon, "check_kernel_limits")
+
+    cfg = dataclasses.replace(TConfig.tiny(), img_len=TConfig.tiny().img_len + 6)
+    model_dir = data["dir"] / "long_img_model"
+    save_config(str(model_dir), "config.json", cfg)
+    CheckpointManager(str(model_dir / "ckpt"), params_only=True).save(
+        types.SimpleNamespace(model=TModel(cfg, device="cpu"), step=1), {"accuracy": 1.0})
+    img_lens = []
+    step = trun_pmr.eval_step
+    monkeypatch.setattr(trun_pmr, "eval_step",
+                        lambda model, batch: (img_lens.append(batch["img_feat"].shape[1]),
+                                              step(model, batch))[1])
+    trun_pmr.main(["--do_test", "--tiny", "--device", "cpu",
+                   "--test_file", data["paths"]["test"], "--img_feat_file", data["paths"]["pkl"],
+                   "--eval_model_dir", str(model_dir),
+                   "--output_dir", str(data["dir"] / "long_img")])
+    assert img_lens and set(img_lens) == {cfg.img_len}
+    assert len(_predictions(data, "long_img")) == 6
 
 
 def test_the_commands_run_on_the_card_unless_asked_for_the_cpu(data):

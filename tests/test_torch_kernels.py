@@ -116,12 +116,6 @@ def test_kernel_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="head dim"):
         wide = torch.zeros(*q.shape[:3], 160, device=card)
         fused_attention_spec(wide, wide, wide, *vec, stage="full", text_len=21)
-    with pytest.raises(RuntimeError, match="shared memory"):
-        long_kv = torch.zeros(q.shape[0], 4000, q.shape[2], q.shape[3], device=card)
-        long_vec = (torch.ones(q.shape[0], 4000, device=card),
-                    torch.full((q.shape[0], 4000), -1, dtype=torch.int32, device=card),
-                    torch.zeros(q.shape[0], 4000, device=card))
-        fused_attention_spec(q, long_kv, long_kv, *long_vec, stage="full", text_len=21)
     # the refused launch leaves no error behind for the next one
     got = fused_attention_spec(q, k, v, *vec, stage=spec.stage, text_len=21)
     want = spec_attention_plain(q, k, v, *vec, stage=spec.stage, text_len=21)
@@ -256,9 +250,6 @@ def test_new_kernels_refuse_what_they_do_not_take(card):
         fused_attention(q, k, v, bias.expand(-1, 4, -1, -1))
     with pytest.raises(ValueError, match="unit stride"):
         flash_attention_bwd(q, k, v, bias, d_out.transpose(2, 3).contiguous().transpose(2, 3))
-    with pytest.raises(RuntimeError, match="shared memory"):
-        long_kv = torch.zeros(q.shape[0], 4000, q.shape[2], q.shape[3], device=card)
-        flash_attention_bwd(q, long_kv, long_kv, None, d_out)
     got = flash_attention_bwd(q, k, v, bias, d_out)   # no error left behind
     for g, w in zip(got, flash_attention_bwd_plain(q, k, v, bias, d_out)):
         _close(g, w, BWD_TOL[torch.float32])
@@ -314,10 +305,6 @@ def test_bf16_backward_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="head dim"):
         narrow = [t[..., :32].contiguous() for t in (q, k, v, d_out)]
         flash_attention_bwd(narrow[0], narrow[1], narrow[2], bias, narrow[3])
-    with pytest.raises(ValueError, match="at most 192"):
-        long_kv = torch.zeros(q.shape[0], 4000, q.shape[2], q.shape[3],
-                              dtype=torch.bfloat16, device=card)
-        flash_attention_bwd(q, long_kv, long_kv, None, d_out)
     got = flash_attention_bwd(q, k, v, bias, d_out)   # no error left behind
     for g, w in zip(got, flash_attention_bwd_plain(q, k, v, bias, d_out)):
         _close(g, w, BWD_TOL[torch.bfloat16])
@@ -376,10 +363,6 @@ def test_bf16_dense_forward_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="head dim"):
         narrow = [t[..., :32].contiguous() for t in (q, k, v)]
         fused_attention(*narrow, bias)
-    with pytest.raises(ValueError, match="at most 192"):
-        long_kv = torch.zeros(q.shape[0], 4000, q.shape[2], q.shape[3],
-                              dtype=torch.bfloat16, device=card)
-        fused_attention(q, long_kv, long_kv, None)
     got = fused_attention(q, k, v, bias)   # no error left behind
     _close(got, fused_attention_plain(q, k, v, bias), TOL[torch.bfloat16])
 
@@ -455,8 +438,8 @@ def test_bf16_spec_is_deterministic(card, stage_idx):
 
 
 def test_bf16_spec_refuses_what_it_does_not_take(card):
-    """Head dim 32 and 193 keys raise ValueError before launch; the next
-    launch is clean."""
+    """Head dim 32 raises ValueError before launch; the next launch is
+    clean."""
     (q, k, v), specs = _case(card, Dh=64)
     q, k, v = _bf16(q, k, v)
     spec = specs[1]
@@ -465,15 +448,153 @@ def test_bf16_spec_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="head dim"):
         narrow = [t[..., :32].contiguous() for t in (q, k, v)]
         fused_attention_spec(*narrow, *vec, stage="full", text_len=spec.text_len)
-    with pytest.raises(ValueError, match="at most 192"):
-        B, H = q.shape[0], q.shape[2]
-        long_kv = torch.zeros(B, 193, H, 64, dtype=torch.bfloat16, device=card)
-        long_vec = (torch.ones(B, 193, device=card),
-                    torch.full((B, 193), -1, dtype=torch.int32, device=card),
-                    torch.zeros(B, 193, device=card))
-        fused_attention_spec(q, long_kv, long_kv, *long_vec, stage="full",
-                             text_len=spec.text_len)
     assert fused_attention_spec.launches == before
     got = fused_attention_spec(q, k, v, *vec, stage="full", text_len=spec.text_len)
     want = spec_attention_plain(q, k, v, *vec, stage="full", text_len=spec.text_len)
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=TOL[torch.bfloat16])
+
+
+# ---------------------------------------------------------------- long keys:
+# every route past the bf16 kernels' resident 192 keys (the key-looped
+# instances) and past the fp32 kernels' shared memory (about 208 keys for the
+# backward, 411 and 417 for the forwards: the streaming kernels).  240 keys
+# are the encoders at --max_img_seq_length 100 (140 text + 100 regions).
+
+LONG = (240, 520)
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _long_spec_case(card, L, seed=7):
+    """The encoders' geometry at L = 140 text + (L - 140) regions, ragged."""
+    return _case(card, B=2, T=140, I=L - 140, H=4, Dh=64, seed=seed)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("L", LONG)
+@pytest.mark.parametrize("stage_idx", [0, 1, 2])
+def test_long_keys_spec_matches_plain(card, dtype, L, stage_idx):
+    (q, k, v), specs = _long_spec_case(card, L)
+    spec = specs[stage_idx]
+    args = (q.to(dtype), k.to(dtype), v.to(dtype), spec.valid, spec.gi, spec.rowfull)
+    kw = dict(stage=spec.stage, text_len=spec.text_len)
+    before = fused_attention_spec.launches
+    got = fused_attention_spec(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_attention_spec.launches == before + 1
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), spec_attention_plain(*args, **kw).float(),
+                               rtol=0, atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("L", LONG)
+@pytest.mark.parametrize("bias_shape", ["row", "plane"])
+def test_long_keys_dense_forward_matches_plain(card, dtype, L, bias_shape):
+    """Lq = 128 against Lk = L (the row bias, RoBERTa's layout) and
+    Lq = Lk = L (the plane)."""
+    lq = 128 if bias_shape == "row" else L
+    q, k, v, bias, _ = _dense_case(card, Lq=lq, P=L - lq, bias_shape=bias_shape)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    before = fused_attention.launches
+    got = fused_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert fused_attention.launches == before + 1
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), fused_attention_plain(q, k, v, bias).float(),
+                               rtol=0, atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("L", LONG)
+@pytest.mark.parametrize("lq_kind", ["one tile", "square"])
+def test_long_keys_backward_with_dbias_matches_plain(card, dtype, L, lq_kind):
+    """dq, dk, dv and the dbias plane within BWD_TOL of each output's max
+    |plain|: Lq = 100 (one 128-row tile of the bf16 kernel) and Lq = Lk = L
+    (2 and 5 tiles, whose dK and dV sums pass through the fp32 buffer)."""
+    lq = 100 if lq_kind == "one tile" else L
+    q, k, v, bias, d_out = _dense_case(card, Lq=lq, P=L - lq, bias_shape="plane")
+    q, k, v, d_out = (t.to(dtype) for t in (q, k, v, d_out))
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, bias, d_out)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_plain(q, k, v, bias, d_out)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.isfinite(g).all()
+        _rel_close(g, w, BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("L", LONG)
+def test_long_keys_fully_masked_row(card, dtype, L):
+    """A batch row with no valid key through the stage-mask forward (chunk
+    stage), the dense forward (-10000 everywhere) and the backward: finite,
+    and as the plain versions."""
+    (q, k, v), specs = _long_spec_case(card, L, seed=8)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    spec = specs[0]
+    valid = spec.valid.clone()
+    valid[1] = 0.0
+    kw = dict(stage="chunk", text_len=spec.text_len)
+    got = fused_attention_spec(q, k, v, valid, spec.gi, spec.rowfull, **kw)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(
+        got.float(), spec_attention_plain(q, k, v, valid, spec.gi, spec.rowfull, **kw).float(),
+        rtol=0, atol=TOL[dtype])
+    bias = ((1.0 - valid) * -10000.0)[:, None, None, :]
+    got = fused_attention(q, k, v, bias)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), fused_attention_plain(q, k, v, bias).float(),
+                               rtol=0, atol=TOL[dtype])
+    d_out = torch.ones_like(q)
+    for g, w in zip(flash_attention_bwd(q, k, v, bias, d_out),
+                    flash_attention_bwd_plain(q, k, v, bias, d_out)):
+        assert torch.isfinite(g).all()
+        _close(g, w, BWD_TOL[dtype])
+
+
+def test_long_keys_bf16_launches_are_bit_equal(card):
+    """No atomics outside the dbias plane: two launches of each bf16 route
+    at Lk = 240 agree bit for bit (the backward at Lq = 240, two tiles)."""
+    (q, k, v), specs = _long_spec_case(card, 240, seed=9)
+    q, k, v = _bf16(q, k, v)
+    for spec in specs:
+        args = (q, k, v, spec.valid, spec.gi, spec.rowfull)
+        kw = dict(stage=spec.stage, text_len=spec.text_len)
+        assert torch.equal(fused_attention_spec(*args, **kw), fused_attention_spec(*args, **kw))
+    bias = spec_bias(specs[0].valid, specs[0].gi, specs[0].rowfull, stage="chunk",
+                     text_len=specs[0].text_len, lq=q.shape[1])
+    assert torch.equal(fused_attention(q, k, v, bias), fused_attention(q, k, v, bias))
+    d_out = torch.randn(q.shape, device=card, generator=torch.Generator(card).manual_seed(1))
+    d_out = d_out.bfloat16()
+    first = flash_attention_bwd(q, k, v, bias, d_out, want_dbias=False)
+    second = flash_attention_bwd(q, k, v, bias, d_out, want_dbias=False)
+    for a, b in zip(first[:3], second[:3]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_4000_keys_are_taken(card, dtype):
+    """Far past any one block's shared memory: 4000 keys through all three
+    kernels (bf16 at Dh 64; fp32 at Dh 32 for the forwards)."""
+    rng = np.random.default_rng(10)
+    dh = 64 if dtype == torch.bfloat16 else 32
+    B, lq, lk, H = 2, 30, 4000, 2
+    q, k, v, d_out = (torch.from_numpy(rng.normal(size=(B, n, H, dh)).astype(np.float32))
+                      .to(card, dtype) for n in (lq, lk, lk, lq))
+    valid = torch.ones(B, lk, device=card)
+    valid[1, 3000:] = 0.0
+    gi = torch.full((B, lk), -1, dtype=torch.int32, device=card)
+    rowfull = torch.zeros(B, lk, device=card)
+    kw = dict(stage="full", text_len=lq)
+    torch.testing.assert_close(
+        fused_attention_spec(q, k, v, valid, gi, rowfull, **kw).float(),
+        spec_attention_plain(q, k, v, valid, gi, rowfull, **kw).float(),
+        rtol=0, atol=TOL[dtype])
+    bias = ((1.0 - valid) * -10000.0)[:, None, None, :]
+    torch.testing.assert_close(fused_attention(q, k, v, bias).float(),
+                               fused_attention_plain(q, k, v, bias).float(),
+                               rtol=0, atol=TOL[dtype])
+    for g, w in zip(flash_attention_bwd(q, k, v, bias, d_out),
+                    flash_attention_bwd_plain(q, k, v, bias, d_out)):
+        _close(g, w, BWD_TOL[dtype])

@@ -174,7 +174,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import pkgutil, sys, importlib\n"
         "import multimodal_context_reasoning_torch as p\n"
         "import chip_smoke\n"
-        "from multimodal_context_reasoning_torch.cli import run_pmr, run_vcr\n"
+        "from multimodal_context_reasoning_torch.cli import run_pmr, run_vcr, serve\n"
+        "from multimodal_context_reasoning_torch.serving import batcher, server\n"
         "from multimodal_context_reasoning_torch.interop import assemble\n"
         "from multimodal_context_reasoning_torch.data import subword\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
