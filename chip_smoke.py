@@ -1,8 +1,10 @@
 """GPU smoke run of the PyTorch port: build, check and time its three CUDA
 kernels, serve full-width PMR scoring, train the PMR step at full width,
 run the two commands (``cli/run_pmr.py``, ``cli/run_vcr.py``) at full width,
-hold every kernel route to its plain version past 192 keys, and serve
-concurrent HTTP clients through the serve command (``cli/serve.py``).
+hold every kernel route to its plain version past 192 keys, serve
+concurrent HTTP clients through the serve command (``cli/serve.py``), then
+score through the W8A8 int8 route and serve the rationale family at
+``POST /generate``.
 
     python3 chip_smoke.py
 
@@ -62,7 +64,9 @@ the port is not beside this script, or when any phase fails.  Phases:
     36 stage-mask, 48 dense-forward and 24 backward kernels;
 11. the ``kernels`` JSON line (each kernel's ``launches`` from phase 10's
     run, ``cli_launches`` from phase 12's, ``serve_launches`` from phase
-    14's, and ``long_keys`` from phase 13), then the result line;
+    14's, ``long_keys`` from phase 13, and the stage-mask kernel's
+    ``int8_launches`` and ``generate_launches`` from phases 15 and 16),
+    then the result line;
 12. (run before 11) the two commands through ``main(argv)``, full-width
     bf16, on files written from the seed in a temporary directory (PMR
     JSONL of 64 / 32 / 32 examples, a VCR JSON of 64, 50 x 2054 region
@@ -99,7 +103,31 @@ the port is not beside this script, or when any phase fails.  Phases:
     size (``/stats``) are printed; the server must exit on SIGTERM.  The same
     load then runs in-process through ``serve(block=False)`` on the direct
     scorer with the kernel counts set to 0 before and read after: 57
-    stage-mask launches per dispatched forward.
+    stage-mask launches per dispatched forward;
+15. (run before 11) int8: ``int8_matmul`` against its plain version at the
+    encoders' FFN product at micro-batch 8 (6,080 x 768 · 768 x 3,072) and
+    RoBERTa's at 32 (16,384 x 1,024 · 1,024 x 4,096), int32 accumulators
+    and bf16 outputs bit-equal, then the int8 route, ``torch._int_mm``
+    alone and a bf16 ``F.linear`` back to back; the full-width bf16 scorer
+    with and without ``with_quantize("int8")`` on one set of weights at
+    micro-batch 8 and 32, in turns, with the counts set to 0 before each
+    int8 run: exactly 60 stage-mask launches per forward, examples/s, max
+    |Δlogit| and agreeing 4-way decisions; one /score request to ``cli.serve
+    --quantize int8``, held against direct int8 scoring;
+16. (run before 11) /generate: the rationale family at full width
+    (``EncoderConfig()``, ``GPT2Config()``, seeded random init): one
+    question in fp32 on the card and on the CPU (mp_probs within 1e-4, the
+    decoder memory and the decoder's teacher-forced logits over the CPU's
+    greedy tokens within 1e-3; token agreement printed); then bf16 encoders
+    at 4 questions a forward and 32 decode steps, in-process
+    ``serve(generator=...)`` with the counts set to 0 before and read after
+    (exactly 24 stage-mask launches per classify forward) and ``cli.serve
+    --generate`` in its own process, each under 8 clients x 2 requests of
+    1-2 questions, every reply equal to direct ``RationaleGenerator.generate``
+    (prediction and rationale ids, probabilities within 2e-2); questions/s,
+    request latency, ms per decoder call, mean dispatch and peak memory;
+    ``mode="sample"`` once: a fixed seed repeats and every token lies in the
+    top-k/top-p kept set of its teacher-forced logits.
 """
 
 from __future__ import annotations
@@ -147,6 +175,15 @@ LONG_KEYS = (240, 520)      # phase 13: past the bf16 kernels' resident 192 keys
 # phase 14: concurrent clients, requests per client, examples per request
 SERVE_CLIENTS, SERVE_REQUESTS, SERVE_EXAMPLES = 16, 4, (1, 4)
 SERVE_MICRO_BATCH = 8
+# phase 15: the products the int8 route takes, (rows, in, out): the encoders'
+# FFN at micro-batch 8 (32 rows x 190 tokens) and RoBERTa's at 32 (128 x 128)
+INT8_SHAPES = {"encoder FFN, micro-batch 8": (6080, 768, 3072),
+               "RoBERTa FFN, micro-batch 32": (16384, 1024, 4096)}
+INT8_PEAK = 1979e12          # dense int8 operations per second
+# phase 16: questions per forward, decode steps; clients, requests per
+# client, questions per request
+GEN_MICRO_BATCH, GEN_MAX_LEN = 4, 32
+GEN_CLIENTS, GEN_REQUESTS, GEN_QUESTIONS = 8, 2, (1, 2)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1044,18 +1081,18 @@ def http(port: int, path: str, body=None, timeout: float = 120.0):
     return code, out, time.perf_counter() - t0
 
 
-def http_load(port: int, plan) -> tuple:
+def http_load(port: int, plan, path: str = "/score") -> tuple:
     """Each client of ``plan`` (a list of request bodies per client) sends its
-    requests one after another, all clients at once; returns the replies as
-    ``plan`` lays them out and the wall seconds from the first send to the
-    last reply."""
+    requests to ``path`` one after another, all clients at once; returns the
+    replies as ``plan`` lays them out and the wall seconds from the first
+    send to the last reply."""
     replies = [[None] * len(bodies) for bodies in plan]
     barrier = threading.Barrier(len(plan))
 
     def client(c):
         barrier.wait(timeout=60)
         for r, body in enumerate(plan[c]):
-            replies[c][r] = http(port, "/score", body)
+            replies[c][r] = http(port, path, body)
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(plan)) as pool:
@@ -1088,6 +1125,54 @@ def load_summary(replies, wall: float, direct: dict, what: str) -> dict:
                 predictions_checked=len(decided))
 
 
+def as_json(ex) -> dict:
+    """A request's example as the HTTP body carries it."""
+    return {"example_id": ex.example_id, "img_id": ex.img_id, "premise": ex.premise,
+            "answer_choices": ex.answer_choices}
+
+
+def start_serve_command(tmp: str, pack: str, *flags) -> tuple:
+    """``python -m multimodal_context_reasoning_torch.cli.serve`` on a free
+    port over the ``.mcrpack``, polled on ``/healthz``; returns ``(process,
+    port, log path, seconds to /healthz)``."""
+    port = free_port()
+    log_path = os.path.join(tmp, f"serve_{port}.log")
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "multimodal_context_reasoning_torch.cli.serve",
+             "--port", str(port), "--img_feat_file", pack, "--compute_dtype", "bfloat16",
+             *flags], cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    t0 = time.perf_counter()
+    try:
+        while True:
+            check(proc.poll() is None, "the serve command exited: "
+                  + open(log_path).read()[-2000:])
+            check(time.perf_counter() - t0 < 600, "no /healthz within 600 s")
+            try:
+                if http(port, "/healthz", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                pass
+            time.sleep(0.5)
+    except BaseException:
+        stop_serve_command(proc)
+        raise
+    return proc, port, log_path, time.perf_counter() - t0
+
+
+def stop_serve_command(proc) -> bool:
+    """SIGTERM, then wait; True if the command exited within 60 s (it is
+    killed otherwise)."""
+    proc.terminate()
+    try:
+        proc.wait(timeout=60)
+        return True
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        return False
+
+
 def serve_phase(rng) -> dict:
     """Phase 14, the slice's main path: ``python -m
     multimodal_context_reasoning_torch.cli.serve`` as a subprocess at full
@@ -1110,8 +1195,6 @@ def serve_phase(rng) -> dict:
                          (SERVE_CLIENTS, SERVE_REQUESTS))
     feats, examples = synthetic_requests(rng, int(sizes.sum()) + SERVE_CLIENTS, cfg,
                                          first=50_000)
-    as_json = lambda ex: {"example_id": ex.example_id, "img_id": ex.img_id,
-                          "premise": ex.premise, "answer_choices": ex.answer_choices}
     warm_plan = [[{"examples": [as_json(ex)]}] for ex in examples[:SERVE_CLIENTS]]
     it = iter(examples[SERVE_CLIENTS:])
     plan = [[{"examples": [as_json(next(it)) for _ in range(n)]} for n in row]
@@ -1123,39 +1206,14 @@ def serve_phase(rng) -> dict:
     out: dict = {}
     try:
         # 1. the command, a process of its own
-        port = free_port()
-        log_path = os.path.join(tmp, "serve.log")
-        with open(log_path, "w") as log:
-            proc = subprocess.Popen(
-                [sys.executable, "-m", "multimodal_context_reasoning_torch.cli.serve",
-                 "--port", str(port), "--img_feat_file", pack,
-                 "--micro_batch", str(SERVE_MICRO_BATCH), "--compute_dtype", "bfloat16"],
-                cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+        proc, port, log_path, startup = start_serve_command(
+            tmp, pack, "--micro_batch", str(SERVE_MICRO_BATCH))
         try:
-            t0 = time.perf_counter()
-            while True:
-                check(proc.poll() is None, "the serve command exited: "
-                      + open(log_path).read()[-2000:])
-                check(time.perf_counter() - t0 < 600, "no /healthz within 600 s")
-                try:
-                    if http(port, "/healthz", timeout=5)[0] == 200:
-                        break
-                except OSError:
-                    pass
-                time.sleep(0.5)
-            startup = time.perf_counter() - t0
             http_load(port, warm_plan)
             replies, wall = http_load(port, plan)
             stats = http(port, "/stats")[1]
         finally:
-            proc.terminate()
-            try:
-                proc.wait(timeout=60)
-                exited = True
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait()
-                exited = False
+            exited = stop_serve_command(proc)
         check(exited, "the serve command did not exit on SIGTERM")
         started = [ln for ln in open(log_path).read().splitlines() if "serving on" in ln]
         print(f"[14 serve] the command: {started} after {startup:.2f} s (model build, "
@@ -1246,6 +1304,426 @@ def serve_phase(rng) -> dict:
           f"wall (the rest: the dispatcher waiting for featurized examples)")
     print(f"[14 serve] in-process launches {out['launches']} = {out['launches_per_forward']} "
           f"stage-mask launches x {out['http_in_process']['forwards']} forwards")
+    return out
+
+
+# ---------------------------------------------------------------- int8
+
+def int8_products(rng) -> dict:
+    """Phase 15a: ``int8_matmul`` on the card against its plain version at
+    the encoders' FFN shape at micro-batch 8 and RoBERTa's at 32: the int32
+    accumulators (``torch._int_mm`` against the float64 product of the same
+    codes) and the bf16 outputs bit-equal; then, back to back, the int8
+    route with the weight quantized once (the scorer's), its code product
+    alone and a bf16 ``F.linear`` at the same shape."""
+    from multimodal_context_reasoning_torch.ops.quant import (
+        int8_matmul,
+        int8_mm,
+        int8_mm_plain,
+        quantize_symmetric,
+    )
+
+    out = {}
+    for name, (rows, k, n) in INT8_SHAPES.items():
+        x, w, b = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * scale)
+                   .to("cuda", torch.bfloat16)
+                   for shape, scale in (((rows, k), 1.0), ((n, k), 0.03), ((n,), 0.1)))
+        xq, _ = quantize_symmetric(x, 1)
+        wq, ws = quantize_symmetric(w, 1)
+        acc = int8_mm(xq, wq)
+        same_acc = torch.equal(acc, int8_mm_plain(xq, wq))
+        route = lambda: int8_matmul(x, w, b, torch.bfloat16, weight_q=(wq, ws))
+        got = route()
+        same_out = torch.equal(got, int8_matmul(x, w, b, torch.bfloat16, plain=True))
+        check(same_acc and same_out and torch.isfinite(got).all().item(),
+              f"15 int8 {name}: accumulator bit-equal {same_acc}, output bit-equal {same_out}")
+        del acc, got
+        r = dict(shape=[rows, k, n], accumulator_bit_equal=same_acc, output_bit_equal=same_out,
+                 route_b2b_ms=back_to_back_ms(route),
+                 int_mm_b2b_ms=back_to_back_ms(lambda: int8_mm(xq, wq)),
+                 bf16_linear_b2b_ms=back_to_back_ms(lambda: torch.nn.functional.linear(x, w, b)),
+                 plain_ms=median_ms(lambda: int8_matmul(x, w, b, torch.bfloat16, plain=True),
+                                    reps=3, warmup=1))
+        # least time: codes read and the int32 accumulator written once at HBM
+        # rate, or the products at the int8 peak; bf16: inputs and output
+        int8_bytes, bf16_bytes = rows * k + n * k + 4 * rows * n, 2 * (rows * k + n * k + rows * n)
+        r["int_mm_bound_ms"] = 1e3 * max(int8_bytes / HBM_BYTES_PER_S, 2.0 * rows * k * n / INT8_PEAK)
+        r["bf16_bound_ms"] = 1e3 * max(bf16_bytes / HBM_BYTES_PER_S,
+                                       2.0 * rows * k * n / PEAK_FLOPS[torch.bfloat16])
+        out[name] = r
+        print(f"[15 int8] {name} {rows} x {k} · {k} x {n}: accumulator bit-equal {same_acc}, "
+              f"output bit-equal {same_out} | back to back: int8 route (activations quantized, "
+              f"codes multiplied, rescaled) {r['route_b2b_ms']:.4f} ms, torch._int_mm alone "
+              f"{r['int_mm_b2b_ms']:.4f} ms (bound {r['int_mm_bound_ms']:.4f}), bf16 linear "
+              f"{r['bf16_linear_b2b_ms']:.4f} ms (bound {r['bf16_bound_ms']:.4f}) | plain "
+              f"{r['plain_ms']:.2f} ms")
+        del x, w, b, xq, wq
+        torch.cuda.empty_cache()
+    return out
+
+
+def int8_scoring(rng) -> dict:
+    """Phase 15b: full-width bf16 ``ModCRScorer`` (alignment off) with and
+    without ``with_quantize("int8")`` on one set of weights, at micro-batch 8
+    and 32, timed in turns (bf16, int8, int8, bf16) over the same requests;
+    every int8 forward must launch the stage-mask kernel exactly 60 times."""
+    from multimodal_context_reasoning_torch.core.config import ModCRConfig
+    from multimodal_context_reasoning_torch.models.modcr import ModCRModel
+    from multimodal_context_reasoning_torch.serving.scorer import ModCRScorer
+    from multimodal_context_reasoning_torch.serving.synthetic import (
+        hash_tokenizers,
+        synthetic_requests,
+    )
+
+    cfg = dataclasses.replace(ModCRConfig(), compute_alignment=False).with_dtype("bfloat16")
+    weights = ModCRModel(cfg, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(SEED)).state_dict()
+    tok = hash_tokenizers(cfg)
+    out, launches = {}, 0
+    for mb, n_chunks in zip(MICRO_BATCHES, (8, 4)):
+        feats, reqs = synthetic_requests(rng, mb * (n_chunks + 1), cfg, first=60_000 + 1000 * mb)
+        scorers = {name: ModCRScorer(c, weights, *tok, feats, micro_batch=mb, device="cuda")
+                   for name, c in (("bf16", cfg), ("int8", cfg.with_quantize("int8")))}
+        for sc in scorers.values():
+            sc.score(reqs[:mb])                       # warm-up micro-batch
+        walls, rows = {"bf16": [], "int8": []}, {}
+        for name in ("bf16", "int8", "int8", "bf16"):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            rows[name] = scorers[name].score(reqs[mb:])
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+            if name == "int8":
+                n = read_counts()["spec_attention"]
+                check(n == LAUNCHES_PER_FORWARD * n_chunks,
+                      f"15 int8 mb {mb}: {n} stage-mask launches over {n_chunks} forwards")
+                launches += n
+        logits = {k: np.asarray([r["logits"] for r in v]) for k, v in rows.items()}
+        check(np.isfinite(logits["int8"]).all(), f"15 int8 mb {mb}: non-finite logits")
+        agree = int((logits["int8"].argmax(1) == logits["bf16"].argmax(1)).sum())
+        r = dict(examples=len(rows["int8"]),
+                 bf16_examples_per_s=[len(rows["bf16"]) / t for t in walls["bf16"]],
+                 int8_examples_per_s=[len(rows["int8"]) / t for t in walls["int8"]],
+                 max_abs_dlogit=float(np.abs(logits["int8"] - logits["bf16"]).max()),
+                 max_abs_logit=float(np.abs(logits["bf16"]).max()), decisions_agree=agree,
+                 launches_per_forward=LAUNCHES_PER_FORWARD)
+        out[mb] = r
+        print(f"[15 int8] scorer micro_batch {mb}, {r['examples']} examples in turns: bf16 "
+              + ", ".join(f"{v:.2f}" for v in r["bf16_examples_per_s"]) + " ex/s | int8 "
+              + ", ".join(f"{v:.2f}" for v in r["int8_examples_per_s"])
+              + f" ex/s | max |int8 - bf16| logit {r['max_abs_dlogit']:.4e} (max |logit| "
+              f"{r['max_abs_logit']:.4f}) | 4-way decisions agree {agree}/{r['examples']} | "
+              f"{LAUNCHES_PER_FORWARD} stage-mask launches per int8 forward")
+        del scorers
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
+def int8_command(rng) -> dict:
+    """Phase 15c: one /score request to ``cli.serve --quantize int8`` (full
+    width, bf16, alignment on, micro-batch 8, seeded random init), held
+    against direct int8 scoring of the same examples on the same weights."""
+    from multimodal_context_reasoning_torch.core.config import ModCRConfig
+    from multimodal_context_reasoning_torch.data.feature_store import write_pack
+    from multimodal_context_reasoning_torch.models.modcr import ModCRModel
+    from multimodal_context_reasoning_torch.serving.scorer import ModCRScorer
+    from multimodal_context_reasoning_torch.serving.synthetic import (
+        hash_tokenizers,
+        synthetic_requests,
+    )
+
+    cfg = ModCRConfig().with_dtype("bfloat16").with_quantize("int8")
+    feats, examples = synthetic_requests(rng, 3, cfg, first=70_000)
+    tmp = tempfile.mkdtemp(prefix="modcr_int8_")
+    try:
+        pack = os.path.join(tmp, "feats.mcrpack")
+        write_pack({k: v.features for k, v in feats.items()}, pack)
+        proc, port, log_path, startup = start_serve_command(
+            tmp, pack, "--micro_batch", str(SERVE_MICRO_BATCH), "--quantize", "int8")
+        try:
+            code, reply, seconds = http(port, "/score",
+                                        {"examples": [as_json(ex) for ex in examples]})
+        finally:
+            exited = stop_serve_command(proc)
+        started = [ln for ln in open(log_path).read().splitlines() if "serving on" in ln]
+    finally:
+        shutil.rmtree(tmp)
+    check(exited and code == 200, f"15c the int8 command: reply {code}, exited {exited}")
+    model = ModCRModel(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    direct = {r["example_id"]: np.asarray(r["logits"]) for r in ModCRScorer(
+        cfg, model, *hash_tokenizers(cfg), feats, micro_batch=SERVE_MICRO_BATCH,
+        device="cuda").score(examples)}
+    r = load_summary([[(code, reply, seconds)]], seconds, direct, "15c int8 command")
+    print(f"[15 int8] the command --quantize int8: {started} after {startup:.2f} s | one "
+          f"request of {len(examples)} examples: {code} in {1e3 * seconds:.1f} ms | max |http - "
+          f"direct int8| {r['max_abs_diff']:.3e} (tol {r['tol']:.3e})")
+    del model
+    torch.cuda.empty_cache()
+    return dict(startup_s=startup, request_ms=1e3 * seconds, max_abs_diff=r["max_abs_diff"])
+
+
+# ---------------------------------------------------------------- /generate
+
+def generate_launches_per_forward(enc) -> int:
+    """Stage-mask launches of one classify forward of the rationale family:
+    every layer of both encoders (its cross-stage layers return no
+    probabilities): 12 + 12 = 24 at full width."""
+    return 2 * enc.num_hidden_layers
+
+
+def generation_parity(rng, cfg, spec, tok) -> dict:
+    """Phase 16a: one question at fp32 on the card and on the CPU from one
+    seeded full-width rationale model: choice probabilities and the decoder
+    memory, then the decoder's teacher-forced logits over the CPU's greedy
+    tokens (both devices from the same inputs), and how many greedy tokens
+    agree."""
+    from multimodal_context_reasoning_torch.core.config import (
+        ChunkAlignConfig,
+        EncoderConfig,
+        GPT2Config,
+    )
+    from multimodal_context_reasoning_torch.models.rationale import RationaleModel
+    from multimodal_context_reasoning_torch.serving.generator import RationaleGenerator
+    from multimodal_context_reasoning_torch.serving.synthetic import synthetic_requests
+
+    enc, sched, gpt = EncoderConfig(), ChunkAlignConfig(), GPT2Config()
+    model = RationaleModel(enc, sched, gpt, device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(SEED))
+    cpu_model = copy.deepcopy(model).cpu()
+    feats, qs = synthetic_requests(rng, 1, cfg, first=80_000)
+    gens = {dev: RationaleGenerator(enc, sched, gpt, m, tok[0], tok[1], feats, spec=spec,
+                                    micro_batch=1, max_rationale_len=GEN_MAX_LEN, warm=False,
+                                    device=dev)
+            for dev, m in (("cuda", model), ("cpu", cpu_model))}
+    outs, toks = {}, {}
+    t0 = time.perf_counter()
+    for dev, g in gens.items():
+        with torch.inference_mode():
+            outs[dev] = g.model(g.device_batch([g.featurize(qs[0])]))
+            toks[dev] = g.decode(outs[dev])[0][0].cpu()
+    cpu_s = time.perf_counter() - t0
+    probs_err = (outs["cuda"].mp_probs.cpu() - outs["cpu"].mp_probs).abs().max().item()
+    mem_err = (outs["cuda"].decoder_memory.cpu() - outs["cpu"].decoder_memory).abs().max().item()
+    mem_max = outs["cpu"].decoder_memory.abs().max().item()
+    # teacher forcing: <|b_rtnl|> + the CPU's tokens through each decoder
+    seq = torch.cat([torch.tensor([gens["cpu"].b_rtnl]), toks["cpu"][:-1]])[None]
+    logits = {}
+    for dev, g in gens.items():
+        with torch.inference_mode():
+            o = outs["cpu"]
+            logits[dev] = g.model.dec(seq.to(dev), memory=o.decoder_memory.float().to(dev),
+                                      memory_mask=o.decoder_memory_mask.to(dev))[0].cpu()
+    logit_err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+    logit_max = logits["cpu"].abs().max().item()
+    same = int((toks["cuda"] == toks["cpu"]).cumprod(0).sum())
+    r = dict(mp_probs_max_abs_diff=probs_err, memory_max_abs_diff=mem_err,
+             memory_max_abs=mem_max, teacher_forced_logits_max_abs_diff=logit_err,
+             logits_max_abs=logit_max, greedy_tokens_agree=same, max_len=GEN_MAX_LEN,
+             cpu_and_card_s=cpu_s)
+    print(f"[16 generate] fp32 card vs CPU, one question: mp_probs max|diff| {probs_err:.3e} "
+          f"(tol 1e-4) | decoder memory {mem_err:.3e} (tol 1e-3, max |memory| {mem_max:.2f}) | "
+          f"teacher-forced logits over the CPU's greedy tokens {logit_err:.3e} (tol 1e-3, max "
+          f"|logit| {logit_max:.3f}) | greedy tokens agree for the first {same}/{GEN_MAX_LEN} "
+          f"(not a check: random-init logits have near ties)")
+    check(probs_err <= 1e-4 and mem_err <= 1e-3 and logit_err <= 1e-3,
+          "16a: the card and the CPU disagree")
+    del gens, model, cpu_model, outs
+    torch.cuda.empty_cache()
+    return r
+
+
+def generation_summary(replies, wall: float, direct: dict, what: str) -> dict:
+    """Check every /generate reply of an HTTP load against direct
+    ``RationaleGenerator.generate`` of the same questions (200, the same
+    prediction and rationale ids, probabilities within 2e-2) and sum it up."""
+    flat = [x for row in replies for x in row]
+    codes = sorted({code for code, _, _ in flat})
+    check(codes == [200], f"{what}: reply codes {codes}")
+    got = {r["example_id"]: r for _, out, _ in flat for r in out["results"]}
+    check(set(got) == set(direct), f"{what}: {len(got)} replies for {len(direct)} questions")
+    err = max(np.abs(np.subtract(got[q]["probs"], direct[q]["probs"])).max() for q in direct)
+    differ = [q for q in direct if (got[q]["rationale_ids"], got[q]["prediction"])
+              != (direct[q]["rationale_ids"], direct[q]["prediction"])]
+    check(err <= 2e-2 and not differ,
+          f"{what}: max |probs - direct| {err}, rationale or prediction differs at {differ}")
+    lat = np.asarray([t for _, _, t in flat]) * 1e3
+    return dict(questions=len(got), requests=len(flat), wall_s=wall,
+                questions_per_s=len(got) / wall, p50_ms=float(np.percentile(lat, 50)),
+                p99_ms=float(np.percentile(lat, 99)), max_abs_diff_probs=err)
+
+
+def generate_phase(rng) -> dict:
+    """Phase 16, /generate: the rationale family at full width
+    (``EncoderConfig()`` and ``GPT2Config()``, bf16 encoders, fp32 decoder,
+    seeded random init, micro-batch 4 questions, 32 decode steps): (a) fp32
+    card against CPU; (b) in-process ``serve(generator=...)`` with the kernel
+    counts set to 0 before and read after, then ``cli.serve --generate`` in
+    its own process, each under concurrent clients, replies held against
+    direct ``RationaleGenerator.generate``; the classify forward and the
+    decode of one micro-batch timed with CUDA events; (c) ``mode="sample"``
+    once: a fixed seed repeats and every token lies in the filter's kept
+    set."""
+    from multimodal_context_reasoning_torch.core.config import (
+        ChunkAlignConfig,
+        EncoderConfig,
+        GPT2Config,
+        ModCRConfig,
+    )
+    from multimodal_context_reasoning_torch.data.collate import BatchSpec
+    from multimodal_context_reasoning_torch.data.feature_store import write_pack
+    from multimodal_context_reasoning_torch.data.tokenization import HashTokenizer
+    from multimodal_context_reasoning_torch.generation.decode import (
+        sample_decode,
+        top_k_top_p_filter,
+    )
+    from multimodal_context_reasoning_torch.models.modcr import ModCRModel
+    from multimodal_context_reasoning_torch.models.rationale import RationaleModel
+    from multimodal_context_reasoning_torch.serving.generator import RationaleGenerator
+    from multimodal_context_reasoning_torch.serving.scorer import ModCRScorer
+    from multimodal_context_reasoning_torch.serving.server import serve
+    from multimodal_context_reasoning_torch.serving.synthetic import (
+        hash_tokenizers,
+        synthetic_requests,
+    )
+
+    cfg = ModCRConfig().with_dtype("bfloat16")     # the serve command's scorer and batch
+    spec = BatchSpec(text_len=cfg.text_len, img_len=cfg.img_len, roberta_len=cfg.roberta_len,
+                     img_feature_dim=cfg.global_encoder.img_feature_dim)
+    enc, sched, gpt = EncoderConfig(dtype="bfloat16"), ChunkAlignConfig(), GPT2Config()
+    bert, rob = hash_tokenizers(cfg)
+    gpt_tok = HashTokenizer(vocab_size=gpt.vocab_size)
+    out = {"parity": generation_parity(rng, cfg, spec, (bert, gpt_tok))}
+
+    # (b) serving: the command's weights (seed 0 on the card), in-process first
+    sizes = rng.integers(GEN_QUESTIONS[0], GEN_QUESTIONS[1] + 1, (GEN_CLIENTS, GEN_REQUESTS))
+    feats, qs = synthetic_requests(rng, int(sizes.sum()) + GEN_CLIENTS, cfg, first=90_000)
+    warm_plan = [[{"examples": [as_json(q)]}] for q in qs[:GEN_CLIENTS]]
+    it = iter(qs[GEN_CLIENTS:])
+    plan = [[{"examples": [as_json(next(it)) for _ in range(n)]} for n in row] for row in sizes]
+    measured = qs[GEN_CLIENTS:]
+    model = RationaleModel(enc, sched, gpt, device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(0))
+    gen = RationaleGenerator(enc, sched, gpt, model, bert, gpt_tok, feats, spec=spec,
+                             micro_batch=GEN_MICRO_BATCH, max_rationale_len=GEN_MAX_LEN,
+                             device="cuda")
+    direct = {r["example_id"]: r for r in gen.generate(measured)}
+    # one micro-batch: the classify forward, then the decode (prefill + steps)
+    batch = gen.device_batch([gen.featurize(q) for q in measured[:GEN_MICRO_BATCH]])
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    fwd_ms, dec_ms = [], []
+    for _ in range(3):
+        with torch.inference_mode():
+            events[0].record()
+            o = gen.model(batch)
+            events[1].record()
+            gen.decode(o)
+            events[2].record()
+        events[2].synchronize()
+        fwd_ms.append(events[0].elapsed_time(events[1]))
+        dec_ms.append(events[1].elapsed_time(events[2]))
+    timing = dict(classify_ms=statistics.median(fwd_ms), decode_ms=statistics.median(dec_ms),
+                  ms_per_decode_step=statistics.median(dec_ms) / (GEN_MAX_LEN + 1))
+    scorer = ModCRScorer(cfg, ModCRModel(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(0)), bert, rob, feats, micro_batch=SERVE_MICRO_BATCH,
+        device="cuda")
+    server = serve(scorer, "127.0.0.1", 0, block=False, generator=gen)
+    try:
+        sport = server.server_address[1]
+        http_load(sport, warm_plan, "/generate")
+        before = server.modcr_gen_batcher.telemetry()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        replies, wall = http_load(sport, plan, "/generate")
+        torch.cuda.synchronize()
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        dispatched = server.modcr_gen_batcher.telemetry()[len(before):]
+        stats = http(sport, "/stats")[1]
+    finally:
+        server.modcr_close()
+    per_forward = generate_launches_per_forward(enc)
+    check(launches["spec_attention"] == per_forward * len(dispatched),
+          f"16 /generate launches {launches} over {len(dispatched)} classify forwards, "
+          f"{per_forward} each expected")
+    check(set(stats["routes"]) >= {"generate"}, f"16 /stats routes {stats.get('routes')}")
+    out["in_process"] = dict(generation_summary(replies, wall, direct, "in-process /generate"),
+                             forwards=len(dispatched),
+                             mean_dispatch=sum(dispatched) / len(dispatched),
+                             launches_per_forward=per_forward, peak_gib=peak, **timing)
+    out["launches"] = launches["spec_attention"]
+    del scorer, server
+    torch.cuda.empty_cache()
+
+    # the command, a process of its own, with the same weights
+    tmp = tempfile.mkdtemp(prefix="modcr_generate_")
+    try:
+        pack = os.path.join(tmp, "feats.mcrpack")
+        write_pack({k: v.features for k, v in feats.items()}, pack)
+        proc, port, log_path, startup = start_serve_command(
+            tmp, pack, "--micro_batch", str(SERVE_MICRO_BATCH), "--generate",
+            "--gen_micro_batch", str(GEN_MICRO_BATCH), "--max_rationale_len", str(GEN_MAX_LEN))
+        try:
+            http_load(port, warm_plan, "/generate")
+            replies, wall = http_load(port, plan, "/generate")
+            route = http(port, "/stats")[1]["routes"]["generate"]
+        finally:
+            exited = stop_serve_command(proc)
+        started = [ln for ln in open(log_path).read().splitlines() if "serving on" in ln]
+    finally:
+        shutil.rmtree(tmp)
+    check(exited, "the serve --generate command did not exit on SIGTERM")
+    out["command"] = dict(generation_summary(replies, wall, direct, "serve --generate command"),
+                          startup_s=startup, forwards=route["device_dispatches"],
+                          mean_dispatch=route["mean_device_batch"])
+    print(f"[16 generate] the command: {started} after {startup:.2f} s (both models built "
+          f"and warmed)")
+    for name in ("in_process", "command"):
+        r = out[name]
+        print(f"[16 generate] {name}: {GEN_CLIENTS} clients x {GEN_REQUESTS} requests of "
+              f"{GEN_QUESTIONS[0]}-{GEN_QUESTIONS[1]} questions ({r['questions']} questions): "
+              f"{r['questions_per_s']:.2f} questions/s over {r['wall_s']:.3f} s | request "
+              f"latency p50 {r['p50_ms']:.2f} ms, p99 {r['p99_ms']:.2f} ms | {r['forwards']} "
+              f"forwards, mean dispatch {r['mean_dispatch']:.2f} questions | replies = direct "
+              f"generate (max |probs diff| {r['max_abs_diff_probs']:.2e})")
+    r = out["in_process"]
+    print(f"[16 generate] one micro-batch of {GEN_MICRO_BATCH} questions: classify forward "
+          f"{r['classify_ms']:.2f} ms, decode {r['decode_ms']:.2f} ms = {r['ms_per_decode_step']:.3f}"
+          f" ms per decoder call ({GEN_MAX_LEN} steps + prefill) | stage-mask launches "
+          f"{out['launches']} = {per_forward} x {r['forwards']} classify forwards | peak "
+          f"{r['peak_gib']:.2f} GiB under the load")
+
+    # (c) sampling once: a fixed seed repeats; every token in the kept set
+    kw = dict(top_k=40, top_p=0.9, temperature=0.8)
+    with torch.inference_mode():
+        o = gen.model(batch)
+        prompt = torch.full((GEN_MICRO_BATCH, 1), gen.b_rtnl, device="cuda")
+        plen = torch.ones(GEN_MICRO_BATCH, dtype=torch.long, device="cuda")
+        mem, mmask = o.decoder_memory.float(), o.decoder_memory_mask
+        draws = [sample_decode(gen.model.dec, prompt, plen, memory=mem, memory_mask=mmask,
+                               generator=torch.Generator(device="cuda").manual_seed(s),
+                               max_len=GEN_MAX_LEN, eos_id=gen.e_rtnl,
+                               pad_id=gpt.pad_token_id, **kw) for s in (5, 5, 6)]
+        toks, lens = draws[0]
+        logits, _ = gen.model.dec(torch.cat([prompt, toks[:, :-1]], 1), memory=mem,
+                                  memory_mask=mmask)
+        kept = top_k_top_p_filter(logits.float() / kw["temperature"], kw["top_k"],
+                                  kw["top_p"]) > -1e8
+    active = torch.arange(GEN_MAX_LEN, device="cuda")[None] < lens[:, None]
+    in_set = kept.gather(-1, toks[..., None])[..., 0] | ~active
+    repeats = all(torch.equal(a, b) for a, b in zip(draws[0], draws[1]))
+    differs = not torch.equal(draws[0][0], draws[2][0])
+    check(repeats and bool(in_set.all()), f"16c sampling: repeats {repeats}, "
+          f"{int((~in_set).sum())} tokens outside the kept set")
+    out["sample"] = dict(repeats=repeats, other_seed_differs=differs,
+                         tokens_checked=int(active.sum()), **kw)
+    print(f"[16 generate] mode=sample {kw}: seed 5 twice equal {repeats}, seed 6 differs "
+          f"{differs} | all {int(active.sum())} sampled tokens in the top-k/top-p kept set "
+          f"of their teacher-forced logits")
+    del gen, model
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1465,6 +1943,13 @@ def main() -> int:
 
     # 14. the serve command, the slice's main path
     served = serve_phase(rng)
+    torch.cuda.empty_cache()
+
+    # 15. W8A8 int8: the products, the scorer, the command
+    int8 = dict(products=int8_products(rng), scoring=int8_scoring(rng), command=int8_command(rng))
+
+    # 16. /generate, the rationale family
+    generated = generate_phase(rng)
 
     # 11. kernels line, then the result line
     print(card)
@@ -1472,7 +1957,9 @@ def main() -> int:
                       "train_parity_max_rel_diff": parity["max_rel_diff"],
                       "training": {k: v for k, v in train.items() if k != "launches"},
                       "cli": {k: v for k, v in cli.items() if k != "launches"},
-                      "serve": {k: v for k, v in served.items() if k != "launches"}}))
+                      "serve": {k: v for k, v in served.items() if k != "launches"},
+                      "int8": int8,
+                      "generate": {k: v for k, v in generated.items() if k != "launches"}}))
     main_path = train["launches"]
     shape = "bf16 (128, 128, 138, 16, 64), one launch, as one RoBERTa layer of the slice"
 
@@ -1488,6 +1975,8 @@ def main() -> int:
         "serving_launches": launches,
         "cli_launches": cli["launches"]["spec_attention"],
         "serve_launches": served["launches"]["spec_attention"],
+        "int8_launches": int8["scoring"]["launches"],
+        "generate_launches": generated["launches"],
         "max_abs_err": max(max_err, train_err["spec_attention"],
                            long_keys["max_abs_err"]["spec_attention"]),
         "ms": totals["ms"],

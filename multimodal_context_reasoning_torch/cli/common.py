@@ -5,10 +5,11 @@ The flags are the JAX CLI's, with the same names and defaults (the
 reference's names where it has them, run_PMR_ModCR.py:452-681), plus
 ``--device``: the commands run on the GPU unless it says ``cpu``.  Flags the
 port does not honour yet are refused before any data is read, each with the
-ROADMAP item that ports it: ``--quantize int8``, a data or model mesh over
-more than one device, ``--multihost``, ``--device_features``,
-``--profile_dir``, ``--tensorboard_dir`` and the HuggingFace tokenizer
-directories.
+ROADMAP item that ports it: a data or model mesh over more than one
+device, ``--multihost``, ``--device_features``, ``--profile_dir``,
+``--tensorboard_dir`` and the HuggingFace tokenizer directories.
+``--quantize int8`` is inference-only and refused under ``--do_train``, with
+the JAX CLI's wording.
 """
 
 from __future__ import annotations
@@ -130,7 +131,8 @@ def build_arg_parser(task: str) -> argparse.ArgumentParser:
                         "per layer")
     p.add_argument("--quantize", type=str, default="none",
                    choices=["none", "int8"],
-                   help="W8A8 int8 inference; refused (ROADMAP Queue 1 item 6)")
+                   help="W8A8 int8 inference (ops/quant.py); refused under "
+                        "--do_train")
     p.add_argument("--tensorboard_dir", type=str, default="",
                    help="refused (ROADMAP Queue 1 item 9)")
     p.add_argument("--profile_dir", type=str, default="",
@@ -157,7 +159,6 @@ def refuse_unported(args) -> None:
     """SystemExit for each flag the port does not honour yet, naming the
     ROADMAP item that ports it."""
     refuse([
-        ("--quantize int8", args.quantize != "none", 6),
         ("--mesh_data > 1", args.mesh_data > 1, 9),
         ("--mesh_model > 1", args.mesh_model > 1, 9),
         ("--multihost", args.multihost, 9),
@@ -200,6 +201,13 @@ def configs_from_args(args) -> Tuple[ModCRConfig, TrainConfig]:
         )
     if args.skip_alignment_loss:
         cfg = dataclasses.replace(cfg, compute_alignment=False)
+    if args.quantize != "none":
+        if args.do_train:
+            raise SystemExit(
+                "--quantize is inference-only (round() has zero gradient); "
+                "drop it for --do_train"
+            )
+        cfg = cfg.with_quantize(args.quantize)
     if args.remat:
         cfg = dataclasses.replace(
             cfg, roberta=dataclasses.replace(

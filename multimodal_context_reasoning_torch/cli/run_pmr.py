@@ -16,7 +16,9 @@ the command raises, ``--device cpu`` asks for the CPU).  ``--do_train``
 writes ``config.json`` and best-accuracy checkpoints under
 ``<output_dir>/ckpt``; ``--do_test`` restores the best of them from
 ``--eval_model_dir`` (with its ``config.json``) and writes
-``result_test_ModICR_<task>.json``.
+``result_test_ModICR_<task>.json``.  ``--quantize int8`` runs the test
+forwards through the W8A8 route; it holds for a config restored from
+``config.json`` too, which the JAX CLI's restore drops.
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ def main(argv=None, *, task="pmr", dataset_cls=PMRDataset, load_fn=load_pmr_json
     restored = bool(args.eval_model_dir) and not args.do_train and os.path.exists(cfg_path)
     if restored:
         with open(cfg_path) as f:
-            cfg = ModCRConfig.from_json(f.read())
+            cfg = ModCRConfig.from_json(f.read()).with_quantize(args.quantize)
     if not (args.do_train or args.do_test):
         raise SystemExit("pass --do_train or --do_test")
     device = resolve_device(args.device)

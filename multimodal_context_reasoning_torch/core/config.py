@@ -1,9 +1,10 @@
 """Configuration dataclasses of the PyTorch port.
 
 A copy of the JAX package's ``core/config.py`` (``EncoderConfig``,
-``ChunkAlignConfig``, ``RobertaConfig``, ``ModCRConfig``, ``TrainConfig``):
-every field is kept with its default, so a config written by ``to_json`` on
-either side loads on the other.  ``torch_dtype`` replaces ``jnp_dtype``.
+``ChunkAlignConfig``, ``RobertaConfig``, ``GPT2Config``, ``ModCRConfig``,
+``TrainConfig``): every field is kept with its default, so a config written
+by ``to_json`` on either side loads on the other.  ``torch_dtype`` replaces
+``jnp_dtype``.
 
 Fields that steer the JAX program only are kept for that round trip and
 have no effect here:
@@ -13,8 +14,13 @@ have no effect here:
   probabilities nor dropout, the stage-mask attention with a mask spec and
   the dense-bias attention without one, each with the backward kernel
   (models/layers.py);
-- ``quantize``: the int8 path, which a later slice ports;
-- ``TrainConfig.mesh_shape``: the port trains on one device so far.
+- ``TrainConfig.mesh_shape``: the port trains on one device so far;
+- ``GPT2Config.dtype``: the GPT-2 decoder computes in fp32 whatever it says,
+  as the JAX package's does (its Dense, LayerNorm and Embed take no dtype).
+
+``quantize="int8"`` (``ModCRConfig.with_quantize``) sends the projections and
+FFN products of a tower through the W8A8 int8 route of ``models/layers.py``
+(ops/quant.py); it is inference-only.
 
 ``RobertaConfig.remat``, ``remat_policy`` and ``scan_layers`` choose the
 reasoner's branch as in the JAX package (models/roberta.py).
@@ -24,7 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -58,10 +64,11 @@ class EncoderConfig:
     # Computation dtype ("float32" | "bfloat16"); softmax and LayerNorm
     # statistics stay fp32.
     dtype: str = "float32"
-    # No effect in the port (see the module docstring).
-    use_pallas: bool = False
+    use_pallas: bool = False     # no effect in the port (module docstring)
+    # "none" | "int8": W8A8 products at the query/key/value, attention-out
+    # and FFN sites (models/layers.py); the parameters do not change.
     quantize: str = "none"
-    mem_efficient_attention: bool = False
+    mem_efficient_attention: bool = False   # no effect in the port
 
     @property
     def head_dim(self) -> int:
@@ -109,10 +116,9 @@ class RobertaConfig:
     layer_norm_eps: float = 1e-5
     pad_token_id: int = 1  # position ids offset from it
     dtype: str = "float32"
-    # No effect in the port (see the module docstring).
-    use_pallas: bool = False
-    quantize: str = "none"
-    mem_efficient_attention: bool = False
+    use_pallas: bool = False     # no effect in the port (module docstring)
+    quantize: str = "none"       # see EncoderConfig.quantize
+    mem_efficient_attention: bool = False   # no effect in the port
     # The reasoner's branch (models/roberta.py).
     scan_layers: bool = False
     remat: bool = False
@@ -125,6 +131,40 @@ class RobertaConfig:
     @property
     def torch_dtype(self) -> torch.dtype:
         return _torch_dtype(self.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class GPT2Config:
+    """GPT-2 decoder with cross-attention for rationale generation (the
+    vendored GPT-2: pre-LN blocks, fused qkv as Conv1D, optional
+    cross-attention per block)."""
+
+    vocab_size: int = 50257
+    n_positions: int = 1024
+    n_embd: int = 768
+    n_layer: int = 12
+    n_head: int = 12
+    n_inner: Optional[int] = None  # defaults to 4 * n_embd
+    activation_function: str = "gelu_new"
+    resid_pdrop: float = 0.1
+    embd_pdrop: float = 0.1
+    attn_pdrop: float = 0.1
+    layer_norm_epsilon: float = 1e-5
+    initializer_range: float = 0.02
+    add_cross_attention: bool = True
+    pad_token_id: int = 50256  # GPT-2 has no pad; the reference uses the tokenizer's
+    # True = HF GPT-2 (the LM head shares wte); the rationale family trains
+    # a separate untied ``lm_head`` (models/rationale.py forces False).
+    tie_word_embeddings: bool = True
+    dtype: str = "float32"  # no effect (see the module docstring)
+
+    @property
+    def inner_dim(self) -> int:
+        return self.n_inner if self.n_inner is not None else 4 * self.n_embd
+
+    @property
+    def head_dim(self) -> int:
+        return self.n_embd // self.n_head
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,6 +210,16 @@ class ModCRConfig:
             global_encoder=dataclasses.replace(self.global_encoder, dtype=dtype),
             seq_encoder=dataclasses.replace(self.seq_encoder, dtype=dtype),
             roberta=dataclasses.replace(self.roberta, dtype=dtype),
+        )
+
+    def with_quantize(self, mode: str) -> "ModCRConfig":
+        """Copy with every tower's matmul quantization mode set ("none" |
+        "int8", see EncoderConfig.quantize).  Inference-only."""
+        return dataclasses.replace(
+            self,
+            global_encoder=dataclasses.replace(self.global_encoder, quantize=mode),
+            seq_encoder=dataclasses.replace(self.seq_encoder, quantize=mode),
+            roberta=dataclasses.replace(self.roberta, quantize=mode),
         )
 
     def to_json(self) -> str:

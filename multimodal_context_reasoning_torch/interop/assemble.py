@@ -16,6 +16,13 @@ Mirrors the reference's model-build sequence (run_PMR_ModCR.py:709-835):
    ``classifier.`` keys before the load (:819-832), so those heads keep
    their fresh init.
 
+:func:`assemble_rationale_params` grafts a reference ``ChunkAlign_CLS_dec5_4``
+checkpoint (the rationale family, v10.py:1319-1494) into the port's
+``RationaleModel`` state dict, with the JAX function's report, and
+:func:`load_rationale_checkpoint` builds the model for it with the GPT-2
+vocabulary sized to the checkpoint's ``dec.wte.weight`` rows, as the JAX
+serve command does (cli/serve.py:287-303).
+
 The port's keys are the reference's composite layout, so every graft is a
 copy of source keys onto the same names under a tower prefix, with a shape
 check (the JAX package builds Flax trees instead).  As there, every call
@@ -136,16 +143,17 @@ class AssembleReport:
         return "\n".join(lines)
 
 
-def _finish(report: AssembleReport, sd: _TrackedSD, strict: bool) -> None:
-    """Classify leftovers: known-dead prefixes -> skipped, rest ->
+def _finish(report: AssembleReport, sd: _TrackedSD, strict: bool, extra=()) -> None:
+    """Classify leftovers: known-dead prefixes (and the caller's ``extra``
+    ``(regex, reason)`` pairs, tried first) -> skipped, rest ->
     unconsumed."""
     report.consumed |= sd.consumed
     for key in sd:
         full = sd.full_name(key)
         if full in report.consumed or full in report.skipped:
             continue
-        reason = None
-        if key.endswith(".position_ids") or key == "position_ids":
+        reason = next((why for pattern, why in extra if re.search(pattern, key)), None)
+        if reason is None and key.endswith(".position_ids") or key == "position_ids":
             reason = "HF position-id buffer (not a parameter)"
         if reason is None:
             for prefix, why in _KNOWN_DEAD:
@@ -211,12 +219,12 @@ def _graft_encoder(params, sd: _TrackedSD, target: str, cfg_enc) -> None:
         sd, cfg_enc.num_hidden_layers, vocab_size=cfg_enc.vocab_size))
 
 
-def _graft_seq_encoder(params, sd: _TrackedSD, cfg_enc) -> None:
-    _graft_encoder(params, sd, "calec.seq_enc.", cfg_enc)
+def _graft_seq_encoder(params, sd: _TrackedSD, cfg_enc, target: str = "calec.seq_enc.") -> None:
+    _graft_encoder(params, sd, target, cfg_enc)
     # SeqBertImgModel's extra edge_dense embedding (v10.py:260) — unused by
     # forward but a real checkpoint key; keep it for round-trip fidelity.
     if "edge_dense.weight" in sd:
-        _merge(params, "calec.seq_enc.", {"edge_dense.weight": sd["edge_dense.weight"]})
+        _merge(params, target, {"edge_dense.weight": sd["edge_dense.weight"]})
 
 
 def _graft_roberta(params, sd: _TrackedSD, cfg: ModCRConfig,
@@ -334,6 +342,87 @@ def assemble_modcr_params(
         _finish(report, sd, strict)
 
     return report
+
+
+# the keys of one rationale reasoning layer (ClsLayer2) that its forward reads
+_CLS_REASON_LINEARS = ("cls_q_proj.", "align_k_proj.", "dense.", "intermediate.dense.",
+                       "output.dense.")
+_CLS_REASON_NORMS = ("LayerNorm.", "output.LayerNorm.")
+# the keys of one vendored GPT-2 block, Conv1D and LayerNorm weight/bias pairs
+_GPT2_BLOCK = ("ln_1.", "attn.c_attn.", "attn.c_proj.", "ln_2.", "mlp.c_fc.", "mlp.c_proj.")
+_GPT2_CROSS = ("crossattention.q_attn.", "crossattention.c_attn.",
+               "crossattention.c_proj.", "ln_cross_attn.")
+_RATIONALE_LEFTOVERS = (
+    (r"^dec\.h\.\d+\.(crossattention|attn)\.(bias|masked_bias)$",
+     "GPT-2 causal-mask buffer, not a parameter "
+     "(modeling_transfomres.py Attention.register_buffer)"),
+    (r"^cls_layer\.\d+\.attention\.",
+     "dead BertSelfAttention inside ClsLayer2 — its forward reads "
+     "only cls_q_proj/align_k_proj/dense/LayerNorm/FFN "
+     "(v10.py:801-837)"),
+)
+
+
+def assemble_rationale_params(
+    params: Dict[str, torch.Tensor],
+    enc_cfg,
+    gpt2_cfg,
+    rationale_sd: StateDict,
+    *,
+    cls_layer_num: int = 3,
+    strict: bool = True,
+) -> AssembleReport:
+    """Graft a reference ``ChunkAlign_CLS_dec5_4`` state dict into the
+    port's ``RationaleModel`` state dict ``params``, in place (the JAX
+    ``assemble_rationale_params``): ``global_enc.*`` / ``seq_enc.*`` (the
+    word embeddings resized to ``enc_cfg.vocab_size``, ``edge_dense``
+    kept), ``cls_ensemble`` and ``classifier``, ``cls_layer.N.*``, the
+    vendored GPT-2 ``dec.*`` (a block's cross-attention keys where the
+    checkpoint has them) and the untied ``lm_head``.  The GPT-2 causal-mask
+    buffers and ClsLayer2's dead attention are reported as skipped."""
+    report = AssembleReport()
+    sd = _TrackedSD(rationale_sd)
+    _graft_encoder(params, sd.sub("global_enc."), "global_enc.", enc_cfg)
+    _graft_seq_encoder(params, sd.sub("seq_enc."), enc_cfg, target="seq_enc.")
+    flat: StateDict = {}
+    flat.update(_linear(sd, "cls_ensemble."))
+    flat.update(_linear(sd, "classifier."))
+    for i in range(cls_layer_num):
+        p = f"cls_layer.{i}."
+        for name in _CLS_REASON_LINEARS:
+            flat.update(_linear(sd, p + name))
+        for name in _CLS_REASON_NORMS:
+            flat.update(_linear(sd, p + name))
+    for name in ("dec.wte.weight", "dec.wpe.weight", "lm_head.weight"):
+        flat[name] = sd[name]
+    flat.update(_linear(sd, "dec.ln_f."))
+    for i in range(gpt2_cfg.n_layer):
+        p = f"dec.h.{i}."
+        cross = _GPT2_CROSS if p + "crossattention.c_attn.weight" in sd else ()
+        for name in _GPT2_BLOCK + cross:
+            flat.update(_linear(sd, p + name))
+    _merge(params, "", flat)
+    _finish(report, sd, strict, extra=_RATIONALE_LEFTOVERS)
+    return report
+
+
+def load_rationale_checkpoint(path: str, enc_cfg, schedule, gpt2_cfg, *, max_chunks: int,
+                              device, generator: Optional[torch.Generator] = None):
+    """A reference rationale ``.pth`` -> ``(RationaleModel, GPT2Config,
+    AssembleReport)``.  The reference adds the rationale markers to its
+    GPT-2 vocabulary, so a trained checkpoint's embedding rows fix the
+    config's ``vocab_size``, not the other way round."""
+    from multimodal_context_reasoning_torch.models.rationale import RationaleModel
+
+    sd = load_torch_state_dict(path)
+    rows = sd["dec.wte.weight"].shape[0]
+    gpt2_cfg = dataclasses.replace(gpt2_cfg, vocab_size=rows)
+    model = RationaleModel(enc_cfg, schedule, gpt2_cfg, max_chunks=max_chunks, device=device,
+                           generator=generator)
+    params = dict(model.state_dict())
+    report = assemble_rationale_params(params, enc_cfg, gpt2_cfg, sd)
+    model.load_state_dict(params, strict=True)
+    return model, gpt2_cfg, report
 
 
 def assemble_from_files(

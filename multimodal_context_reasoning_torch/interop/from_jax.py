@@ -11,6 +11,15 @@ that mapping it carries ``calec.seq_enc.edge_dense.weight``, the image
 LayerNorm when the config has one, the ``promptfuse`` prefix of that
 ablation, and unstacks a scanned RoBERTa tree (``layers/layer/<leaf>`` with a
 leading [N] axis) into per-layer keys.
+
+``rationale_params_from_jax(tree, enc_cfg, gpt2_cfg)`` does the same for a
+JAX ``RationaleModel`` tree, with the keys and values of the JAX package's
+``interop/export.py:export_rationale_state_dict`` (the reference
+``ChunkAlign_CLS_dec5_4`` layout): GPT-2 blocks in the vendored Conv1D
+layout ([in, out], fused [in, 3D] ``attn.c_attn``, cross-attention
+``q_attn`` and [in, 2D] ``c_attn``), the untied ``lm_head`` as
+``nn.Linear``'s [vocab, D].  ``gpt2_params_from_jax`` maps a bare JAX
+``GPT2Decoder`` tree the same way.
 """
 
 from __future__ import annotations
@@ -122,4 +131,67 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModCRConfig) -> StateDict:
     _lin(out, "abst_confidence_scorer.", root["abst_confidence_scorer"])
     if "promptfuse" in root:
         out["promptfuse"] = _t(root["promptfuse"])
+    return out
+
+
+def _conv1d(out: StateDict, prefix: str, *nodes: Dict[str, Any]) -> None:
+    """Flax Dense kernels -> one vendored GPT-2 Conv1D ([in, out], no
+    transpose), several kernels fused along the output axis."""
+    out[prefix + "weight"] = _t(np.concatenate([np.asarray(n["kernel"]) for n in nodes], 1))
+    out[prefix + "bias"] = _t(np.concatenate([np.asarray(n["bias"]) for n in nodes]))
+
+
+def gpt2_params_from_jax(tree: Dict[str, Any], n_layer: int, prefix: str = "") -> StateDict:
+    """JAX ``GPT2Decoder`` parameters -> the port's ``GPT2Decoder`` keys
+    under ``prefix`` (an untied ``lm_head`` of the tree comes out as
+    ``prefix + "lm_head.weight"``)."""
+    dec = tree["params"] if "params" in tree else tree
+    out: StateDict = {}
+    out[prefix + "wte.weight"] = _t(dec["wte"]["embedding"])
+    out[prefix + "wpe.weight"] = _t(dec["wpe"]["embedding"])
+    _ln(out, prefix + "ln_f.", dec["ln_f"])
+    if "lm_head" in dec:
+        _lin(out, prefix + "lm_head.", dec["lm_head"])
+    for i in range(n_layer):
+        blk = dec[f"block_{i}"]
+        p = f"{prefix}h.{i}."
+        _ln(out, p + "ln_1.", blk["ln_1"])
+        _ln(out, p + "ln_2.", blk["ln_2"])
+        att = blk["attn"]
+        _conv1d(out, p + "attn.c_attn.", att["q"], att["k"], att["v"])
+        _conv1d(out, p + "attn.c_proj.", att["out"])
+        _conv1d(out, p + "mlp.c_fc.", blk["mlp_c_fc"])
+        _conv1d(out, p + "mlp.c_proj.", blk["mlp_c_proj"])
+        if "crossattention" in blk:
+            ca = blk["crossattention"]
+            _conv1d(out, p + "crossattention.q_attn.", ca["q"])
+            _conv1d(out, p + "crossattention.c_attn.", ca["k"], ca["v"])
+            _conv1d(out, p + "crossattention.c_proj.", ca["out"])
+            _ln(out, p + "ln_cross_attn.", blk["ln_cross"])
+    return out
+
+
+def rationale_params_from_jax(tree: Dict[str, Any], enc_cfg, gpt2_cfg, *,
+                              cls_layer_num: int = 3) -> StateDict:
+    """JAX ``RationaleModel`` parameter tree -> the port's
+    ``RationaleModel`` state dict (fp32, CPU)."""
+    root = tree["params"] if "params" in tree else tree
+    out: StateDict = {}
+    _encoder(out, "global_enc.", root["global_enc"], enc_cfg.num_hidden_layers)
+    _encoder(out, "seq_enc.", root["seq_enc"], enc_cfg.num_hidden_layers)
+    out["seq_enc.edge_dense.weight"] = _t(root["seq_enc"]["edge_dense"])
+    _lin(out, "cls_ensemble.", root["cls_ensemble"])
+    _lin(out, "classifier.", root["classifier"])
+    for i in range(cls_layer_num):
+        layer = root[f"cls_layer_{i}"]
+        p = f"cls_layer.{i}."
+        for name in ("cls_q_proj", "align_k_proj", "dense"):
+            _lin(out, f"{p}{name}.", layer[name])
+        _ln(out, p + "LayerNorm.", layer["layer_norm"])
+        _lin(out, p + "intermediate.dense.", layer["ffn"]["intermediate"])
+        _lin(out, p + "output.dense.", layer["ffn"]["output"])
+        _ln(out, p + "output.LayerNorm.", layer["ffn"]["output_layer_norm"])
+    dec = gpt2_params_from_jax(root["dec"], gpt2_cfg.n_layer, "dec.")
+    out["lm_head.weight"] = dec.pop("dec.lm_head.weight")
+    out.update(dec)
     return out

@@ -16,6 +16,10 @@ Numerics follow the JAX package, not the original PyTorch repo:
   ``Dense(dtype=bf16)`` does over fp32 params: the input and the weights are
   cast to that dtype in the forward (a no-op for weights the scorer has
   already cast), and LayerNorm normalises in fp32;
+- a tower whose config says ``quantize="int8"`` sends exactly the products
+  the JAX package quantizes (``_dense``, layers.py:43-50: query, key, value,
+  the attention output and the FFN's two) through the W8A8 route of
+  ``ops/quant.py``; the parameters and the state dict do not change;
 - attention takes the JAX package's dispatch (layers.py:136-188) with
   "use_pallas" read as "a CUDA tensor".  A call that needs neither
   probabilities nor dropout goes to ``fused_attention_spec`` when it has a
@@ -38,6 +42,7 @@ from multimodal_context_reasoning_torch.ops.attention import dot_product_attenti
 from multimodal_context_reasoning_torch.ops.chunk import chunk_mean_scatter
 from multimodal_context_reasoning_torch.ops.flash import mem_efficient_attention
 from multimodal_context_reasoning_torch.ops.masks import MaskSpec
+from multimodal_context_reasoning_torch.ops.quant import int8_matmul, quantize_symmetric
 from multimodal_context_reasoning_torch.ops.spec_attention import fused_attention_spec
 
 
@@ -51,16 +56,46 @@ ACT = {"gelu": gelu_tanh, "gelu_new": gelu_tanh, "relu": F.relu, "tanh": torch.t
 
 class Linear(nn.Linear):
     """``nn.Linear`` computing in ``compute_dtype`` (flax ``Dense(dtype=)``):
-    input, weight and bias are cast to it."""
+    input, weight and bias are cast to it.
+
+    With ``quantize`` it is the JAX package's ``QuantDense`` instead:
+    ``int8_matmul`` of the input as it comes, the weight quantized per
+    output channel from the dtype the module holds it in (fp32 in a model,
+    as the JAX package quantizes its fp32 params; the scorer's compute
+    dtype once the scorer has cast it, bf16 at full width, as the JAX
+    scorer with ``params_dtype="bfloat16"``), and the output in
+    ``compute_dtype``.  :meth:`freeze_int8` quantizes the weight once into
+    non-persistent buffers, the same bits as quantizing per call, for
+    weights that no longer change."""
 
     def __init__(self, in_features: int, out_features: int,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, quantize: bool = False):
         super().__init__(in_features, out_features)
         self.compute_dtype = compute_dtype
+        self.quantize = quantize
+        self.register_buffer("int8_codes", None, persistent=False)
+        self.register_buffer("int8_scale", None, persistent=False)
+
+    @torch.no_grad()
+    def freeze_int8(self) -> None:
+        self.int8_codes, self.int8_scale = quantize_symmetric(self.weight, dim=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        if self.quantize:
+            frozen = None if self.int8_codes is None else (self.int8_codes, self.int8_scale)
+            return int8_matmul(x, self.weight, self.bias, dt, weight_q=frozen)
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+def freeze_int8(model: nn.Module) -> nn.Module:
+    """Quantize the weights of every int8 :class:`Linear` of ``model`` once
+    (:meth:`Linear.freeze_int8`); inference only: a later change of the
+    weights is not seen."""
+    for m in model.modules():
+        if isinstance(m, Linear) and m.quantize:
+            m.freeze_int8()
+    return model
 
 
 class Embedding(nn.Embedding):
@@ -127,11 +162,11 @@ class SelfAttention(nn.Module):
     def __init__(self, c: EncoderConfig):
         super().__init__()
         self.config = c
-        D, dt = c.hidden_size, c.torch_dtype
-        self.self = nn.ModuleDict({name: Linear(D, D, dt)
+        D, dt, q8 = c.hidden_size, c.torch_dtype, c.quantize == "int8"
+        self.self = nn.ModuleDict({name: Linear(D, D, dt, q8)
                                    for name in ("query", "key", "value")})
         self.output = nn.ModuleDict(
-            {"dense": Linear(D, D, dt), "LayerNorm": LayerNorm(D, c.layer_norm_eps, dt)}
+            {"dense": Linear(D, D, dt, q8), "LayerNorm": LayerNorm(D, c.layer_norm_eps, dt)}
         )
         self.dropout = nn.Dropout(c.hidden_dropout_prob)
 
@@ -194,13 +229,13 @@ class FeedForward(nn.Module):
 
     def __init__(self, c: EncoderConfig):
         super().__init__()
-        dt = c.torch_dtype
+        dt, q8 = c.torch_dtype, c.quantize == "int8"
         self.act = ACT[c.hidden_act]
         self.intermediate = nn.ModuleDict(
-            {"dense": Linear(c.hidden_size, c.intermediate_size, dt)}
+            {"dense": Linear(c.hidden_size, c.intermediate_size, dt, q8)}
         )
         self.output = nn.ModuleDict({
-            "dense": Linear(c.intermediate_size, c.hidden_size, dt),
+            "dense": Linear(c.intermediate_size, c.hidden_size, dt, q8),
             "LayerNorm": LayerNorm(c.hidden_size, c.layer_norm_eps, dt),
         })
         self.ffn_dropout = nn.Dropout(c.hidden_dropout_prob)

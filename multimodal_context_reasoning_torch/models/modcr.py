@@ -81,6 +81,22 @@ def _lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
     nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
+@torch.no_grad()
+def init_dense_weights_(module: nn.Module, generator: torch.Generator, std: float) -> None:
+    """The JAX package's init distributions over ``module``: lecun-normal
+    kernels and zero biases for dense layers, normal(std) embeddings,
+    LayerNorm at 1 and 0."""
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            _lecun_normal_(m.weight, generator)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.Embedding):
+            nn.init.normal_(m.weight, 0.0, std, generator=generator)
+        elif isinstance(m, nn.LayerNorm):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+
+
 class ModCRModel(nn.Module):
     def __init__(self, config: ModCRConfig, *, freeze_encoders: bool = True,
                  device: Union[str, torch.device] = "cuda",
@@ -112,16 +128,7 @@ class ModCRModel(nn.Module):
         if generator is None:
             generator = torch.Generator(device=next(self.parameters()).device)
             generator.manual_seed(0)
-        std = self.config.global_encoder.initializer_range
-        for m in self.modules():
-            if isinstance(m, nn.Linear):
-                _lecun_normal_(m.weight, generator)
-                nn.init.zeros_(m.bias)
-            elif isinstance(m, nn.Embedding):
-                nn.init.normal_(m.weight, 0.0, std, generator=generator)
-            elif isinstance(m, nn.LayerNorm):
-                nn.init.ones_(m.weight)
-                nn.init.zeros_(m.bias)
+        init_dense_weights_(self, generator, self.config.global_encoder.initializer_range)
         if self.config.prefix_mode == "promptfuse":
             nn.init.normal_(self.promptfuse, 0.0, 0.02, generator=generator)
 

@@ -65,6 +65,7 @@ def encoder_config(c: RobertaConfig) -> EncoderConfig:
         layer_norm_eps=c.layer_norm_eps,
         pad_token_id=c.pad_token_id,
         dtype=c.dtype,
+        quantize=c.quantize,
     )
 
 

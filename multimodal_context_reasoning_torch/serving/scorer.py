@@ -4,8 +4,10 @@ without its mesh and device-table options).
 Requests are featurized on the host (numpy), padded by repetition to a
 fixed micro-batch of examples, collated to ``micro_batch × num_labels``
 candidate rows, and scored by one deterministic ``ModCRModel`` forward under
-``torch.inference_mode()``.  The scorer runs on the GPU unless the caller
-passes ``device="cpu"``; asking for CUDA where there is none raises.  A CUDA
+``torch.inference_mode()``.  Under an int8 config (``with_quantize``) the
+weights are quantized once, after the cast to the compute dtype.  The
+scorer runs on the GPU unless the caller passes ``device="cpu"``; asking
+for CUDA where there is none raises.  A CUDA
 device is held with its index (the current device at construction), so a
 thread other than the constructing one, such as the batcher's dispatcher
 (serving/batcher.py), scores on the same card.
@@ -24,6 +26,7 @@ from multimodal_context_reasoning_torch.core.device import resolve_device
 from multimodal_context_reasoning_torch.data.collate import BatchSpec, collate_candidates
 from multimodal_context_reasoning_torch.data.pmr import PMRDataset
 from multimodal_context_reasoning_torch.data.schemas import ImageFeatures, RawExample
+from multimodal_context_reasoning_torch.models.layers import freeze_int8
 from multimodal_context_reasoning_torch.models.modcr import ModCRModel
 
 
@@ -55,10 +58,11 @@ def format_score_results(logits: np.ndarray, example_ids: Sequence[str]) -> List
     ]
 
 
-def run_chunked(endpoint, examples: Sequence[RawExample]) -> List[Dict]:
+def run_chunked(endpoint, examples: Sequence[RawExample], **kwargs) -> List[Dict]:
     """Score any number of examples through an endpoint with the
     ``featurize`` / ``score_featurized`` / ``micro_batch`` protocol,
-    chunking to its micro-batch."""
+    chunking to its micro-batch; ``kwargs`` go to every
+    ``score_featurized`` call."""
     out: List[Dict] = []
     mb = endpoint.micro_batch
     for start in range(0, len(examples), mb):
@@ -66,6 +70,7 @@ def run_chunked(endpoint, examples: Sequence[RawExample]) -> List[Dict]:
         out.extend(endpoint.score_featurized(
             [endpoint.featurize(ex) for ex in chunk],
             [ex.example_id for ex in chunk],
+            **kwargs,
         ))
     return out
 
@@ -110,7 +115,9 @@ class ModCRScorer:
         else:
             model = ModCRModel(config, device=self.device)
             model.load_state_dict(weights, strict=True)
-        self.model = cast_to_compute_dtypes(model).eval()
+        # an int8 config quantizes each weight once, from the compute dtype
+        # the scorer holds it in (models/layers.py::Linear)
+        self.model = freeze_int8(cast_to_compute_dtypes(model)).eval()
         self.micro_batch = micro_batch
         spec = BatchSpec(
             text_len=config.text_len, img_len=config.img_len,

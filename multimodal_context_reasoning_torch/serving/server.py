@@ -1,16 +1,20 @@
 """Minimal HTTP scoring server, standard library only (port of the JAX
-package's ``serving/server.py``, its score endpoint).
+package's ``serving/server.py``).
 
 POST /score    body ``{"examples": [{"example_id", "img_id", "premise",
                "answer_choices": [4 strings]}, ...], "deadline_ms"?}`` ->
                ``{"results": [{"example_id", "prediction", "logits",
                "probs"}, ...]}``
-POST /generate 404 ``{"error": "no generator configured"}``: the rationale
-               generator is not ported yet (ROADMAP Queue 1 item 7).
+POST /generate the same body, served by a :class:`RationaleGenerator`
+               (``serve(generator=...)``) -> results with "prediction",
+               "probs" and "rationale_ids" (and "rationale_text" where the
+               GPT tokenizer can decode); without a generator 404
+               ``{"error": "no generator configured"}``.
 GET  /healthz  liveness.
-GET  /stats    request and example counts, errors, recent request-latency
-               percentiles, the batcher's forward sizes (mean batch: how
-               well requests coalesce), live queue depth and shed counters.
+GET  /stats    request and example counts, errors, and per route recent
+               request-latency percentiles, the batcher's forward sizes
+               (mean batch: how well requests coalesce), live queue depth
+               and shed counters.
 
 Back-pressure: the batcher's queue is bounded (``max_queue_batches``); when
 it is full a new request gets 429 with ``Retry-After: 1``, and a request
@@ -25,8 +29,9 @@ concurrent clients.
 Requests are scored through :class:`ModCRScorer` via a cross-request
 :class:`MicroBatcher` (serving/batcher.py): concurrent clients' examples
 that arrive within ``max_wait_ms`` are grouped into one forward up to the
-scorer's micro-batch.  ``batching=False`` serializes whole requests on one
-lock instead.
+scorer's micro-batch; /generate has a batcher of its own over the
+generator's micro-batch of questions.  ``batching=False`` serializes whole
+requests on one lock per route instead.
 """
 
 from __future__ import annotations
@@ -56,13 +61,16 @@ class _Server(ThreadingHTTPServer):
 class ServerStats:
     """Thread-safe request telemetry, bounded for a long-lived server."""
 
-    def __init__(self, batcher: Optional[MicroBatcher] = None):
+    def __init__(self, batcher: Optional[MicroBatcher] = None,
+                 gen_batcher: Optional[MicroBatcher] = None):
         self._lock = threading.Lock()
-        self._batcher = batcher
+        self._batchers = (("score", batcher), ("generate", gen_batcher))
         self.requests = 0
         self.examples = 0
         self.errors = 0
-        self._routes: dict = {}   # per-route latency windows
+        # per-route latency windows: a /generate call (classify + decode) is
+        # far slower than a /score call, so one window would mix them
+        self._routes: dict = {}
 
     def _route(self, route: str) -> dict:
         r = self._routes.get(route)
@@ -105,9 +113,10 @@ class ServerStats:
             }
         if routes:
             out["routes"] = routes
-        b = self._batcher
-        if b is not None:
-            route = out.setdefault("routes", {}).setdefault("score", {})
+        for name, b in self._batchers:
+            if b is None:
+                continue
+            route = out.setdefault("routes", {}).setdefault(name, {})
             route.update(queue_depth=b.queue_depth(), queue_capacity=b.capacity,
                          shed_rejected=b.rejected, shed_expired=b.expired)
             sizes = b.telemetry()
@@ -117,7 +126,7 @@ class ServerStats:
         return out
 
 
-def _make_handler(score_fn, stats: Optional[ServerStats] = None):
+def _make_handler(score_fn, generate_fn=None, stats: Optional[ServerStats] = None):
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):  # quiet
             pass
@@ -146,12 +155,15 @@ def _make_handler(score_fn, stats: Optional[ServerStats] = None):
                 self._reply(404, {"error": "not found"})
 
         def do_POST(self):
-            if self.path == "/generate":
-                self._reply(404, {"error": "no generator configured"})
-                return
-            if self.path != "/score":
+            routes = {"/score": score_fn, "/generate": generate_fn}
+            if self.path not in routes:
                 self._reply(404, {"error": "not found"})
                 return
+            handler = routes[self.path]
+            if handler is None:
+                self._reply(404, {"error": "no generator configured"})
+                return
+            route = self.path[1:]
             try:
                 length = int(self.headers.get("Content-Length", 0))
                 payload = json.loads(self.rfile.read(length) or b"{}")
@@ -170,9 +182,9 @@ def _make_handler(score_fn, stats: Optional[ServerStats] = None):
                     for i, d in enumerate(raw)
                 ]
                 t0 = time.perf_counter()
-                results = score_fn(examples, deadline_ms=payload.get("deadline_ms"))
+                results = handler(examples, deadline_ms=payload.get("deadline_ms"))
                 if stats is not None:
-                    stats.record("score", len(examples), time.perf_counter() - t0)
+                    stats.record(route, len(examples), time.perf_counter() - t0)
                 self._reply(200, {"results": results})
             except Overloaded as e:   # the queue is at capacity: shed, retriably
                 self._error(429, {"error": str(e), "retriable": True},
@@ -188,6 +200,23 @@ def _make_handler(score_fn, stats: Optional[ServerStats] = None):
     return Handler
 
 
+def _route_fn(endpoint, run, batching: bool, **batcher_kw):
+    """(request function, batcher or None) of one endpoint: its own
+    MicroBatcher, or whole requests through ``run`` serialized on one lock
+    (the back-pressure knobs are the batcher's, so that path's only limit is
+    a thread per connection)."""
+    if batching:
+        batcher = MicroBatcher(endpoint, **batcher_kw)
+        return batcher.score, batcher
+    lock = threading.Lock()
+
+    def fn(examples, deadline_ms=None):
+        with lock:
+            return run(examples)
+
+    return fn, None
+
+
 def serve(
     scorer,
     host: str = "127.0.0.1",
@@ -200,40 +229,34 @@ def serve(
     default_deadline_ms: Optional[float] = None,
     generator=None,
 ) -> Optional[ThreadingHTTPServer]:
-    """Serve ``scorer`` over HTTP.  ``block=False`` returns the running
-    server with ``modcr_batcher`` (None without batching), ``modcr_stats``
-    and ``modcr_close()``, which stops it and closes the batcher.
-    ``generator`` is the JAX server's /generate family, which the port
-    does not have yet: passing one raises."""
+    """Serve ``scorer`` over HTTP, and ``generator`` (a
+    :class:`RationaleGenerator`) at /generate when given.  ``block=False``
+    returns the running server with ``modcr_batcher`` and
+    ``modcr_gen_batcher`` (None without batching or a generator),
+    ``modcr_stats`` and ``modcr_close()``, which stops it and closes the
+    batchers."""
+    kw = dict(max_wait_ms=max_wait_ms, max_queue_batches=max_queue_batches,
+              default_deadline_ms=default_deadline_ms)
+    score_fn, batcher = _route_fn(scorer, lambda ex: scorer.score(ex), batching, **kw)
+    generate_fn = gen_batcher = None
     if generator is not None:
-        raise NotImplementedError(
-            "serve(generator=...): the rationale generator is not ported yet "
-            "(ROADMAP Queue 1 item 7)")
-    batcher = None
-    if batching:
-        batcher = MicroBatcher(scorer, max_wait_ms=max_wait_ms,
-                               max_queue_batches=max_queue_batches,
-                               default_deadline_ms=default_deadline_ms)
-        score_fn = batcher.score
-    else:
-        # whole requests serialized on one lock; the back-pressure knobs are
-        # the batcher's, so this path's only limit is a thread per connection
-        lock = threading.Lock()
+        # the generator has the scorer's featurize / score_featurized
+        # protocol, so a MicroBatcher coalesces /generate requests as well
+        generate_fn, gen_batcher = _route_fn(generator, lambda ex: generator.generate(ex),
+                                               batching, **kw)
 
-        def score_fn(examples, deadline_ms=None):
-            with lock:
-                return scorer.score(examples)
-
-    stats = ServerStats(batcher)
-    server = _Server((host, port), _make_handler(score_fn, stats))
+    stats = ServerStats(batcher, gen_batcher)
+    server = _Server((host, port), _make_handler(score_fn, generate_fn, stats))
     server.modcr_batcher = batcher
+    server.modcr_gen_batcher = gen_batcher
     server.modcr_stats = stats
 
     def _teardown():
-        """Close the socket and the batcher's dispatcher thread."""
+        """Close the socket and the batchers' dispatcher threads."""
         server.server_close()
-        if batcher is not None:
-            batcher.close()
+        for b in (batcher, gen_batcher):
+            if b is not None:
+                b.close()
 
     def modcr_close():
         server.shutdown()

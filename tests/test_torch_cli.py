@@ -402,8 +402,36 @@ def test_split_sources_and_cold_start_through_the_cli(data, split_files, monkeyp
     assert len(_predictions(data, "port_split")) == 6
 
 
+def test_do_test_quantized_writes_the_jax_predictions(data):
+    """--do_test --quantize int8 from one --modcr_ckpt: the JAX CLI's
+    prediction file and accuracy, its logits within a flipped code or two
+    (tests/test_torch_quant.py), and logits that differ from fp32 ones."""
+    from tests.test_torch_quant import assert_int8_close
+
+    p = data["paths"]
+    test = ["--do_test", "--test_file", p["test"], "--quantize", "int8"]
+    j_acc, j_logits = _run_test(jrun_pmr, jrun_pmr.main, _jax_argv(data, "jax_test_q8", *test))
+    t_acc, t_logits = _run_test(trun_pmr, trun_pmr.main, _port_argv(data, "port_test_q8", *test))
+    assert_int8_close(t_logits, j_logits)
+    assert t_acc == j_acc
+    assert _predictions(data, "port_test_q8") == _predictions(data, "jax_test_q8")
+    fp32 = _run_test(trun_pmr, trun_pmr.main, _port_argv(
+        data, "port_test_q8_off", "--do_test", "--test_file", p["test"]))[1]
+    assert np.abs(t_logits - fp32).max() > 1e-3
+
+
+def test_do_train_quantized_is_refused_as_the_jax_cli_refuses(data):
+    argv = ["--do_train", "--train_file", data["paths"]["train"], "--quantize", "int8"]
+    with pytest.raises(SystemExit) as jexit:
+        jrun_pmr.main(_jax_argv(data, "jax_train_q8", *argv))
+    with pytest.raises(SystemExit) as texit:
+        trun_pmr.main(_port_argv(data, "port_train_q8", *argv))
+    assert str(texit.value) == str(jexit.value)
+    assert "inference-only" in str(texit.value)
+    assert not (data["dir"] / "port_train_q8").exists()
+
+
 REFUSED = [
-    (["--quantize", "int8"], "--quantize int8", 6),
     (["--mesh_data", "2"], "--mesh_data", 9),
     (["--mesh_model", "2"], "--mesh_model", 9),
     (["--multihost"], "--multihost", 9),

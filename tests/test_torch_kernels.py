@@ -1,6 +1,7 @@
 """PyTorch port: the CUDA kernels against their plain versions, on the
 card: the stage-mask forward (both routes, and its autograd Function), the
-dense-bias forward and the attention backward.  Every test here needs a CUDA card and
+dense-bias forward and the attention backward; and the int8 product of
+``ops/quant.py`` against its plain accumulator.  Every test here needs a CUDA card and
 skips without one; the file imports neither JAX nor the JAX package, so it
 runs where only the port's dependencies are installed:
 
@@ -23,6 +24,12 @@ from multimodal_context_reasoning_torch.ops.fused_attention import (
     fused_attention_plain,
 )
 from multimodal_context_reasoning_torch.ops.masks import stage_mask_specs
+from multimodal_context_reasoning_torch.ops.quant import (
+    int8_matmul,
+    int8_mm,
+    int8_mm_plain,
+    quantize_symmetric,
+)
 from multimodal_context_reasoning_torch.ops.spec_attention import (
     fused_attention_spec,
     spec_attention_plain,
@@ -598,3 +605,30 @@ def test_4000_keys_are_taken(card, dtype):
     for g, w in zip(flash_attention_bwd(q, k, v, bias, d_out),
                     flash_attention_bwd_plain(q, k, v, bias, d_out)):
         _close(g, w, BWD_TOL[dtype])
+
+
+# ---------------------------------------------------------------- int8 products
+# ``int8_matmul`` on the card: ``torch._int_mm`` for the codes (no kernel of
+# this repo stands behind it), held to the plain float64 accumulator.
+
+@pytest.mark.parametrize("rows,k,n", [(6080, 768, 3072), (200, 1024, 4096), (17, 64, 8)],
+                         ids=["encoder-ffn", "roberta-ffn", "smallest"])
+def test_int8_accumulator_and_output_bit_equal_to_plain(card, rows, k, n):
+    g = torch.Generator(device=card).manual_seed(0)
+    x = torch.randn(rows, k, device=card, generator=g).to(torch.bfloat16)
+    w = torch.randn(n, k, device=card, generator=g).to(torch.bfloat16)
+    b = torch.randn(n, device=card, generator=g).to(torch.bfloat16)
+    xq, _ = quantize_symmetric(x, 1)
+    wq, _ = quantize_symmetric(w, 1)
+    acc = int8_mm(xq, wq)
+    assert acc.dtype == torch.int32 and torch.equal(acc, int8_mm_plain(xq, wq))
+    out = int8_matmul(x, w, b, torch.bfloat16)
+    assert torch.equal(out, int8_matmul(x, w, b, torch.bfloat16, plain=True))
+
+
+@pytest.mark.parametrize("rows,k,n", [(16, 64, 64), (32, 60, 64), (32, 64, 60)],
+                         ids=["rows", "inner", "outer"])
+def test_int_mm_shape_rules_raise_on_the_card(card, rows, k, n):
+    x, w = torch.randn(rows, k, device=card), torch.randn(n, k, device=card)
+    with pytest.raises(ValueError, match=rf"torch._int_mm .* x \[{rows}, {k}\]"):
+        int8_matmul(x, w)

@@ -27,10 +27,16 @@ import pytest
 import torch
 
 from multimodal_context_reasoning_tpu.cli import serve as jserve_cli
+from multimodal_context_reasoning_tpu.core.config import ChunkAlignConfig as JSched
+from multimodal_context_reasoning_tpu.core.config import EncoderConfig as JEnc
+from multimodal_context_reasoning_tpu.core.config import GPT2Config as JGPT2
 from multimodal_context_reasoning_tpu.core.config import ModCRConfig as JConfig
 from multimodal_context_reasoning_tpu.data import schemas as jschemas
 from multimodal_context_reasoning_tpu.data import tokenization as jtok
+from multimodal_context_reasoning_tpu.interop.export import export_rationale_state_dict
 from multimodal_context_reasoning_tpu.models.modcr import ModCRModel as JModel
+from multimodal_context_reasoning_tpu.models.rationale import RationaleModel as JRationale
+from multimodal_context_reasoning_tpu.models.rationale import rationale_init_batch
 from multimodal_context_reasoning_tpu.serving.scorer import ModCRScorer as JScorer
 from multimodal_context_reasoning_tpu.serving.server import serve as jserve
 from multimodal_context_reasoning_torch.cli import serve as tserve_cli
@@ -170,9 +176,130 @@ def test_error_replies_match_the_jax_server(servers, case):
     assert tc in (400, 404, 500)
 
 
-def test_serve_refuses_a_generator(pair):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        tserve(pair["t"], port=0, block=False, generator=object())
+# ---------------------------------------------------------------- /generate
+
+def _rationale_pth(path, seed=3):
+    """A reference-layout rationale .pth: the JAX tiny family (the JAX serve
+    command's --tiny geometry) at a random init, exported."""
+    enc = JEnc(vocab_size=256, hidden_size=32, num_hidden_layers=4, num_attention_heads=4,
+               intermediate_size=64, hidden_dropout_prob=0.0,
+               attention_probs_dropout_prob=0.0, max_position_embeddings=128,
+               img_feature_dim=20)
+    gpt = JGPT2(vocab_size=128, n_positions=128, n_embd=32, n_layer=2, n_head=4,
+                resid_pdrop=0.0, embd_pdrop=0.0, attn_pdrop=0.0, pad_token_id=0)
+    model = JRationale(enc, JSched(chunk_layers_end=1, full_layers_end=2), gpt, max_chunks=8)
+    init = rationale_init_batch(enc, gpt, JConfig.tiny())
+    params = jax.jit(model.init)(jax.random.PRNGKey(seed),
+                                 {k: jnp.asarray(v) for k, v in init.items()})
+    sd = export_rationale_state_dict(jax.tree.map(np.asarray, params), enc, gpt)
+    torch.save({"net": {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}}, path)
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def gen_cli(cli_files, tmp_path_factory):
+    """Both serve commands with --generate from one reference rationale .pth,
+    --tiny, fp32 (the encoders' compute dtype of the tiny family follows
+    --compute_dtype), greedy; what each passed to serve()."""
+    from multimodal_context_reasoning_tpu.serving import server as jserver
+    from multimodal_context_reasoning_torch.serving import server as tserver
+
+    pth = _rationale_pth(tmp_path_factory.mktemp("gen_cli") / "rationale.pth")
+    argv = ["--img_feat_file", cli_files["pkl"], "--tiny", "--compute_dtype", "float32",
+            "--micro_batch", "2", "--generate", "--rationale_ckpt", pth,
+            "--gen_micro_batch", "2", "--max_rationale_len", "8"]
+    with pytest.MonkeyPatch.context() as mp:
+        jcap = _capture(mp, jserver)
+        jserve_cli.main(argv)
+        tcap = _capture(mp, tserver)
+        tserve_cli.main(argv + ["--device", "cpu"])
+    return dict(j=jcap, t=tcap)
+
+
+def _assert_same_generations(got, want):
+    for key in ("example_id", "prediction", "rationale_ids"):
+        assert [r[key] for r in got] == [r[key] for r in want], key
+    np.testing.assert_allclose([r["probs"] for r in got], [r["probs"] for r in want], **TOL)
+    assert all("rationale_text" not in r for r in got + want)   # hash tokenizers
+
+
+def test_serve_cli_generates_as_the_jax_cli_from_a_reference_checkpoint(gen_cli):
+    """serve --generate --rationale_ckpt: the same generator replies as the
+    JAX command from the same .pth (greedy)."""
+    jgen, tgen = gen_cli["j"]["generator"], gen_cli["t"]["generator"]
+    ids = [0, 1, 2, 3, 5]
+    want = jgen.generate([_example(jschemas, i) for i in ids])
+    got = tgen.generate([_example(tschemas, i) for i in ids])
+    _assert_same_generations(got, want)
+    assert len({tuple(r["rationale_ids"]) for r in got}) > 1
+    assert tgen.micro_batch == 2 and tgen.max_rationale_len == 8
+
+
+@pytest.mark.parametrize("batching", [True, False], ids=["batching", "one lock"])
+def test_generate_replies_and_stats_match_the_jax_server(gen_cli, batching):
+    both = {side: serve_fn(gen_cli[side]["scorer"], port=0, block=False, batching=batching,
+                           generator=gen_cli[side]["generator"])
+            for side, serve_fn in (("j", jserve), ("t", tserve))}
+    try:
+        ports = {side: s.server_address[1] for side, s in both.items()}
+        for ids in ([0], [1, 2, 3]):
+            (jc, jout, _), (tc, tout, _) = (_request(ports[s], "/generate", _body(ids))
+                                            for s in ("j", "t"))
+            assert jc == tc == 200
+            _assert_same_generations(tout["results"], jout["results"])
+        (jc, jout, _), (tc, tout, _) = (_request(ports[s], "/score", _body([2]))
+                                        for s in ("j", "t"))
+        assert jc == tc == 200 and len(tout["results"]) == 1
+        (_, jstats, _), (_, tstats, _) = (_request(ports[s], "/stats") for s in ("j", "t"))
+    finally:
+        for s in both.values():
+            s.modcr_close()
+    assert _keys(tstats) == _keys(jstats)
+    assert tstats["requests"] == jstats["requests"] == 3 and tstats["examples"] == 5
+    for key in ("requests", "examples"):
+        assert tstats["routes"]["generate"][key] == jstats["routes"]["generate"][key]
+    if batching:
+        assert (tstats["routes"]["generate"]["device_dispatches"]
+                == jstats["routes"]["generate"]["device_dispatches"] == 3)
+
+
+def test_sampling_generator_repeats_under_a_seed(gen_cli):
+    """mode="sample": a seeded torch.Generator repeats its replies; without
+    one every call draws from a fresh seed."""
+    from multimodal_context_reasoning_torch.serving.generator import RationaleGenerator
+
+    tgen = gen_cli["t"]["generator"]
+    sampler = RationaleGenerator(
+        tgen.encoder_config, tgen.model.seq_enc.schedule, tgen.gpt2_config, tgen.model,
+        ttok.HashTokenizer(vocab_size=256), tgen.gpt_tokenizer, tgen.features,
+        spec=tgen.spec, max_chunks=8, micro_batch=2, max_rationale_len=8, mode="sample",
+        device="cpu")
+    exs = [_example(tschemas, i) for i in (0, 1, 2)]
+    a, b = (sampler.generate(exs, generator=torch.Generator().manual_seed(7))
+            for _ in range(2))
+    assert [r["rationale_ids"] for r in a] == [r["rationale_ids"] for r in b]
+    assert [r["probs"] for r in a] == [r["probs"] for r in tgen.generate(exs)]
+    free = [sampler.generate(exs) for _ in range(2)]
+    assert free[0] != free[1]
+
+
+def test_generator_refuses_marker_ids_outside_the_vocabulary(gen_cli):
+    from multimodal_context_reasoning_torch.core.config import GPT2Config as TGPT2
+    from multimodal_context_reasoning_torch.serving.generator import RationaleGenerator
+
+    tgen = gen_cli["t"]["generator"]
+    args = (tgen.encoder_config, tgen.model.seq_enc.schedule)
+    rest = dict(spec=tgen.spec, max_chunks=8, device="cpu", warm=False)
+    small = types.SimpleNamespace(convert_tokens_to_ids=lambda toks: [200, 201])
+    with pytest.raises(ValueError, match="fall outside GPT2Config.vocab_size=128"):
+        RationaleGenerator(*args, tgen.gpt2_config, tgen.model, None, small, {}, **rest)
+    same = types.SimpleNamespace(convert_tokens_to_ids=lambda toks: [3, 3])
+    with pytest.raises(ValueError, match="map to the same id 3"):
+        RationaleGenerator(*args, tgen.gpt2_config, tgen.model, None, same, {}, **rest)
+    short = TGPT2(**{**tgen.gpt2_config.__dict__, "n_positions": 8})
+    with pytest.raises(ValueError, match="max_rationale_len=8 needs 9 positions"):
+        RationaleGenerator(*args, short, tgen.model, None, tgen.gpt_tokenizer, {},
+                           max_rationale_len=8, **rest)
 
 
 def test_a_burst_of_concurrent_connections_is_served():
@@ -491,13 +618,68 @@ def test_serve_cli_scores_as_the_jax_cli(cli_files, monkeypatch, params_dtype):
     _assert_same_results(got, want)
 
 
+def test_serve_cli_quantized_scores_as_the_jax_cli(cli_files, monkeypatch):
+    """serve --quantize int8: the port's scorer quantizes every int8 site
+    once (the same bits as per call), and scores as the JAX command's int8
+    scorer on the same weights (tests/test_torch_quant.py's tolerance: a
+    code may flip at a rounding tie in the jitted JAX program)."""
+    from multimodal_context_reasoning_tpu.serving import server as jserver
+    from multimodal_context_reasoning_torch.models.layers import Linear
+    from multimodal_context_reasoning_torch.serving import server as tserver
+    from tests.test_torch_quant import assert_int8_close
+
+    jcap = _capture(monkeypatch, jserver)
+    jserve_cli.main(["--img_feat_file", cli_files["pkl"], "--tiny", "--micro_batch", "2",
+                     "--quantize", "int8"])
+    tcap = _capture(monkeypatch, tserver)
+    tserve_cli.main(["--img_feat_file", cli_files["pkl"], "--eval_model_dir", cli_files["model"],
+                     "--micro_batch", "2", "--device", "cpu", "--quantize", "int8"])
+    sc = tcap["scorer"]
+    assert sc.config.roberta.quantize == sc.config.global_encoder.quantize == "int8"
+    linears = [m for m in sc.model.modules() if isinstance(m, Linear) and m.quantize]
+    assert linears and all(m.int8_codes is not None for m in linears)
+    exs = [0, 1, 2, 3, 5]
+    got = sc.score([_example(tschemas, i) for i in exs])
+    for m in linears:
+        m.int8_codes = m.int8_scale = None           # quantize per call instead
+    assert sc.score([_example(tschemas, i) for i in exs]) == got
+    want = jcap["scorer"].score([_example(jschemas, i) for i in exs])
+    assert_int8_close([r["logits"] for r in got], [r["logits"] for r in want])
+
+
+def test_serve_cli_generate_serves_a_seeded_random_init(cli_files, monkeypatch, capsys):
+    """serve --generate without --rationale_ckpt: the tiny family from a
+    seeded random init, warmed before "serving on", with the hash GPT
+    tokenizer of its vocabulary."""
+    from multimodal_context_reasoning_torch.serving import server as tserver
+    from multimodal_context_reasoning_torch.serving.generator import RationaleGenerator
+
+    order = []
+    warm = RationaleGenerator.warm_up
+    monkeypatch.setattr(RationaleGenerator, "warm_up",
+                        lambda self: (order.append("warm"), warm(self)))
+    cap = _capture(monkeypatch, tserver)
+    argv = ["--img_feat_file", cli_files["pkl"], "--tiny", "--device", "cpu", "--generate",
+            "--gen_micro_batch", "3", "--max_rationale_len", "5"]
+    tserve_cli.main(argv)
+    assert order == ["warm"] and "/generate on" in capsys.readouterr().out
+    gen = cap["generator"]
+    assert gen.micro_batch == 3 and gen.gpt_tokenizer.vocab_size == 128
+    assert next(gen.model.parameters()).dtype == torch.bfloat16     # --compute_dtype
+    assert gen.model.dec.wte.weight.dtype == torch.float32          # the decoder: fp32
+    out = gen.generate([_example(tschemas, i) for i in range(4)])
+    assert [len(r["probs"]) for r in out] == [4] * 4
+    assert all(0 <= t < 128 and len(r["rationale_ids"]) <= 5 for r in out
+               for t in r["rationale_ids"])
+    again = _capture(monkeypatch, tserver)
+    tserve_cli.main(argv)
+    assert again["generator"].generate([_example(tschemas, 0)]) == out[:1]
+
+
 REFUSED = [
-    (["--quantize", "int8"], "--quantize int8", 6),
-    (["--generate"], "--generate", 7),
-    (["--rationale_ckpt", "r.pth"], "--rationale_ckpt", 7),
-    (["--gpt_tokenizer_dir", "gpt"], "--gpt_tokenizer_dir", 7),
-    (["--gen_artifact", "a"], "--gen_artifact", 7),
-    (["--save_gen_artifact", "a"], "--save_gen_artifact", 7),
+    (["--gpt_tokenizer_dir", "gpt"], "--gpt_tokenizer_dir", 11),
+    (["--gen_artifact", "a"], "--gen_artifact", 9),
+    (["--save_gen_artifact", "a"], "--save_gen_artifact", 9),
     (["--artifact", "a"], "--artifact", 9),
     (["--save_artifact", "a"], "--save_artifact", 9),
     (["--device_features"], "--device_features", 9),
