@@ -2,9 +2,9 @@
 kernels, serve full-width PMR scoring, train the PMR step at full width,
 run the two commands (``cli/run_pmr.py``, ``cli/run_vcr.py``) at full width,
 hold every kernel route to its plain version past 192 keys, serve
-concurrent HTTP clients through the serve command (``cli/serve.py``), then
-score through the W8A8 int8 route and serve the rationale family at
-``POST /generate``.
+concurrent HTTP clients through the serve command (``cli/serve.py``),
+score through the W8A8 int8 route, serve the rationale family at
+``POST /generate``, decode it by beam sampling and CBS, and train it.
 
     python3 chip_smoke.py
 
@@ -64,9 +64,11 @@ the port is not beside this script, or when any phase fails.  Phases:
     36 stage-mask, 48 dense-forward and 24 backward kernels;
 11. the ``kernels`` JSON line (each kernel's ``launches`` from phase 10's
     run, ``cli_launches`` from phase 12's, ``serve_launches`` from phase
-    14's, ``long_keys`` from phase 13, and the stage-mask kernel's
-    ``int8_launches`` and ``generate_launches`` from phases 15 and 16),
-    then the result line;
+    14's, ``long_keys`` from phase 13, the stage-mask kernel's
+    ``int8_launches``, ``generate_launches`` and ``beam_cbs_launches`` from
+    phases 15-17, ``rationale_train_launches`` of both kernels from phase
+    18, and the backward's ``encoder_shapes`` from 18b), then the result
+    line;
 12. (run before 11) the two commands through ``main(argv)``, full-width
     bf16, on files written from the seed in a temporary directory (PMR
     JSONL of 64 / 32 / 32 examples, a VCR JSON of 64, 50 x 2054 region
@@ -127,7 +129,37 @@ the port is not beside this script, or when any phase fails.  Phases:
     (prediction and rationale ids, probabilities within 2e-2); questions/s,
     request latency, ms per decoder call, mean dispatch and peak memory;
     ``mode="sample"`` once: a fixed seed repeats and every token lies in the
-    top-k/top-p kept set of its teacher-forced logits.
+    top-k/top-p kept set of its teacher-forced logits;
+17. (run before 11) beam and CBS at full width (``EncoderConfig(dtype=
+    "bfloat16")``, ``ChunkAlignConfig()``, fp32 ``GPT2Config()``, seeded
+    random init, 4 questions), with the kernel counts set to 0 before the
+    path and read after it: the classify forward (exactly 24 stage-mask
+    launches, none in the decodes), ``cls_attn`` of each question's chosen
+    row -> ``extract_constraints`` through the hash tokenizers ->
+    ``generate(mode="beam", num_beams=5, max_len=32, top_k=50,
+    constraint_mask=...)``; synthetic detections -> ``ConstraintFilter`` ->
+    ``boxes_to_constraint_ids`` (3 constraints) -> the FSM (24 states) ->
+    ``generate(mode="cbs", num_beams=5, max_len=20,
+    min_constraints_to_satisfy=2)``, whose chosen beam must carry at least 2
+    of its constraints; per mode ms per decode and per decoder call (CUDA
+    events), questions/s, device kernels per decoder call (``torch.profiler``)
+    and peak memory; 17a: fp32 card against CPU at a 2-layer full-width
+    GPT-2: CBS tokens identical and lattice log-probs within 1e-4 +
+    1e-5·|lp|, beam tokens and lengths identical with one replayed noise
+    tensor and the chosen tokens' log-probs within the same bound;
+18. (run before 11) rationale training at full width: ``Trainer.fit`` over
+    ``RationaleForTraining`` (bf16 encoders from fp32 parameters, fp32
+    GPT-2, encoders trainable, dropout 0), 8 questions (32 rows) a step, 6
+    steps, every step launching exactly 24 stage-mask forwards and 24
+    backwards; ms per step (median of steps 2-6), questions/s, peak memory;
+    one more step with every backward launch held against
+    ``flash_attention_bwd_plain`` on its own inputs (2e-2 of max |plain|);
+    18a: two fp32 ``train_step``s card against CPU at 3-layer encoders and a
+    2-layer GPT-2 (full widths): losses and gradient norms within 1e-4
+    relative, parameters within 2 x steps x lr; 18b: the backward at
+    (32, 190, 190, 12, 64) bf16 with each stage's mask as the stage-mask
+    Function passes it, against its plain version, then kernel, plain
+    version and SDPA's backward per call and back to back, and the bound.
 """
 
 from __future__ import annotations
@@ -184,6 +216,27 @@ INT8_PEAK = 1979e12          # dense int8 operations per second
 # client, questions per request
 GEN_MICRO_BATCH, GEN_MAX_LEN = 4, 32
 GEN_CLIENTS, GEN_REQUESTS, GEN_QUESTIONS = 8, 2, (1, 2)
+# phase 17: questions, beams, decode lengths; constraints a question and
+# words a constraint (the FSM's S = 2**3 * 3 = 24 states); 17a's depth
+BEAM_QUESTIONS, BEAM_WIDTH, BEAM_MAX_LEN, CBS_MAX_LEN = 4, 5, 32, 20
+CBS_CONSTRAINTS, CBS_WORDS = 3, 3
+BEAM_PARITY_LAYERS, BEAM_PARITY_QUESTIONS, BEAM_PARITY_STEPS, CBS_PARITY_STEPS = 2, 2, 8, 6
+# Open-Images-style detections for the box front end: a small hierarchy,
+# single-word classes (and blacklisted ones), wordforms for some
+DETECTION_HIERARCHY = {"LabelName": "entity", "Subcategory": [
+    {"LabelName": "animal", "Subcategory": [
+        {"LabelName": "dog"}, {"LabelName": "cat"}, {"LabelName": "horse"}]},
+    {"LabelName": "food", "Subcategory": [{"LabelName": "pizza"}, {"LabelName": "sandwich"}]},
+    {"LabelName": "vehicle", "Subcategory": [
+        {"LabelName": "bicycle"}, {"LabelName": "bus"}, {"LabelName": "train"}]},
+]}
+DETECTION_CLASSES = ("dog", "cat", "horse", "pizza", "sandwich", "bicycle", "bus", "train",
+                     "person", "tree", "man")
+DETECTION_WORDFORMS = {"dog": ["dog", "dogs"], "cat": ["cat", "cats"], "bus": ["bus", "buses"]}
+# phase 18: questions (4 rows each) a training step, steps, explanation
+# length; 18a's encoder depth
+RATIONALE_QUESTIONS, RATIONALE_STEPS, RATIONALE_LEN = 8, 6, 32
+RATIONALE_PARITY_LAYERS = 3
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1727,6 +1780,613 @@ def generate_phase(rng) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- beam and CBS
+
+def constraint_tokens(bert, example, ids) -> list:
+    """The BERT token strings of one candidate row's ids (positions 1..T-1),
+    named through the in-tree tokenizer from the question's own text; ids it
+    cannot name (padding, specials) keep a bracketed name, which the
+    constraint extraction drops."""
+    text = " ".join([example.premise] + list(example.answer_choices))
+    words = bert.tokenize(text)
+    names = dict(zip(bert.convert_tokens_to_ids(words), words))
+    names.update({0: "[PAD]", 1: "[CLS]", 2: "[SEP]", 3: "<mask>"})
+    return [names.get(int(i), "[UNK]") for i in ids]
+
+
+def synthetic_detections(rng, n_boxes: int = 8):
+    """Detections of one image: boxes, Open-Images-style class names (some
+    blacklisted, some zero-score padding) and confidences."""
+    names = [str(rng.choice(DETECTION_CLASSES)) for _ in range(n_boxes)]
+    xy = rng.integers(0, 500, size=(n_boxes, 2)).astype(float)
+    boxes = np.concatenate([xy, xy + rng.integers(20, 200, size=(n_boxes, 2))], axis=1)
+    scores = rng.uniform(0.3, 1.0, n_boxes)
+    scores[-1] = 0.0
+    return boxes, names, scores
+
+
+def cbs_lattices(rng, n: int, gpt_tok, vocab_size: int):
+    """``n`` questions' detections -> ConstraintFilter -> constraint ids ->
+    FSM adjacency [n, S, S, V] (bool) and the constraint counts."""
+    from multimodal_context_reasoning_torch.generation import (
+        ClassHierarchy,
+        ConstraintFilter,
+        FiniteStateMachineBuilder,
+        boxes_to_constraint_ids,
+    )
+
+    filt = ConstraintFilter(ClassHierarchy(DETECTION_HIERARCHY), 0.85, CBS_CONSTRAINTS)
+    builder = FiniteStateMachineBuilder(vocab_size, CBS_CONSTRAINTS, CBS_WORDS)
+    adjacency, counts, chosen = [], [], []
+    while len(adjacency) < n:
+        names, ids = boxes_to_constraint_ids(*synthetic_detections(rng), filt,
+                                             gpt_tok.convert_tokens_to_ids,
+                                             wordforms=DETECTION_WORDFORMS)
+        if len(names) < CBS_CONSTRAINTS:
+            continue
+        adjacency.append(builder.build(ids).adjacency)
+        counts.append(len(names))
+        chosen.append((names, ids))
+    return torch.from_numpy(np.stack(adjacency)).bool(), torch.tensor(counts), chosen
+
+
+def device_kernels_per_call(fn, calls: int) -> float:
+    """Device kernels per decoder call of one run of ``fn`` under
+    ``torch.profiler`` (every CUDA kernel, the library's included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return kernels / calls
+
+
+def timed_decode(decoder, fn) -> dict:
+    """Run ``fn`` (one decode) with CUDA events around it and a counter on
+    the decoder's calls; peak memory from a reset, and the part of it above
+    what was allocated when the decode began (the model, the memory, what
+    earlier phases still hold)."""
+    calls = []
+    hook = decoder.register_forward_hook(lambda *_: calls.append(1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    try:
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+    finally:
+        hook.remove()
+    ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated()
+    return dict(out=out, ms=ms, calls=len(calls), ms_per_call=ms / len(calls),
+                peak_gib=peak / 2**30, peak_above_start_gib=(peak - before) / 2**30)
+
+
+def beam_cbs_phase(rng) -> dict:
+    """Phase 17: the classify forward, attention-derived constraints, beam
+    sampling and CBS at full width (bf16 encoders, fp32 GPT-2), with the
+    kernel counts set to 0 before the path and read after it."""
+    from multimodal_context_reasoning_torch.core.config import (
+        ChunkAlignConfig,
+        EncoderConfig,
+        GPT2Config,
+        ModCRConfig,
+    )
+    from multimodal_context_reasoning_torch.data.collate import BatchSpec
+    from multimodal_context_reasoning_torch.data.tokenization import HashTokenizer
+    from multimodal_context_reasoning_torch.generation import extract_constraints
+    from multimodal_context_reasoning_torch.generation.api import generate
+    from multimodal_context_reasoning_torch.models.rationale import RationaleModel
+    from multimodal_context_reasoning_torch.serving.generator import RationaleGenerator
+    from multimodal_context_reasoning_torch.serving.synthetic import (
+        hash_tokenizers,
+        synthetic_requests,
+    )
+
+    cfg = ModCRConfig().with_dtype("bfloat16")
+    spec = BatchSpec(text_len=cfg.text_len, img_len=cfg.img_len, roberta_len=cfg.roberta_len,
+                     img_feature_dim=cfg.global_encoder.img_feature_dim)
+    enc, sched, gpt = EncoderConfig(dtype="bfloat16"), ChunkAlignConfig(), GPT2Config()
+    bert, _ = hash_tokenizers(cfg)
+    gpt_tok = HashTokenizer(vocab_size=gpt.vocab_size)
+    Q = BEAM_QUESTIONS
+    model = RationaleModel(enc, sched, gpt, device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(SEED + 17))
+    feats, qs = synthetic_requests(rng, Q, cfg, first=100_000)
+    gen = RationaleGenerator(enc, sched, gpt, model, bert, gpt_tok, feats, spec=spec,
+                             micro_batch=Q, max_rationale_len=BEAM_MAX_LEN, warm=False,
+                             device="cuda")
+    batch = gen.device_batch([gen.featurize(q) for q in qs])
+    adjacency, counts, chosen = cbs_lattices(rng, Q, gpt_tok, gpt.vocab_size)
+    adjacency, counts = adjacency.cuda(), counts.cuda()
+    encode = lambda s: gpt_tok.convert_tokens_to_ids(gpt_tok.tokenize(s))
+    prompt = torch.full((Q, 1), gen.b_rtnl, device="cuda")
+    plen = torch.ones(Q, dtype=torch.long, device="cuda")
+    dec = gen.model.dec
+
+    with torch.inference_mode():   # warm-up: the first calls load libraries
+        warm = gen.model(batch)
+        for mode, n in (("beam", 4), ("cbs", 3)):
+            generate(dec, prompt, plen, mode=mode, max_len=n, memory=warm.decoder_memory.float(),
+                     memory_mask=warm.decoder_memory_mask, eos_id=gen.e_rtnl,
+                     generator=torch.Generator(device="cuda").manual_seed(SEED + 1),
+                     fsm_adjacency=adjacency, num_constraints=counts)
+        del warm
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.inference_mode():
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = gen.model(batch)
+        end.record()
+        end.synchronize()
+        classify_ms = start.elapsed_time(end)
+        gold = out.mp_probs.argmax(dim=-1)
+        rows = torch.arange(Q, device="cuda") * 4 + gold
+        ids = batch["input_ids"][rows, 1:].cpu().numpy()
+        attn = out.cls_attn[rows].float().cpu().numpy()
+        tokens = [constraint_tokens(bert, qs[i], ids[i]) * 3 for i in range(Q)]
+        cmask = torch.from_numpy(extract_constraints(tokens, attn, encode, gpt.vocab_size))
+        mem, mmask = out.decoder_memory.float(), out.decoder_memory_mask
+        common = dict(memory=mem, memory_mask=mmask, eos_id=gen.e_rtnl, pad_id=gpt.pad_token_id,
+                      num_beams=BEAM_WIDTH)
+        beam = lambda: generate(dec, prompt, plen, mode="beam", max_len=BEAM_MAX_LEN, top_k=50,
+                                constraint_mask=cmask.cuda(),
+                                generator=torch.Generator(device="cuda").manual_seed(SEED),
+                                **common)
+        cbs = lambda: generate(dec, prompt, plen, mode="cbs", max_len=CBS_MAX_LEN,
+                               fsm_adjacency=adjacency, num_constraints=counts,
+                               min_constraints_to_satisfy=2, **common)
+        runs = {"beam": timed_decode(dec, beam), "cbs": timed_decode(dec, cbs)}
+    torch.cuda.synchronize()
+    launches = read_counts()
+    per_forward = generate_launches_per_forward(enc)
+    check(launches == {"spec_attention": per_forward, "fused_attention": 0, "flash_bwd": 0},
+          f"17 launches over one classify forward, beam and CBS: {launches}")
+
+    result = dict(questions=Q, classify_ms=classify_ms, launches=launches,
+                  constraint_words_per_question=int(cmask.sum(1).float().mean()))
+    for mode, r in runs.items():
+        toks, lens = (t.cpu() for t in r.pop("out"))
+        max_len = BEAM_MAX_LEN if mode == "beam" else CBS_MAX_LEN
+        check(tuple(toks.shape) == (Q, max_len) and bool(((lens >= 1) & (lens <= max_len)).all())
+              and bool(((toks >= 0) & (toks < gpt.vocab_size)).all()),
+              f"17 {mode}: tokens {tuple(toks.shape)}, lengths {lens.tolist()}")
+        r["kernels_per_call"] = device_kernels_per_call(
+            beam if mode == "beam" else cbs, r["calls"])
+        r["questions_per_s"] = Q / (r["ms"] / 1e3)
+        r["lengths"] = lens.tolist()
+        if mode == "cbs":
+            # the chosen beam carries a wordform of at least 2 of its 3
+            # single-word constraints (the popcount rule of the selection)
+            met = [sum(any(w in toks[i].tolist() for w in c[0]) for c in chosen[i][1])
+                   for i in range(Q)]
+            check(min(met) >= 2, f"17 cbs: constraints met per question {met}")
+            r["constraints_met"] = met
+            r["constraints"] = [c[0] for c in chosen]
+        result[mode] = r
+        print(f"[17 beam/cbs] {mode}: {Q} questions, {r['calls']} decoder calls "
+              f"(prefill + steps), {r['ms']:.2f} ms per decode = {r['ms_per_call']:.3f} ms per "
+              f"decoder call, {r['questions_per_s']:.2f} questions/s (decode alone), "
+              f"{r['kernels_per_call']:.1f} device kernels per decoder call (torch.profiler), "
+              f"peak {r['peak_gib']:.2f} GiB ({r['peak_above_start_gib']:.2f} above the start) | "
+              f"lengths {r['lengths']}"
+              + (f" | constraints {r['constraints']} met {r['constraints_met']}"
+                 if mode == "cbs" else ""))
+    print(f"[17 beam/cbs] classify forward {classify_ms:.2f} ms, {per_forward} stage-mask "
+          f"launches (counts over the whole path: {launches}) | "
+          f"{result['constraint_words_per_question']} constraint ids a question on average")
+    del gen, model, out, mem, adjacency
+    torch.cuda.empty_cache()
+    result["parity"] = beam_cbs_parity(rng)
+    return result
+
+
+def beam_cbs_parity(rng) -> dict:
+    """Phase 17a: beam and CBS on the card and on the CPU in fp32, from one
+    seeded full-width GPT-2 of BEAM_PARITY_LAYERS layers, one memory and one
+    set of lattices: CBS tokens identical and its lattice log-probabilities
+    within 1e-4 + 1e-5·|lp|; beam tokens and lengths identical with the same
+    replayed noise, and the log-probabilities of the chosen tokens (teacher
+    forced) within the same bound."""
+    from multimodal_context_reasoning_torch.core.config import GPT2Config
+    from multimodal_context_reasoning_torch.data.tokenization import HashTokenizer
+    from multimodal_context_reasoning_torch.generation.beam import (
+        constrained_beam_sample,
+        gumbel_noise,
+    )
+    from multimodal_context_reasoning_torch.generation.fsm import fsm_decode_gpt2
+    from multimodal_context_reasoning_torch.models.gpt2 import GPT2Decoder
+
+    gpt = GPT2Config(n_layer=BEAM_PARITY_LAYERS)
+    Q, M, V = BEAM_PARITY_QUESTIONS, 417, gpt.vocab_size
+    card = GPT2Decoder(gpt).cuda().eval()
+    card.init_weights(torch.Generator(device="cuda").manual_seed(SEED + 171))
+    cpu = copy.deepcopy(card).cpu()
+    mem = torch.from_numpy(rng.standard_normal((Q, M, gpt.n_embd), dtype=np.float32))
+    mmask = torch.ones(Q, M)
+    mmask[1, 300:] = 0.0
+    prompt = torch.from_numpy(rng.integers(0, V, (Q, 3))).long()
+    plen = torch.tensor([3, 2])
+    adjacency, _, _ = cbs_lattices(rng, Q, HashTokenizer(vocab_size=V), V)
+    noise = gumbel_noise((BEAM_PARITY_STEPS, Q, BEAM_WIDTH * V), torch.Generator().manual_seed(5),
+                         "cpu")
+    outs, t0 = {}, time.perf_counter()
+    for dev, m in (("cuda", card), ("cpu", cpu)):
+        args = (prompt.to(dev), plen.to(dev))
+        kw = dict(memory=mem.to(dev), memory_mask=mmask.to(dev), num_beams=BEAM_WIDTH)
+        lattice = fsm_decode_gpt2(m, *args, adjacency.to(dev), max_steps=CBS_PARITY_STEPS,
+                                  eos_ids=(V - 1,), **kw)
+        beam = constrained_beam_sample(m, *args, max_steps=BEAM_PARITY_STEPS, eos_id=V - 1,
+                                       noise=noise, top_k=50, **kw)
+        with torch.no_grad():
+            seq = torch.cat([args[0][:, :1], beam[0]], 1)
+            logp = torch.log_softmax(m(seq, memory=kw["memory"],
+                                       memory_mask=kw["memory_mask"])[0][:, :-1].float(), -1)
+            chosen = logp.gather(-1, beam[0][..., None])[..., 0]
+        outs[dev] = [t.cpu() for t in (*lattice, *beam, chosen)]
+    seconds = time.perf_counter() - t0
+    (cb, clp, bt, bl, bc), (xb, xlp, xt, xl, xc) = outs["cuda"], outs["cpu"]
+    lp_err = ((clp - xlp).abs() - 1e-5 * xlp.abs()).max().item()
+    chosen_err = ((bc - xc).abs() - 1e-5 * xc.abs()).max().item()
+    r = dict(cbs_tokens_equal=bool(torch.equal(cb, xb)),
+             beam_tokens_equal=bool(torch.equal(bt, xt) and torch.equal(bl, xl)),
+             cbs_logp_excess=lp_err, chosen_logp_excess=chosen_err, seconds=seconds,
+             layers=BEAM_PARITY_LAYERS)
+    print(f"[17a beam/cbs parity] fp32, {BEAM_PARITY_LAYERS}-layer full-width GPT-2, {Q} "
+          f"questions: CBS ({CBS_PARITY_STEPS} steps, S={adjacency.shape[1]}) tokens equal "
+          f"{r['cbs_tokens_equal']}, max(|Δlp| - 1e-5·|lp|) {lp_err:.2e} (tol 1e-4) | beam "
+          f"({BEAM_PARITY_STEPS} steps, replayed noise) tokens and lengths equal "
+          f"{r['beam_tokens_equal']}, chosen-token log-probs max(|Δ| - 1e-5·|lp|) "
+          f"{chosen_err:.2e} (tol 1e-4) | card + CPU {seconds:.1f} s")
+    check(r["cbs_tokens_equal"] and r["beam_tokens_equal"] and lp_err <= 1e-4
+          and chosen_err <= 1e-4, "17a: the card and the CPU disagree")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return r
+
+
+# ---------------------------------------------------------------- rationale training
+
+class ListLoader:
+    def __init__(self, batches):
+        self.batches = batches
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __iter__(self):
+        return iter(self.batches)
+
+
+def rationale_batches(rng, n: int, questions: int, cfg, spec, bert, gpt, gpt_tok) -> list:
+    """``n`` training batches of ``questions`` questions each: the collated
+    candidate rows (the serving generator's VCR featurizer), the binary
+    label of each row, and one explanation stream per question (random words
+    from the synthetic objects)."""
+    from multimodal_context_reasoning_torch.data.collate import collate_candidates
+    from multimodal_context_reasoning_torch.data.rationale import (
+        RationaleSpec,
+        collate_rationales,
+    )
+    from multimodal_context_reasoning_torch.data.vcr import VCRDataset
+    from multimodal_context_reasoning_torch.serving.synthetic import (
+        OBJECTS,
+        synthetic_requests,
+    )
+
+    keys = ("input_ids", "token_type_ids", "text_mask", "gather_index", "img_feat", "img_mask")
+    words = OBJECTS + ("the", "is", "near", "because")
+    out = []
+    for i in range(n):
+        feats, qs = synthetic_requests(rng, questions, cfg, first=200_000 + 1000 * i)
+        ds = VCRDataset([], feats, bert, gpt_tok, spec=spec, max_chunks=40)
+        b = collate_candidates([ds.featurize(q) for q in qs], [ds.get_image(q) for q in qs],
+                               spec)
+        batch = {k: b[k] for k in keys}
+        label = np.zeros((questions, 4), np.int32)
+        label[np.arange(questions), rng.integers(0, 4, questions)] = 1
+        batch["label"] = label.reshape(-1)
+        texts = [" ".join(rng.choice(words, int(rng.integers(6, 20)))) for _ in range(questions)]
+        batch.update(collate_rationales(texts, gpt_tok, RationaleSpec(
+            max_len=RATIONALE_LEN, pad_id=gpt.pad_token_id)))
+        batch["example_mask"] = np.ones((questions,), np.float32)
+        out.append(batch)
+    return out
+
+
+def exact_backward(q, k, v, bias, d_out):
+    """The attention backward in float64 with nothing rounded: the yardstick
+    that tells the kernel's and the plain version's bf16 roundings apart."""
+    qd, kd, vd, dod = (t.double() for t in (q, k, v, d_out))
+    scale = 1.0 / q.shape[-1] ** 0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", qd, kd) * scale
+    if bias is not None:
+        s = s + bias.double()
+    p = torch.softmax(s, dim=-1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dod, vd)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * scale
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, kd), torch.einsum("bhqk,bqhd->bkhd", ds, qd),
+            torch.einsum("bhqk,bqhd->bkhd", p, dod))
+
+
+class HeldBackward:
+    """While active, every backward launch is held against its plain version
+    on the same inputs and both against the float64 backward: per (shape,
+    bias shape) the launches and the worst errors of dq, dk and dv, each
+    relative to that output's max |exact|: kernel against plain, kernel
+    against exact and plain against exact."""
+
+    def __init__(self):
+        self.seen = {}
+
+    def __enter__(self):
+        from multimodal_context_reasoning_torch.ops.flash import (
+            flash_attention_bwd,
+            flash_attention_bwd_plain,
+        )
+
+        launch = flash_attention_bwd.launch
+
+        def held(q, k, v, bias, d_out, *, want_dbias=True):
+            got = launch(q, k, v, bias, d_out, want_dbias=want_dbias)
+            want = flash_attention_bwd_plain(q, k, v, bias, d_out)
+            exact = exact_backward(q, k, v, bias, d_out)
+            rel = lambda a, b, e: (a.double() - b.double()).abs().max().item() / max(
+                e.abs().max().item(), 1e-30)
+            errs = [[rel(a, b, e) for a, b, e in zip(x, y, exact)]   # dq, dk, dv
+                    for x, y in ((got, want), (got, exact), (want, exact))]
+            key = (tuple(q.shape), str(q.dtype), None if bias is None else tuple(bias.shape))
+            n, worst = self.seen.get(key, (0, [[0.0] * 3] * 3))
+            self.seen[key] = (n + 1, [[max(a, b) for a, b in zip(w, e)]
+                                      for w, e in zip(worst, errs)])
+            return got
+
+        flash_attention_bwd.launch = held
+        return self
+
+    def __exit__(self, *exc):
+        from multimodal_context_reasoning_torch.ops.flash import flash_attention_bwd
+
+        del flash_attention_bwd.launch
+        return False
+
+
+def rationale_train_phase(rng) -> dict:
+    """Phase 18: ``Trainer.fit`` over ``RationaleForTraining`` at full width
+    (bf16 encoders computing from fp32 parameters, fp32 GPT-2, encoders
+    trainable, dropout 0), RATIONALE_QUESTIONS questions a step, with the
+    kernel counts of every step; then one more step with each backward
+    launch held against its plain version."""
+    from multimodal_context_reasoning_torch.core.config import (
+        ChunkAlignConfig,
+        EncoderConfig,
+        GPT2Config,
+        ModCRConfig,
+        TrainConfig,
+    )
+    from multimodal_context_reasoning_torch.data.collate import BatchSpec
+    from multimodal_context_reasoning_torch.data.tokenization import HashTokenizer
+    from multimodal_context_reasoning_torch.models.rationale import (
+        RationaleForTraining,
+        RationaleModel,
+    )
+    from multimodal_context_reasoning_torch.serving.synthetic import hash_tokenizers
+    from multimodal_context_reasoning_torch.train.trainer import Trainer
+
+    cfg = ModCRConfig().with_dtype("bfloat16")
+    spec = BatchSpec(text_len=cfg.text_len, img_len=cfg.img_len, roberta_len=cfg.roberta_len,
+                     img_feature_dim=cfg.global_encoder.img_feature_dim)
+    enc = EncoderConfig(dtype="bfloat16", hidden_dropout_prob=0.0,
+                        attention_probs_dropout_prob=0.0)
+    sched = ChunkAlignConfig()
+    gpt = GPT2Config(resid_pdrop=0.0, embd_pdrop=0.0, attn_pdrop=0.0)
+    bert, _ = hash_tokenizers(cfg)
+    gpt_tok = HashTokenizer(vocab_size=gpt.vocab_size)
+    model = RationaleModel(enc, sched, gpt, device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(SEED + 18))
+    batches = rationale_batches(rng, RATIONALE_STEPS + 1, RATIONALE_QUESTIONS, cfg, spec, bert,
+                                gpt, gpt_tok)
+    facade = RationaleForTraining(model)
+    tcfg = TrainConfig(per_device_batch_size=RATIONALE_QUESTIONS, max_steps=RATIONALE_STEPS,
+                       freeze_encoders=False, learning_rate=1e-4, seed=SEED)
+    trainer = Trainer(facade, tcfg, ListLoader(batches[:RATIONALE_STEPS]), device="cuda")
+    steps = []
+    trainer.train_step = counted(trainer.train_step, steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() / 2**30
+    reset_counts()
+    state = trainer.fit()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    per_layer = generate_launches_per_forward(enc)   # one per encoder layer
+    per_step = {"spec_attention": per_layer, "fused_attention": 0, "flash_bwd": per_layer}
+    losses = [float(s["out"]["loss"]) for s in steps]
+    check(len(steps) == RATIONALE_STEPS and state.optimizer.count == RATIONALE_STEPS,
+          f"18: {len(steps)} steps")
+    check(np.isfinite(losses).all(), f"18: non-finite losses {losses}")
+    for i, s in enumerate(steps):
+        check(s["launches"] == per_step, f"18 step {i}: launches {s['launches']}")
+    check(all(p.dtype == torch.float32 for p in model.parameters()), "18: parameters fp32")
+    check(sorted(g["scale"] for g in state.optimizer.groups) == [tcfg.seq_enc_lr_scale, 1.0],
+          "18: the seq_enc group")
+    step_ms = [1e3 * s["seconds"] for s in steps]
+    steady = statistics.median(step_ms[1:])
+
+    # one more step, each backward launch against its plain version
+    with HeldBackward() as held:
+        trainer.train_step(state, trainer.to_device(batches[-1]))
+        torch.cuda.synchronize()
+    held_rows = {f"{k[0]} {k[1]} bias {k[2]}": dict(
+        launches=n, kernel_vs_plain=w[0], kernel_vs_exact=w[1], plain_vs_exact=w[2])
+        for k, (n, w) in held.seen.items()}
+    # the kernel rounds P and dS to bf16 as its plain version (and the Pallas
+    # kernel) do; where cancellation in dq = dS·K amplifies those roundings,
+    # the two round differently and both lie far from float64: the kernel
+    # must lie no further from float64 than its plain version, plus the
+    # bf16 tolerance
+    held_ok = all(k <= p + BWD_TOL[torch.bfloat16] for h in held_rows.values()
+                  for k, p in zip(h["kernel_vs_exact"], h["plain_vs_exact"]))
+    r = dict(questions_per_step=RATIONALE_QUESTIONS, rows_per_step=4 * RATIONALE_QUESTIONS,
+             ms_per_step=step_ms, steady_ms_per_step=steady,
+             questions_per_s=RATIONALE_QUESTIONS / steady * 1e3, peak_gib=peak,
+             allocated_before_fit_gib=before,
+             losses=losses, launches=launches, launches_per_step=steps[0]["launches"],
+             backward_held=held_rows)
+    print(f"[18 rationale train] bf16 encoders (trainable) + fp32 GPT-2, dropout 0, "
+          f"{RATIONALE_QUESTIONS} questions ({4 * RATIONALE_QUESTIONS} rows) a step: losses "
+          f"{np.round(losses, 4).tolist()}")
+    print(f"[18 rationale train] ms per step {np.round(step_ms, 2).tolist()} -> steady (median "
+          f"of steps 2-{RATIONALE_STEPS}) {steady:.2f} ms = {r['questions_per_s']:.2f} "
+          f"questions/s ({4 * r['questions_per_s']:.2f} rows/s) | peak {peak:.2f} GiB "
+          f"({before:.2f} allocated before fit) | "
+          f"launches per step {steps[0]['launches']} (all {RATIONALE_STEPS} equal)")
+    print(f"[18 rationale train] one more step, each backward launch against its plain version "
+          f"and both against float64 ([dq, dk, dv], each over its max |exact|): "
+          f"{r['backward_held']}")
+    check(sum(h["launches"] for h in held_rows.values()) == per_layer and held_ok,
+          f"18: backward launches against plain and float64 {held_rows}")
+    del trainer, state, facade, model, batches
+    torch.cuda.empty_cache()
+    r["parity"] = rationale_train_parity(rng)
+    return r
+
+
+def rationale_train_parity(rng) -> dict:
+    """Phase 18a: two fp32 ``train_step``s of ``RationaleForTraining`` on the
+    card (kernels) and on the CPU (plain versions) from one state dict, at a
+    small depth (encoders of RATIONALE_PARITY_LAYERS layers, a 2-layer
+    GPT-2, full widths), one question: losses and gradient norms within 1e-4
+    relative (as phase 9), and every parameter within 2 x steps x lr (two
+    Adam steps move an element by at most lr each, in either direction when
+    a near-zero gradient's sign differs)."""
+    from multimodal_context_reasoning_torch.core.config import (
+        ChunkAlignConfig,
+        EncoderConfig,
+        GPT2Config,
+        ModCRConfig,
+        TrainConfig,
+    )
+    from multimodal_context_reasoning_torch.data.collate import BatchSpec
+    from multimodal_context_reasoning_torch.data.tokenization import HashTokenizer
+    from multimodal_context_reasoning_torch.models.rationale import (
+        RationaleForTraining,
+        RationaleModel,
+    )
+    from multimodal_context_reasoning_torch.serving.synthetic import hash_tokenizers
+    from multimodal_context_reasoning_torch.train.state import TrainState
+    from multimodal_context_reasoning_torch.train.step import train_step
+
+    cfg = ModCRConfig()
+    spec = BatchSpec(text_len=cfg.text_len, img_len=cfg.img_len, roberta_len=cfg.roberta_len,
+                     img_feature_dim=cfg.global_encoder.img_feature_dim)
+    enc = EncoderConfig(num_hidden_layers=RATIONALE_PARITY_LAYERS, hidden_dropout_prob=0.0,
+                        attention_probs_dropout_prob=0.0)
+    sched = ChunkAlignConfig(chunk_layers_end=1, full_layers_end=2)
+    gpt = GPT2Config(n_layer=2, resid_pdrop=0.0, embd_pdrop=0.0, attn_pdrop=0.0)
+    bert, _ = hash_tokenizers(cfg)
+    gpt_tok = HashTokenizer(vocab_size=gpt.vocab_size)
+    model = RationaleModel(enc, sched, gpt, device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(SEED + 181))
+    cpu_model = copy.deepcopy(model).cpu()
+    batch = rationale_batches(rng, 1, 1, cfg, spec, bert, gpt, gpt_tok)[0]
+    tcfg = TrainConfig(freeze_encoders=False, learning_rate=1e-4)
+    runs, t0 = {}, time.perf_counter()
+    for dev, m in (("cuda", model), ("cpu", cpu_model)):
+        state = TrainState.create(RationaleForTraining(m), tcfg, total_steps=10)
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        reset_counts()
+        metrics = [train_step(state, tb) for _ in range(2)]
+        runs[dev] = dict(loss=[float(x["loss"]) for x in metrics],
+                         grad_norm=[float(x["grad_norm"]) for x in metrics],
+                         params={k: v.cpu() for k, v in m.state_dict().items()},
+                         launches=read_counts())
+    seconds = time.perf_counter() - t0
+    rel = max(abs(a - b) / abs(b) for key in ("loss", "grad_norm")
+              for a, b in zip(runs["cuda"][key], runs["cpu"][key]))
+    p_err = max((v - runs["cpu"]["params"][k]).abs().max().item()
+                for k, v in runs["cuda"]["params"].items())
+    p_tol = 2 * 2 * tcfg.learning_rate
+    r = dict(max_rel_diff=rel, max_param_diff=p_err, param_tol=p_tol, seconds=seconds,
+             loss={d: runs[d]["loss"] for d in runs}, card_launches=runs["cuda"]["launches"])
+    print(f"[18a rationale train parity] fp32, encoders of {RATIONALE_PARITY_LAYERS} layers, "
+          f"2-layer GPT-2, full widths, 1 question, 2 steps: cuda loss {runs['cuda']['loss']} "
+          f"grad_norm {runs['cuda']['grad_norm']} | cpu loss {runs['cpu']['loss']} grad_norm "
+          f"{runs['cpu']['grad_norm']} | max rel diff {rel:.3e} (tol 1e-4) | max |Δ param| "
+          f"{p_err:.3e} (tol {p_tol:g}) | card launches {runs['cuda']['launches']} | "
+          f"{seconds:.1f} s")
+    check(rel <= 1e-4 and p_err <= p_tol, "18a: the card and the CPU disagree")
+    check(runs["cuda"]["launches"]["flash_bwd"] == 2 * 2 * RATIONALE_PARITY_LAYERS,
+          f"18a launches {runs['cuda']['launches']}")
+    del model, cpu_model
+    torch.cuda.empty_cache()
+    return r
+
+
+def time_encoder_backward(rng) -> list:
+    """Phase 18b: the backward at the rationale family's trainable encoder
+    shape, (32, 190, 190, 12, 64) bf16, with each stage's mask as
+    ``_SpecAttentionFn`` passes it (``spec_bias``): against its plain version,
+    then kernel, plain version and SDPA's backward (the mask as a float
+    ``attn_mask``, through autograd) per call and back to back, with the
+    bound (inputs read once, dq, dk, dv written once, no dbias plane)."""
+    from multimodal_context_reasoning_torch.ops.flash import (
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+    )
+    from multimodal_context_reasoning_torch.ops.spec_attention import spec_bias
+
+    dt, rows = torch.bfloat16, []
+    for stage in ("full", "chunk", "cross"):
+        rows_ = 4 * RATIONALE_QUESTIONS
+        case = attention_case(rng, f"encoder {stage} ({rows_}, 190, 190, 12, 64)", rows_, 140,
+                              50, 12, stage)
+        q, k, v, *vecs = cuda_args(case, dt)
+        bias = spec_bias(*vecs, stage=stage, text_len=case["text_len"], lq=q.shape[1])
+        d_out = torch.randn(q.shape, device="cuda", dtype=dt,
+                            generator=torch.Generator("cuda").manual_seed(SEED + 4))
+        got = flash_attention_bwd(q, k, v, bias, d_out, want_dbias=True)
+        want = flash_attention_bwd_plain(q, k, v, bias, d_out)
+        rel = max(errors(g, w)[1] for g, w in zip(got, want))
+        err = max(errors(g, w)[0] for g, w in zip(got, want))
+        check(rel <= BWD_TOL[dt], f"encoder backward {stage}: rel {rel}")
+        del got, want
+        mask = bias.to(dt)
+        q4, k4, v4 = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        out_t = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+        d_out_t = d_out.transpose(1, 2)
+        kernel = lambda: flash_attention_bwd(q, k, v, bias, d_out, want_dbias=False)
+        library = lambda: torch.autograd.grad(out_t, (q4, k4, v4), d_out_t, retain_graph=True)
+        B, L, H, Dh = q.shape
+        nbytes = 2 * (7 * B * L * H * Dh) + 4 * bias.numel()
+        flops = 10.0 * B * H * L * L * Dh
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dt]
+        row = dict(shape=case["name"], bias=list(bias.shape), max_abs_err=err, max_rel_err=rel,
+                   ms=median_ms(kernel),
+                   plain_ms=median_ms(lambda: flash_attention_bwd_plain(q, k, v, bias, d_out)),
+                   library_ms=median_ms(library), b2b_ms=back_to_back_ms(kernel),
+                   library_b2b_ms=back_to_back_ms(library),
+                   bound_ms=1e3 * max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        rows.append(row)
+        print(f"[18b encoder backward] {case['name']:40s} bias {row['bias']}: vs plain "
+              f"{err:.2e} ({rel:.1e} rel) | per call: kernel {row['ms']:.4f} | plain "
+              f"{row['plain_ms']:.4f} | sdpa {row['library_ms']:.4f} ms; back to back: kernel "
+              f"{row['b2b_ms']:.4f} | sdpa {row['library_b2b_ms']:.4f} ms | bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        del q, k, v, q4, k4, v4, out_t
+    torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
@@ -1950,6 +2610,13 @@ def main() -> int:
 
     # 16. /generate, the rationale family
     generated = generate_phase(rng)
+    torch.cuda.empty_cache()
+
+    # 17. beam and CBS at full width; 18. rationale training at full width
+    # and the backward at its encoder shape
+    beam_cbs = beam_cbs_phase(rng)
+    rationale = rationale_train_phase(rng)
+    encoder_bwd = time_encoder_backward(rng)
 
     # 11. kernels line, then the result line
     print(card)
@@ -1959,7 +2626,10 @@ def main() -> int:
                       "cli": {k: v for k, v in cli.items() if k != "launches"},
                       "serve": {k: v for k, v in served.items() if k != "launches"},
                       "int8": int8,
-                      "generate": {k: v for k, v in generated.items() if k != "launches"}}))
+                      "generate": {k: v for k, v in generated.items() if k != "launches"},
+                      "beam_cbs": {k: v for k, v in beam_cbs.items() if k != "launches"},
+                      "rationale_train": {k: v for k, v in rationale.items()
+                                          if k != "launches"}}))
     main_path = train["launches"]
     shape = "bf16 (128, 128, 138, 16, 64), one launch, as one RoBERTa layer of the slice"
 
@@ -1977,6 +2647,8 @@ def main() -> int:
         "serve_launches": served["launches"]["spec_attention"],
         "int8_launches": int8["scoring"]["launches"],
         "generate_launches": generated["launches"],
+        "beam_cbs_launches": beam_cbs["launches"]["spec_attention"],
+        "rationale_train_launches": rationale["launches"]["spec_attention"],
         "max_abs_err": max(max_err, train_err["spec_attention"],
                            long_keys["max_abs_err"]["spec_attention"]),
         "ms": totals["ms"],
@@ -2012,10 +2684,13 @@ def main() -> int:
         "launches": main_path["flash_bwd"],
         "cli_launches": cli["launches"]["flash_bwd"],
         "serve_launches": served["launches"]["flash_bwd"],
-        "max_abs_err": max(train_err["flash_bwd"], long_keys["max_abs_err"]["flash_bwd"]),
+        "rationale_train_launches": rationale["launches"]["flash_bwd"],
+        "max_abs_err": max(train_err["flash_bwd"], long_keys["max_abs_err"]["flash_bwd"],
+                           *(r["max_abs_err"] for r in encoder_bwd)),
         **train_times["flash_bwd"],
         "timed_as": shape + ", no dbias plane",
         "long_keys": long_key_row("flash_bwd"),
+        "encoder_shapes": encoder_bwd,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

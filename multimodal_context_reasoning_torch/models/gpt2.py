@@ -21,7 +21,11 @@ visible to input position ``i`` when ``j <= cache_index + i``) plus
 ``cache_valid`` [B, L_max], which hides right-padded prompt slots.  The
 memory's keys and values do not change while decoding:
 :meth:`GPT2Decoder.cross_kv` projects them once, and a call given them skips
-that projection (the same bits as projecting each step).
+that projection (the same bits as projecting each step).  They may cover
+fewer rows than the call decodes: one memory for each group of consecutive
+rows (the beam and lattice decodes of generation/ keep one per question for
+its B·K or B·S·K rows, so the cross keys and values are not copied per row);
+``memory_mask`` then has the memory's rows too.
 """
 
 from __future__ import annotations
@@ -114,6 +118,11 @@ class GPT2CrossAttention(nn.Module):
     def forward(self, h, kv, memory_bias):
         B, L, D = h.shape
         q = _heads(self.q_attn(h), self.config.n_head)
+        G = kv[0].shape[0]
+        if G != B:
+            # one memory per group of B // G consecutive rows: the group's
+            # queries attend as one block, each query row on its own
+            q = q.reshape(G, (B // G) * L, *q.shape[2:])
         out, _ = dot_product_attention(q, *kv, memory_bias)
         return self.resid_dropout(self.c_proj(out.reshape(B, L, D)))
 
@@ -204,8 +213,8 @@ class GPT2Decoder(nn.Module):
         *,
         position_offset: Union[int, torch.Tensor, None] = None,   # scalar or [B]
         memory: Optional[torch.Tensor] = None,            # [B, M, D] fp32
-        memory_mask: Optional[torch.Tensor] = None,       # [B, M] {0,1}
-        cross_kv: Optional[CrossKV] = None,               # cross_kv(memory)
+        memory_mask: Optional[torch.Tensor] = None,       # [B | G, M] {0,1}
+        cross_kv: Optional[CrossKV] = None,               # cross_kv(memory), B or G rows
         cache: Optional[KVCache] = None,                  # written in place
         cache_index: int = 0,
         cache_valid: Optional[torch.Tensor] = None,       # [B, L_max] {0,1}

@@ -1,6 +1,6 @@
 """Rationale generation: candidate classification + GPT-2 explanation decode
-(port of the JAX package's ``models/rationale.py``, its classify forward;
-reference ``ChunkAlign_CLS_dec5_4``, modeling_vcr_chunkalign_v10.py:1319-1494).
+(port of the JAX package's ``models/rationale.py``; reference
+``ChunkAlign_CLS_dec5_4``, modeling_vcr_chunkalign_v10.py:1319-1494).
 
 - the global and ChunkAlign encoders (trainable in this family), CLS fusion
   through ``cls_ensemble`` (Linear(2D -> D)) and ``cls_layer_num`` reasoning
@@ -17,7 +17,8 @@ reference ``ChunkAlign_CLS_dec5_4``, modeling_vcr_chunkalign_v10.py:1319-1494).
 The keys are the reference's: ``global_enc.*``, ``seq_enc.*``,
 ``cls_ensemble``, ``cls_layer.N.*``, ``classifier``, ``dec.*`` and
 ``lm_head.weight``.  The encoders and heads compute in the encoder config's
-dtype; the decoder in fp32 (models/gpt2.py).
+dtype; the decoder in fp32 (models/gpt2.py).  :class:`RationaleForTraining`
+puts the family behind the trainer's interface (train/).
 
 One difference from the JAX forward, with the same values: the sequence
 encoder's cross-modal layers return no attention probabilities.  The JAX
@@ -226,3 +227,52 @@ class RationaleModel(nn.Module):
         return RationaleOutput(gen_loss=gen_loss, cls_loss=cls_loss, mp_probs=mp_probs,
                                cls_attn=attn_sum, decoder_memory=mem_q,
                                decoder_memory_mask=mask_q)
+
+
+class RationaleTrainOutput(NamedTuple):
+    loss: torch.Tensor        # optimized scalar: cls CE + gen_weight × XE
+    align_loss: torch.Tensor  # 0: this family has no alignment term
+    logits: torch.Tensor      # [Q, num_labels] log choice probabilities
+    gen_loss: torch.Tensor
+    cls_loss: torch.Tensor
+
+
+class RationaleForTraining(nn.Module):
+    """Trainer-interface facade over :class:`RationaleModel`.
+
+    The reference ships the rationale family as modules only, and its
+    forward returns the two losses apart (v10.py:1408).  The facade sums
+    them, ``cls CE + gen_weight × teacher-forcing XE``, and gives the
+    ``loss / logits / align_loss`` that train/step.py reads, so
+    ``Trainer.fit`` drives the family unchanged.  Its children are the
+    wrapped model's own, so its parameter names and state dict are
+    ``RationaleModel``'s key for key: a trained state dict loads into
+    ``serving/generator.py`` and ``interop/assemble.py`` as it is.
+
+    The decoder memory is detached (as JAX's ``stop_gradient``), so the
+    generation loss reaches the encoders only through the choice of the gold
+    row, which carries no gradient: the encoders train on the CE alone."""
+
+    def __init__(self, model: RationaleModel, *, gen_weight: float = 1.0):
+        super().__init__()
+        self.gen_weight = gen_weight
+        self._wrapped = [model]            # a list, so it is not registered twice
+        self._modules = model._modules     # the same children, under the same names
+
+    @property
+    def model(self) -> RationaleModel:
+        return self._wrapped[0]
+
+    def train(self, mode: bool = True) -> "RationaleForTraining":
+        self.model.training = mode
+        return super().train(mode)
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> RationaleTrainOutput:
+        out = self.model(batch)
+        loss = out.cls_loss + self.gen_weight * out.gen_loss
+        # log of the 4-way choice probabilities: the argmax _metrics needs,
+        # finite for pad rows
+        logits = torch.log(torch.clamp(out.mp_probs, min=1e-20))
+        return RationaleTrainOutput(loss=loss, align_loss=torch.zeros_like(loss),
+                                    logits=logits, gen_loss=out.gen_loss,
+                                    cls_loss=out.cls_loss)

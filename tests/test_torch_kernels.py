@@ -607,6 +607,33 @@ def test_4000_keys_are_taken(card, dtype):
         _close(g, w, BWD_TOL[dtype])
 
 
+# ---------------------------------------------------------------- the backward
+# at the rationale family's trainable encoders (32 rows: 8 questions a step)
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("stage_idx", [0, 1, 2], ids=["chunk", "full", "cross"])
+def test_backward_at_the_encoder_shape_with_the_stage_plane(card, dtype, stage_idx):
+    """The backward as ``_SpecAttentionFn`` calls it when the encoders train:
+    (32, 190, 190, 12, 64) with the stage mask as ``spec_bias`` builds it (a
+    [B, 1, Lq, Lk] plane in the chunk and cross stages, a [B, 1, 1, Lk] row
+    in the full stage), ragged text, chunks and regions: dq, dk, dv and the
+    dbias plane within the backward's tolerance of each output's max |plain|."""
+    (q, k, v), specs = _case(card, B=32, T=140, I=50, H=12, Dh=64, seed=5)
+    spec = specs[stage_idx]
+    bias = spec_bias(spec.valid, spec.gi, spec.rowfull, stage=spec.stage,
+                     text_len=spec.text_len, lq=q.shape[1])
+    assert bias.shape == ((32, 1, 1, 190) if spec.stage == "full" else (32, 1, 190, 190))
+    d_out = torch.randn(q.shape, device=card, generator=torch.Generator(card).manual_seed(1))
+    q, k, v, d_out = (t.to(dtype) for t in (q, k, v, d_out))
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, bias, d_out)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    for g, w in zip(got, flash_attention_bwd_plain(q, k, v, bias, d_out)):
+        assert g.dtype == w.dtype and torch.isfinite(g).all()
+        _rel_close(g, w, BWD_TOL[dtype])
+
+
 # ---------------------------------------------------------------- int8 products
 # ``int8_matmul`` on the card: ``torch._int_mm`` for the codes (no kernel of
 # this repo stands behind it), held to the plain float64 accumulator.
