@@ -4,7 +4,8 @@ run the two commands (``cli/run_pmr.py``, ``cli/run_vcr.py``) at full width,
 hold every kernel route to its plain version past 192 keys, serve
 concurrent HTTP clients through the serve command (``cli/serve.py``),
 score through the W8A8 int8 route, serve the rationale family at
-``POST /generate``, decode it by beam sampling and CBS, and train it.
+``POST /generate``, decode it by beam sampling and CBS, train it, and run
+the two-stage recipe (``cli/train_two_stage.py``).
 
     python3 chip_smoke.py
 
@@ -67,8 +68,9 @@ the port is not beside this script, or when any phase fails.  Phases:
     14's, ``long_keys`` from phase 13, the stage-mask kernel's
     ``int8_launches``, ``generate_launches`` and ``beam_cbs_launches`` from
     phases 15-17, ``rationale_train_launches`` of both kernels from phase
-    18, and the backward's ``encoder_shapes`` from 18b), then the result
-    line;
+    18, ``stage1_launches`` and ``two_stage_launches`` of all three from
+    phase 19, the backward's ``encoder_shapes`` from 18b and 19c, the
+    stage-mask forward's from 19c), then the result line;
 12. (run before 11) the two commands through ``main(argv)``, full-width
     bf16, on files written from the seed in a temporary directory (PMR
     JSONL of 64 / 32 / 32 examples, a VCR JSON of 64, 50 x 2054 region
@@ -159,7 +161,27 @@ the port is not beside this script, or when any phase fails.  Phases:
     relative, parameters within 2 x steps x lr; 18b: the backward at
     (32, 190, 190, 12, 64) bf16 with each stage's mask as the stage-mask
     Function passes it, against its plain version, then kernel, plain
-    version and SDPA's backward per call and back to back, and the bound.
+    version and SDPA's backward per call and back to back, and the bound;
+19. (run before 11) the two-stage recipe: 19a, two fp32 ``train_step``s of
+    ``ChunkAlignClassifier`` at full width (schedule 3/9, dropout 0, one
+    question) on the card and on the CPU from one state dict: the binary
+    CE, the alignment CE and the gradient norms within 1e-4 relative; 19b,
+    ``cli.train_two_stage.main(argv)`` at full width, bf16, dropout 0, on 96
+    PMR rows written from the seed, 16 questions (64 rows) a step, 8
+    stage-1 and 4 stage-2 steps, validation every 4: every stage-1 train
+    step launches exactly 21 stage-mask forwards, no dense forward and 21
+    backwards (``stage1_launches``), every stage-1 evaluation forward 21
+    stage-mask launches, every stage-2 step 36 / 48 / 24 and every stage-2
+    evaluation forward 36 stage-mask and 24 dense (RoBERTa under remat);
+    finite losses, the export's keys, a graft with no leftover key and the
+    curve's keys; device ms per step of each stage (CUDA events), peak
+    memory per stage and the wall; 19c, one more stage-1 forward and
+    backward after the last step, each backward launch held against its
+    plain version's float64 error plus 2e-2, with dq's distance from
+    float64 as a share of max |dq| for the kernel and the plain version;
+    then the stage-mask forward and the backward on that pass's full-stage
+    and chunk-stage inputs, (64, 190, 190, 12, 64) bf16: kernel, plain
+    version and SDPA per call and back to back, and the bound.
 """
 
 from __future__ import annotations
@@ -237,6 +259,10 @@ DETECTION_WORDFORMS = {"dog": ["dog", "dogs"], "cat": ["cat", "cats"], "bus": ["
 # length; 18a's encoder depth
 RATIONALE_QUESTIONS, RATIONALE_STEPS, RATIONALE_LEN = 8, 6, 32
 RATIONALE_PARITY_LAYERS = 3
+# phase 19: questions a step in both stages (the JAX script's default
+# --stage1_batch), steps of each stage, the validation cadence, PMR examples
+TWO_STAGE_QUESTIONS, STAGE1_STEPS, STAGE2_STEPS, TWO_STAGE_VALID = 16, 8, 4, 4
+TWO_STAGE_EXAMPLES = 96
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -774,11 +800,15 @@ def spec_launches_per_eval_forward(cfg) -> int:
     """Stage-mask launches of one deterministic forward: the global encoder
     twice (the vision pass and the text-image pass), the ChunkAlign encoder
     without its cross-stage layers when they return the alignment
-    probabilities, and every RoBERTa layer.  Full width with the alignment
-    loss on: 12 + 12 + (12 - 3) + 24 = 57."""
+    probabilities, and every RoBERTa layer unless ``remat`` or
+    ``scan_layers`` gives them the dense bias (they take the dense-bias
+    forward then).  Full width with the alignment loss on: 12 + 12 + (12 -
+    3) + 24 = 57."""
     cross = cfg.seq_encoder.num_hidden_layers - cfg.chunkalign.full_layers_end
+    dense = cfg.roberta.remat or cfg.roberta.scan_layers
     return (2 * cfg.global_encoder.num_hidden_layers + cfg.seq_encoder.num_hidden_layers
-            - (cross if cfg.compute_alignment else 0) + cfg.roberta.num_hidden_layers)
+            - (cross if cfg.compute_alignment else 0)
+            + (0 if dense else cfg.roberta.num_hidden_layers))
 
 
 def cli_phase(rng) -> dict:
@@ -2122,8 +2152,10 @@ class HeldBackward:
     relative to that output's max |exact|: kernel against plain, kernel
     against exact and plain against exact."""
 
-    def __init__(self):
+    def __init__(self, keep: bool = False):
         self.seen = {}
+        self.keep = keep
+        self.inputs = {}   # with keep: the first (q, k, v, bias, dO) of each key
 
     def __enter__(self):
         from multimodal_context_reasoning_torch.ops.flash import (
@@ -2134,6 +2166,9 @@ class HeldBackward:
         launch = flash_attention_bwd.launch
 
         def held(q, k, v, bias, d_out, *, want_dbias=True):
+            key = (tuple(q.shape), str(q.dtype), None if bias is None else tuple(bias.shape))
+            if self.keep and key not in self.inputs:
+                self.inputs[key] = tuple(t.detach() for t in (q, k, v, bias, d_out))
             got = launch(q, k, v, bias, d_out, want_dbias=want_dbias)
             want = flash_attention_bwd_plain(q, k, v, bias, d_out)
             exact = exact_backward(q, k, v, bias, d_out)
@@ -2141,7 +2176,6 @@ class HeldBackward:
                 e.abs().max().item(), 1e-30)
             errs = [[rel(a, b, e) for a, b, e in zip(x, y, exact)]   # dq, dk, dv
                     for x, y in ((got, want), (got, exact), (want, exact))]
-            key = (tuple(q.shape), str(q.dtype), None if bias is None else tuple(bias.shape))
             n, worst = self.seen.get(key, (0, [[0.0] * 3] * 3))
             self.seen[key] = (n + 1, [[max(a, b) for a, b in zip(w, e)]
                                       for w, e in zip(worst, errs)])
@@ -2387,6 +2421,365 @@ def time_encoder_backward(rng) -> list:
     return rows
 
 
+# ---------------------------------------------------------------- the two-stage recipe
+
+def stage1_launches(enc, sched) -> dict:
+    """Kernel launches of one stage-1 train step of ``ChunkAlignClassifier``:
+    every encoder layer but the ChunkAlign encoder's cross layers (they
+    return probabilities for the alignment loss, so they take the plain
+    attention) runs the stage-mask forward, and through ``_SpecAttentionFn``
+    the backward kernel; no layer takes the dense-bias forward.  Full depth:
+    12 global + 3 chunk-stage + 6 full-stage = 21.  An evaluation forward
+    launches the same stage-mask count and no backward."""
+    n = 2 * enc.num_hidden_layers - (enc.num_hidden_layers - sched.full_layers_end)
+    return {"spec_attention": n, "fused_attention": 0, "flash_bwd": n}
+
+
+def stage1_parity(rng) -> dict:
+    """Phase 19a: two fp32 ``train_step``s of ``ChunkAlignClassifier`` at
+    full width (schedule 3/9, dropout 0, one question) on the card (kernels)
+    and on the CPU (plain versions) from one state dict: the binary CE, the
+    alignment CE and the gradient norms within 1e-4 relative (as phase 9)."""
+    from multimodal_context_reasoning_torch.core.config import ModCRConfig, TrainConfig
+    from multimodal_context_reasoning_torch.models.chunkalign_cls import ChunkAlignClassifier
+    from multimodal_context_reasoning_torch.serving.synthetic import synthetic_dataset
+    from multimodal_context_reasoning_torch.train.state import TrainState
+    from multimodal_context_reasoning_torch.train.step import train_step
+
+    cfg = ModCRConfig()
+    enc = dataclasses.replace(cfg.seq_encoder, hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.0)
+    model = ChunkAlignClassifier(enc, cfg.chunkalign, device="cuda",
+                                 generator=torch.Generator(device="cuda").manual_seed(SEED + 19))
+    cpu_model = copy.deepcopy(model).cpu()
+    batch = {k: v for k, v in synthetic_dataset(rng, 1, cfg, first=190_000).batch([0]).items()
+             if not k.startswith("r_")}
+    tcfg = TrainConfig(freeze_encoders=False, seq_enc_lr_scale=1.0)
+    runs = {}
+    for dev, m in (("cuda", model), ("cpu", cpu_model)):
+        state = TrainState.create(m, tcfg, total_steps=10)
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = [train_step(state, tb) for _ in range(2)]
+        runs[dev] = {key: [float(x[key]) for x in metrics]
+                     for key in ("loss", "align_loss", "grad_norm")}
+        runs[dev]["cls_loss"] = [a - b for a, b in zip(runs[dev]["loss"], runs[dev]["align_loss"])]
+        runs[dev].update(seconds=time.perf_counter() - t0, launches=read_counts())
+        del state
+    keys = ("cls_loss", "align_loss", "grad_norm")
+    rel = max(abs(a - b) / max(abs(b), 1e-30) for key in keys
+              for a, b in zip(runs["cuda"][key], runs["cpu"][key]))
+    print(f"[19a stage-1 parity] full-width fp32 ChunkAlignClassifier, 1 question (4 rows), "
+          f"2 steps: " + " | ".join(
+              f"{key} cuda {np.round(runs['cuda'][key], 6).tolist()} cpu "
+              f"{np.round(runs['cpu'][key], 6).tolist()}" for key in keys)
+          + f" | max rel diff {rel:.3e} (tol 1e-4) | card launches {runs['cuda']['launches']} "
+          f"| cpu {runs['cpu']['seconds']:.1f} s")
+    check(all(np.isfinite(runs["cuda"][k]).all() for k in keys), "19a: non-finite metrics")
+    check(min(runs["cuda"]["align_loss"]) > 0, "19a: no alignment loss")
+    check(rel <= 1e-4, f"19a: card against CPU rel diff {rel}")
+    per_step = stage1_launches(enc, cfg.chunkalign)
+    check(runs["cuda"]["launches"] == {k: 2 * v for k, v in per_step.items()},
+          f"19a launches {runs['cuda']['launches']}")
+    del model, cpu_model
+    torch.cuda.empty_cache()
+    return dict(max_rel_diff=rel, cuda={k: runs["cuda"][k] for k in keys},
+                cpu={k: runs["cpu"][k] for k in keys}, cpu_seconds=runs["cpu"]["seconds"])
+
+
+class CapturedSpec:
+    """While active, keeps the first stage-mask forward launch of each stage
+    (its detached inputs)."""
+
+    def __init__(self):
+        self.inputs = {}
+
+    def __enter__(self):
+        from multimodal_context_reasoning_torch.ops.spec_attention import fused_attention_spec
+
+        launch = fused_attention_spec.launch
+
+        def kept(q, k, v, valid, gi, rowfull, *, stage, text_len):
+            if stage not in self.inputs:
+                self.inputs[stage] = dict(
+                    args=tuple(t.detach() for t in (q, k, v, valid, gi, rowfull)),
+                    stage=stage, text_len=text_len)
+            return launch(q, k, v, valid, gi, rowfull, stage=stage, text_len=text_len)
+
+        fused_attention_spec.launch = kept
+        return self
+
+    def __exit__(self, *exc):
+        from multimodal_context_reasoning_torch.ops.spec_attention import fused_attention_spec
+
+        del fused_attention_spec.launch
+        return False
+
+
+def held_stage1_pass(model, batch) -> tuple:
+    """One more stage-1 forward and backward on a training batch (no
+    update), each backward launch held against its plain version and both
+    against float64, the first launches kept; the kernel counts are left as
+    they were (these launches compare, they are not the path's)."""
+    from multimodal_context_reasoning_torch.train.step import model_inputs
+
+    before = read_counts()
+    with HeldBackward(keep=True) as held, CapturedSpec() as spec:
+        model.train()
+        out = model(model_inputs(batch))
+        torch.autograd.grad(out.loss, [p for p in model.parameters() if p.requires_grad],
+                            allow_unused=True)
+        torch.cuda.synchronize()
+    for name, w in wrappers().items():
+        w.launches = before[name]
+    return held, spec
+
+
+def two_stage_phase(rng) -> dict:
+    """Phase 19b: ``cli.train_two_stage.main(argv)`` at full width, bf16,
+    dropout 0, on PMR rows written from the seed, with every train and eval
+    step of both stages counted and timed; after the last stage-1 step one
+    held pass (19c's inputs)."""
+    from multimodal_context_reasoning_torch.cli import train_two_stage
+    from multimodal_context_reasoning_torch.core.config import ModCRConfig
+    from multimodal_context_reasoning_torch.interop.export import chunkalign_cls_keys
+    from multimodal_context_reasoning_torch.serving.synthetic import task_rows, write_rows
+    from multimodal_context_reasoning_torch.train import trainer as trainer_module
+
+    tmp = tempfile.mkdtemp(prefix="two_stage_")
+    cfg = ModCRConfig()
+    data = os.path.join(tmp, "pmr.jsonl")
+    write_rows(data, task_rows(rng, TWO_STAGE_EXAMPLES, cfg.img_len, first=300_000))
+    argv = ["--jsonl", data, "--out", os.path.join(tmp, "out"), "--device", "cuda",
+            "--seed", str(SEED), "--stage1_dropout", "0", "--dropout", "0",
+            "--stage1_batch", str(TWO_STAGE_QUESTIONS), "--batch", str(TWO_STAGE_QUESTIONS),
+            "--stage1_steps", str(STAGE1_STEPS), "--stage2_steps", str(STAGE2_STEPS),
+            "--valid_steps", str(TWO_STAGE_VALID)]
+    records, peaks, reports, held = [], {}, [], {}
+    current = [None]
+
+    def staged(fn, kind):
+        def run(*args):
+            model = args[0].model if kind == "train" else args[0]
+            stage = 1 if type(model).__name__ == "ChunkAlignClassifier" else 2
+            if current[0] != stage:
+                if current[0] is not None:
+                    torch.cuda.synchronize()
+                    peaks[current[0]] = torch.cuda.max_memory_allocated() / 2**30
+                torch.cuda.reset_peak_memory_stats()
+                current[0] = stage
+            before = read_counts()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            out = fn(*args)
+            end.record()
+            torch.cuda.synchronize()
+            after = read_counts()
+            records.append(dict(kind=kind, stage=stage, out=out, seconds=time.perf_counter() - t0,
+                                device_ms=start.elapsed_time(end),
+                                launches={k: after[k] - before[k] for k in after}))
+            if (kind, stage) == ("train", 1) and sum(
+                    r["kind"] == "train" and r["stage"] == 1 for r in records) == STAGE1_STEPS:
+                held["held"], held["spec"] = held_stage1_pass(model, args[1])
+            return out
+        return run
+
+    assemble = train_two_stage.assemble_modcr_params
+
+    def recorded_assemble(*args, **kw):
+        reports.append(assemble(*args, **kw))
+        return reports[-1]
+
+    saved = (trainer_module.train_step, trainer_module.eval_step)
+    trainer_module.train_step = staged(saved[0], "train")
+    trainer_module.eval_step = staged(saved[1], "eval")
+    train_two_stage.assemble_modcr_params = recorded_assemble
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        curve = train_two_stage.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        peaks[current[0]] = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        trainer_module.train_step, trainer_module.eval_step = saved
+        train_two_stage.assemble_modcr_params = assemble
+    npz = os.path.join(tmp, "out", "chunkalign_cls_state_dict.npz")
+    with np.load(npz) as z:
+        npz_keys = list(z.files)
+    shutil.rmtree(tmp)
+
+    cfg2 = train_two_stage.composite_config(train_two_stage.build_arg_parser().parse_args(argv))
+    enc = cfg2.seq_encoder
+    want = {("train", 1): stage1_launches(enc, cfg2.chunkalign),
+            ("eval", 1): {**stage1_launches(enc, cfg2.chunkalign), "flash_bwd": 0},
+            ("train", 2): STEP_LAUNCHES,
+            ("eval", 2): {"spec_attention": spec_launches_per_eval_forward(cfg2),
+                          "fused_attention": (cfg2.roberta.num_hidden_layers
+                                              if cfg2.roberta.remat else 0),
+                          "flash_bwd": 0}}
+    for i, r in enumerate(records):
+        check(r["launches"] == want[(r["kind"], r["stage"])],
+              f"19b record {i} ({r['kind']}, stage {r['stage']}): launches {r['launches']}, "
+              f"want {want[(r['kind'], r['stage'])]}")
+    steps = {st: [r for r in records if r["kind"] == "train" and r["stage"] == st]
+             for st in (1, 2)}
+    losses = {st: [float(r["out"]["loss"]) for r in steps[st]] for st in (1, 2)}
+    check(len(steps[1]) == STAGE1_STEPS and len(steps[2]) == STAGE2_STEPS,
+          f"19b: {len(steps[1])} / {len(steps[2])} train steps")
+    check(all(np.isfinite(v).all() for v in losses.values()), f"19b: losses {losses}")
+    check(npz_keys == chunkalign_cls_keys(enc), "19b: the export's keys")
+    report = reports[0]
+    n_tower = sum(k.startswith(("global_enc.", "seq_enc.")) for k in npz_keys)
+    check(len(reports) == 1 and not report.unconsumed and not report.skipped
+          and len(report.consumed) == n_tower, f"19b: graft {report.summary()}")
+    check(set(curve) == {"task", "data", "n_train", "n_val", "batch", "stage1_batch", "lr1",
+                         "lr2", "align_weight", "seed", "tiny", "stage1", "stage2"}
+          and set(curve["stage1"]) == {"steps", "baseline_acc", "best_acc", "final_acc",
+                                       "wall_seconds", "history"}
+          and set(curve["stage2"]) == {"steps", "post_surgery_acc", "best_acc", "final_acc",
+                                       "wall_seconds", "history"}
+          and len(curve["stage1"]["history"]) == STAGE1_STEPS // TWO_STAGE_VALID
+          and len(curve["stage2"]["history"]) == 1 + STAGE2_STEPS // TWO_STAGE_VALID,
+          f"19b: curve {json.dumps(curve)[:400]}")
+    check(all(launches[k] > 0 for k in KERNELS), f"19b launches {launches}")
+    stage_launches = {st: {k: sum(r["launches"][k] for r in records if r["stage"] == st)
+                           for k in KERNELS} for st in (1, 2)}
+    check({k: stage_launches[1][k] + stage_launches[2][k] for k in KERNELS} == launches,
+          f"19b: launches outside the steps {launches}")
+    device_ms = {st: [r["device_ms"] for r in steps[st]] for st in (1, 2)}
+    steady = {st: statistics.median(device_ms[st][1:]) for st in (1, 2)}
+    r = dict(stage1_questions_per_step=TWO_STAGE_QUESTIONS, stage1_rows=4 * TWO_STAGE_QUESTIONS,
+             stage1_ms_per_step=device_ms[1], stage2_ms_per_step=device_ms[2],
+             stage1_steady_ms=steady[1], stage2_steady_ms=steady[2],
+             stage1_questions_per_s=TWO_STAGE_QUESTIONS / steady[1] * 1e3,
+             peak_gib={f"stage{k}": v for k, v in peaks.items()}, wall_seconds=wall,
+             losses=losses, launches=launches, stage1_launches=stage_launches[1],
+             stage1_launches_per_step=want[("train", 1)],
+             stage1_launches_per_eval=want[("eval", 1)],
+             stage2_launches_per_eval=want[("eval", 2)],
+             stage2_launches=stage_launches[2], graft=report.summary(),
+             post_surgery_acc=curve["stage2"]["post_surgery_acc"],
+             stage1_best_acc=curve["stage1"]["best_acc"],
+             stage2_best_acc=curve["stage2"]["best_acc"],
+             stage1_wall_seconds=curve["stage1"]["wall_seconds"],
+             stage2_wall_seconds=curve["stage2"]["wall_seconds"])
+    print(f"[19b two-stage] full-width bf16, dropout 0, {TWO_STAGE_QUESTIONS} questions "
+          f"({4 * TWO_STAGE_QUESTIONS} rows) a step: stage-1 losses "
+          f"{np.round(losses[1], 4).tolist()} | stage-2 losses {np.round(losses[2], 4).tolist()}")
+    print(f"[19b two-stage] device ms per step: stage 1 {np.round(device_ms[1], 2).tolist()} -> "
+          f"median of steps 2-{STAGE1_STEPS} {steady[1]:.2f} ms = "
+          f"{r['stage1_questions_per_s']:.2f} questions/s | stage 2 "
+          f"{np.round(device_ms[2], 2).tolist()} -> {steady[2]:.2f} ms | peak "
+          f"{r['peak_gib']} GiB | main() wall {wall:.2f} s (stage 1 fit "
+          f"{r['stage1_wall_seconds']} s, stage 2 fit {r['stage2_wall_seconds']} s)")
+    print(f"[19b two-stage] launches per step: stage 1 {steps[1][0]['launches']}, stage 2 "
+          f"{steps[2][0]['launches']}; per eval forward {want[('eval', 1)]} / "
+          f"{want[('eval', 2)]} (all equal) | stage 1 {stage_launches[1]}, stage 2 "
+          f"{stage_launches[2]} | export {len(npz_keys)} keys | graft {report.summary()} | "
+          f"accuracy: stage-1 best {r['stage1_best_acc']:.4f}, post-surgery "
+          f"{r['post_surgery_acc']:.4f}, stage-2 best {r['stage2_best_acc']:.4f}")
+    r["held"] = held
+    return r
+
+
+def time_stage1_kernels(held, spec, per_step: int) -> dict:
+    """Phase 19c: the held pass's backward launches against their plain
+    version and float64 (dq's distance from float64 as a share of max |dq|,
+    kernel and plain), then the stage-mask forward and the backward at the
+    stage-1 shape on the kept full-stage and chunk-stage inputs: kernel,
+    plain version and SDPA per call and back to back, and the bound."""
+    from multimodal_context_reasoning_torch.ops.flash import (
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+    )
+    from multimodal_context_reasoning_torch.ops.spec_attention import (
+        fused_attention_spec,
+        spec_attention_plain,
+    )
+
+    dt = torch.bfloat16
+    held_rows = {f"{k[0]} {k[1]} bias {k[2]}": dict(
+        launches=n, kernel_vs_plain=w[0], kernel_vs_exact=w[1], plain_vs_exact=w[2],
+        dq_share_kernel=w[1][0], dq_share_plain=w[2][0])
+        for k, (n, w) in held.seen.items()}
+    print(f"[19c stage-1 backward] one more stage-1 step, each backward launch against its plain "
+          f"version and both against float64 ([dq, dk, dv], each over its max |exact|): "
+          f"{held_rows}")
+    held_ok = all(k <= p + BWD_TOL[dt] for h in held_rows.values()
+                  for k, p in zip(h["kernel_vs_exact"], h["plain_vs_exact"]))
+    check(held_ok, f"19c: backward launches against plain and float64 {held_rows}")
+    fwd_rows, bwd_rows = [], []
+    for stage in ("full", "chunk"):
+        kept = spec.inputs[stage]
+        q, k, v, valid, gi, rowfull = kept["args"]
+        check(q.dtype == dt, f"19c: {stage} forward in {q.dtype}")
+        kw = dict(stage=stage, text_len=kept["text_len"])
+        case = dict(q=q, k=k, stage=stage, text_len=kept["text_len"])
+        name = f"stage-1 encoder {stage} {tuple(q.shape[:2]) + (k.shape[1],) + tuple(q.shape[2:])}"
+        kernel = lambda: fused_attention_spec(q, k, v, valid, gi, rowfull, **kw)
+        plain = lambda: spec_attention_plain(q, k, v, valid, gi, rowfull, **kw)
+        sdpa = sdpa_call(q, k, v, valid, gi, rowfull, case)
+        err = errors(kernel(), plain())[0]
+        check(err <= TOL[dt], f"19c {stage} forward: {err}")
+        b_ms, b_by = bound(case, dt)
+        row = dict(shape=name, kind="forward", max_abs_err=err, ms=median_ms(kernel),
+                   plain_ms=median_ms(plain), library_ms=median_ms(sdpa),
+                   b2b_ms=back_to_back_ms(kernel), library_b2b_ms=back_to_back_ms(sdpa),
+                   bound_ms=b_ms, bound_by=b_by)
+        fwd_rows.append(row)
+        print(f"[19c stage-1 forward] {name:44s} vs plain {err:.2e} | per call: kernel "
+              f"{row['ms']:.4f} | plain {row['plain_ms']:.4f} | sdpa {row['library_ms']:.4f} ms; "
+              f"back to back: kernel {row['b2b_ms']:.4f} | sdpa {row['library_b2b_ms']:.4f} ms "
+              f"| bound {b_ms:.4f} ms ({b_by})")
+
+        key = next(key for key in held.inputs if key[2] is not None
+                   and (key[2][2] == 1) == (stage == "full"))
+        q, k, v, bias, d_out = held.inputs[key]
+        got = flash_attention_bwd(q, k, v, bias, d_out, want_dbias=False)
+        want = flash_attention_bwd_plain(q, k, v, bias, d_out)
+        err = max(errors(g, w)[0] for g, w in zip(got[:3], want[:3]))   # dq, dk, dv
+        del got, want
+        q4, k4, v4 = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        out_t = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4,
+                                                                 attn_mask=bias.to(dt))
+        d_out_t = d_out.transpose(1, 2)
+        kernel = lambda: flash_attention_bwd(q, k, v, bias, d_out, want_dbias=False)
+        library = lambda: torch.autograd.grad(out_t, (q4, k4, v4), d_out_t, retain_graph=True)
+        B, L, H, Dh = q.shape
+        nbytes = 2 * (7 * B * L * H * Dh) + 4 * bias.numel()
+        flops = 10.0 * B * H * L * L * Dh
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dt]
+        share = held_rows[f"{key[0]} {key[1]} bias {key[2]}"]
+        row = dict(shape=name.replace("encoder", "encoder backward"), bias=list(bias.shape),
+                   kind="backward", max_abs_err=err, ms=median_ms(kernel),
+                   plain_ms=median_ms(lambda: flash_attention_bwd_plain(q, k, v, bias, d_out)),
+                   library_ms=median_ms(library), b2b_ms=back_to_back_ms(kernel),
+                   library_b2b_ms=back_to_back_ms(library), bound_ms=1e3 * max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   launches_per_step=share["launches"], dq_share_kernel=share["dq_share_kernel"],
+                   dq_share_plain=share["dq_share_plain"])
+        bwd_rows.append(row)
+        print(f"[19c stage-1 backward] {name:44s} bias {row['bias']}: vs plain {err:.2e} | dq "
+              f"from float64 over max |dq|: kernel {row['dq_share_kernel']:.4f}, plain "
+              f"{row['dq_share_plain']:.4f} | per call: kernel {row['ms']:.4f} | plain "
+              f"{row['plain_ms']:.4f} | sdpa {row['library_ms']:.4f} ms; back to back: kernel "
+              f"{row['b2b_ms']:.4f} | sdpa {row['library_b2b_ms']:.4f} ms | bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        del q4, k4, v4, out_t
+    check(sum(h["launches"] for h in held_rows.values()) == per_step,
+          f"19c: held launches {held_rows}")
+    torch.cuda.empty_cache()
+    return dict(forward=fwd_rows, backward=bwd_rows, held=held_rows)
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
@@ -2618,6 +3011,19 @@ def main() -> int:
     rationale = rationale_train_phase(rng)
     encoder_bwd = time_encoder_backward(rng)
 
+    # 19. the two-stage recipe: stage-1 parity, the command at full width,
+    # then the kernels on the inputs of one more stage-1 step
+    t19 = time.perf_counter()
+    stage1_parity_r = stage1_parity(rng)
+    two_stage = two_stage_phase(rng)
+    held = two_stage.pop("held")
+    stage1_kernels = time_stage1_kernels(held["held"], held["spec"],
+                                         two_stage["stage1_launches_per_step"]["flash_bwd"])
+    del held
+    two_stage.update(parity=stage1_parity_r, backward_held=stage1_kernels["held"],
+                     phase_seconds=time.perf_counter() - t19)
+    print(f"[19] phases 19a-19c took {two_stage['phase_seconds']:.1f} s")
+
     # 11. kernels line, then the result line
     print(card)
     print(json.dumps({"serving": serving, "e2e_fp32_max_abs_diff": e2e_err,
@@ -2629,7 +3035,8 @@ def main() -> int:
                       "generate": {k: v for k, v in generated.items() if k != "launches"},
                       "beam_cbs": {k: v for k, v in beam_cbs.items() if k != "launches"},
                       "rationale_train": {k: v for k, v in rationale.items()
-                                          if k != "launches"}}))
+                                          if k != "launches"},
+                      "two_stage": {k: v for k, v in two_stage.items() if k != "launches"}}))
     main_path = train["launches"]
     shape = "bf16 (128, 128, 138, 16, 64), one launch, as one RoBERTa layer of the slice"
 
@@ -2649,8 +3056,11 @@ def main() -> int:
         "generate_launches": generated["launches"],
         "beam_cbs_launches": beam_cbs["launches"]["spec_attention"],
         "rationale_train_launches": rationale["launches"]["spec_attention"],
+        "stage1_launches": two_stage["stage1_launches"]["spec_attention"],
+        "two_stage_launches": two_stage["launches"]["spec_attention"],
         "max_abs_err": max(max_err, train_err["spec_attention"],
-                           long_keys["max_abs_err"]["spec_attention"]),
+                           long_keys["max_abs_err"]["spec_attention"],
+                           *(r["max_abs_err"] for r in stage1_kernels["forward"])),
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],
         "bound_ms": totals["bound_ms"],
@@ -2663,6 +3073,7 @@ def main() -> int:
         "shapes": per_shape,
         "training_shapes": train_spec,
         "long_keys": long_key_row("spec_attention"),
+        "encoder_shapes": stage1_kernels["forward"],
     }, {
         "name": "fused_attention",
         "route": "cuda",
@@ -2671,6 +3082,8 @@ def main() -> int:
         "launches": main_path["fused_attention"],
         "cli_launches": cli["launches"]["fused_attention"],
         "serve_launches": served["launches"]["fused_attention"],
+        "stage1_launches": two_stage["stage1_launches"]["fused_attention"],
+        "two_stage_launches": two_stage["launches"]["fused_attention"],
         "max_abs_err": max(train_err["fused_attention"],
                            long_keys["max_abs_err"]["fused_attention"]),
         **train_times["fused_attention"],
@@ -2685,12 +3098,14 @@ def main() -> int:
         "cli_launches": cli["launches"]["flash_bwd"],
         "serve_launches": served["launches"]["flash_bwd"],
         "rationale_train_launches": rationale["launches"]["flash_bwd"],
+        "stage1_launches": two_stage["stage1_launches"]["flash_bwd"],
+        "two_stage_launches": two_stage["launches"]["flash_bwd"],
         "max_abs_err": max(train_err["flash_bwd"], long_keys["max_abs_err"]["flash_bwd"],
-                           *(r["max_abs_err"] for r in encoder_bwd)),
+                           *(r["max_abs_err"] for r in encoder_bwd + stage1_kernels["backward"])),
         **train_times["flash_bwd"],
         "timed_as": shape + ", no dbias plane",
         "long_keys": long_key_row("flash_bwd"),
-        "encoder_shapes": encoder_bwd,
+        "encoder_shapes": encoder_bwd + stage1_kernels["backward"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -16,6 +16,9 @@ Mirrors the reference's model-build sequence (run_PMR_ModCR.py:709-835):
    ``classifier.`` keys before the load (:819-832), so those heads keep
    their fresh init.
 
+:func:`assemble_chunkalign_cls_params` grafts a reference
+``ChunkAlign_CLS_enc4_align`` checkpoint (the stage-1 ChunkAlign pretrain,
+v10.py:1016-1165) into the port's ``ChunkAlignClassifier`` state dict.
 :func:`assemble_rationale_params` grafts a reference ``ChunkAlign_CLS_dec5_4``
 checkpoint (the rationale family, v10.py:1319-1494) into the port's
 ``RationaleModel`` state dict, with the JAX function's report, and
@@ -352,15 +355,55 @@ _CLS_REASON_NORMS = ("LayerNorm.", "output.LayerNorm.")
 _GPT2_BLOCK = ("ln_1.", "attn.c_attn.", "attn.c_proj.", "ln_2.", "mlp.c_fc.", "mlp.c_proj.")
 _GPT2_CROSS = ("crossattention.q_attn.", "crossattention.c_attn.",
                "crossattention.c_proj.", "ln_cross_attn.")
+_CLS_REASON_DEAD = (
+    r"^cls_layer\.\d+\.attention\.",
+    "dead BertSelfAttention inside ClsLayer2 — its forward reads "
+    "only cls_q_proj/align_k_proj/dense/LayerNorm/FFN "
+    "(v10.py:801-837)")
 _RATIONALE_LEFTOVERS = (
     (r"^dec\.h\.\d+\.(crossattention|attn)\.(bias|masked_bias)$",
      "GPT-2 causal-mask buffer, not a parameter "
      "(modeling_transfomres.py Attention.register_buffer)"),
-    (r"^cls_layer\.\d+\.attention\.",
-     "dead BertSelfAttention inside ClsLayer2 — its forward reads "
-     "only cls_q_proj/align_k_proj/dense/LayerNorm/FFN "
-     "(v10.py:801-837)"),
+    _CLS_REASON_DEAD,
 )
+
+
+def _graft_candidate_classifier(params: Dict[str, torch.Tensor], sd: _TrackedSD, enc_cfg,
+                                cls_layer_num: int) -> StateDict:
+    """The two towers (word embeddings resized to ``enc_cfg.vocab_size``,
+    ``edge_dense`` kept) grafted into ``params``; returns the flat
+    ``cls_ensemble`` / ``classifier`` / ``cls_layer.N.*`` entries to merge."""
+    _graft_encoder(params, sd.sub("global_enc."), "global_enc.", enc_cfg)
+    _graft_seq_encoder(params, sd.sub("seq_enc."), enc_cfg, target="seq_enc.")
+    flat: StateDict = {}
+    flat.update(_linear(sd, "cls_ensemble."))
+    flat.update(_linear(sd, "classifier."))
+    for i in range(cls_layer_num):
+        p = f"cls_layer.{i}."
+        for name in _CLS_REASON_LINEARS + _CLS_REASON_NORMS:
+            flat.update(_linear(sd, p + name))
+    return flat
+
+
+def assemble_chunkalign_cls_params(
+    params: Dict[str, torch.Tensor],
+    enc_cfg,
+    cls_sd: StateDict,
+    *,
+    cls_layer_num: int = 3,
+    strict: bool = True,
+) -> AssembleReport:
+    """Graft a reference ``ChunkAlign_CLS_enc4_align`` state dict (the
+    stage-1 ChunkAlign-pretrain checkpoint, v10.py:1016-1165, or the export
+    of interop/export.py) into the port's ``ChunkAlignClassifier`` state
+    dict ``params``, in place (the JAX ``assemble_chunkalign_cls_params``):
+    ``global_enc.*`` / ``seq_enc.*``, ``cls_ensemble``, ``classifier`` and
+    ``cls_layer.N.*``; ClsLayer2's dead attention is reported as skipped."""
+    report = AssembleReport()
+    sd = _TrackedSD(cls_sd)
+    _merge(params, "", _graft_candidate_classifier(params, sd, enc_cfg, cls_layer_num))
+    _finish(report, sd, strict, extra=(_CLS_REASON_DEAD,))
+    return report
 
 
 def assemble_rationale_params(
@@ -374,25 +417,14 @@ def assemble_rationale_params(
 ) -> AssembleReport:
     """Graft a reference ``ChunkAlign_CLS_dec5_4`` state dict into the
     port's ``RationaleModel`` state dict ``params``, in place (the JAX
-    ``assemble_rationale_params``): ``global_enc.*`` / ``seq_enc.*`` (the
-    word embeddings resized to ``enc_cfg.vocab_size``, ``edge_dense``
-    kept), ``cls_ensemble`` and ``classifier``, ``cls_layer.N.*``, the
-    vendored GPT-2 ``dec.*`` (a block's cross-attention keys where the
-    checkpoint has them) and the untied ``lm_head``.  The GPT-2 causal-mask
-    buffers and ClsLayer2's dead attention are reported as skipped."""
+    ``assemble_rationale_params``): the candidate classifier's keys as
+    :func:`assemble_chunkalign_cls_params` takes them, the vendored GPT-2
+    ``dec.*`` (a block's cross-attention keys where the checkpoint has them)
+    and the untied ``lm_head``.  The GPT-2 causal-mask buffers and
+    ClsLayer2's dead attention are reported as skipped."""
     report = AssembleReport()
     sd = _TrackedSD(rationale_sd)
-    _graft_encoder(params, sd.sub("global_enc."), "global_enc.", enc_cfg)
-    _graft_seq_encoder(params, sd.sub("seq_enc."), enc_cfg, target="seq_enc.")
-    flat: StateDict = {}
-    flat.update(_linear(sd, "cls_ensemble."))
-    flat.update(_linear(sd, "classifier."))
-    for i in range(cls_layer_num):
-        p = f"cls_layer.{i}."
-        for name in _CLS_REASON_LINEARS:
-            flat.update(_linear(sd, p + name))
-        for name in _CLS_REASON_NORMS:
-            flat.update(_linear(sd, p + name))
+    flat = _graft_candidate_classifier(params, sd, enc_cfg, cls_layer_num)
     for name in ("dec.wte.weight", "dec.wpe.weight", "lm_head.weight"):
         flat[name] = sd[name]
     flat.update(_linear(sd, "dec.ln_f."))

@@ -12,6 +12,10 @@ LayerNorm when the config has one, the ``promptfuse`` prefix of that
 ablation, and unstacks a scanned RoBERTa tree (``layers/layer/<leaf>`` with a
 leading [N] axis) into per-layer keys.
 
+``chunkalign_cls_params_from_jax(tree, enc_cfg)`` maps a JAX
+``ChunkAlignClassifier`` tree to the keys of the JAX package's
+``interop/export.py:export_chunkalign_cls_state_dict``, and
+``oscar_heads_params_from_jax`` a JAX ``models/oscar_heads.py`` head's.
 ``rationale_params_from_jax(tree, enc_cfg, gpt2_cfg)`` does the same for a
 JAX ``RationaleModel`` tree, with the keys and values of the JAX package's
 ``interop/export.py:export_rationale_state_dict`` (the reference
@@ -171,10 +175,12 @@ def gpt2_params_from_jax(tree: Dict[str, Any], n_layer: int, prefix: str = "") -
     return out
 
 
-def rationale_params_from_jax(tree: Dict[str, Any], enc_cfg, gpt2_cfg, *,
-                              cls_layer_num: int = 3) -> StateDict:
-    """JAX ``RationaleModel`` parameter tree -> the port's
-    ``RationaleModel`` state dict (fp32, CPU)."""
+def chunkalign_cls_params_from_jax(tree: Dict[str, Any], enc_cfg, *,
+                                   cls_layer_num: int = 3) -> StateDict:
+    """JAX ``ChunkAlignClassifier`` parameter tree -> the port's
+    ``ChunkAlignClassifier`` state dict (fp32, CPU): the keys and values of
+    the JAX package's ``interop/export.py:export_chunkalign_cls_state_dict``
+    (the reference ``ChunkAlign_CLS_enc4_align`` layout)."""
     root = tree["params"] if "params" in tree else tree
     out: StateDict = {}
     _encoder(out, "global_enc.", root["global_enc"], enc_cfg.num_hidden_layers)
@@ -191,7 +197,40 @@ def rationale_params_from_jax(tree: Dict[str, Any], enc_cfg, gpt2_cfg, *,
         _lin(out, p + "intermediate.dense.", layer["ffn"]["intermediate"])
         _lin(out, p + "output.dense.", layer["ffn"]["output"])
         _ln(out, p + "output.LayerNorm.", layer["ffn"]["output_layer_norm"])
+    return out
+
+
+def rationale_params_from_jax(tree: Dict[str, Any], enc_cfg, gpt2_cfg, *,
+                              cls_layer_num: int = 3) -> StateDict:
+    """JAX ``RationaleModel`` parameter tree -> the port's
+    ``RationaleModel`` state dict (fp32, CPU): the classifier's keys, then
+    the decoder's."""
+    root = tree["params"] if "params" in tree else tree
+    out = chunkalign_cls_params_from_jax(root, enc_cfg, cls_layer_num=cls_layer_num)
     dec = gpt2_params_from_jax(root["dec"], gpt2_cfg.n_layer, "dec.")
     out["lm_head.weight"] = dec.pop("dec.lm_head.weight")
     out.update(dec)
+    return out
+
+
+def oscar_heads_params_from_jax(tree: Dict[str, Any]) -> StateDict:
+    """A JAX ``models/oscar_heads.py`` head's parameter tree -> the port
+    head's state dict (fp32, CPU): each Dense by its Flax name, the
+    transform's LayerNorm as ``transform_layer_norm``, ``decoder_bias`` as
+    it is, nested heads (``predictions``) under their names."""
+    root = tree["params"] if "params" in tree else tree
+    out: StateDict = {}
+
+    def walk(node: Dict[str, Any], prefix: str) -> None:
+        for name, child in node.items():
+            if not isinstance(child, dict):
+                out[prefix + name] = _t(child)
+            elif "kernel" in child:
+                _lin(out, f"{prefix}{name}.", child)
+            elif "scale" in child:
+                _ln(out, f"{prefix}{name}.", child)
+            else:
+                walk(child, f"{prefix}{name}.")
+
+    walk(root, "")
     return out

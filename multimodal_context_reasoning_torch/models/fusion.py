@@ -23,14 +23,22 @@ from multimodal_context_reasoning_torch.ops.masks import padding_bias
 
 
 class ClsLayerLyx(FeedForward):
-    """Single-query multi-head cross-attention + FFN (ClsLayer_lyx) on its
-    production path: temperature 1, no inverted attention, no prior.  Keys:
-    ``cross_attention.{q,k,v,out}_proj``, ``LayerNorm`` and the FFN's."""
+    """Single-query multi-head cross-attention + FFN (ClsLayer_lyx).  Keys:
+    ``cross_attention.{q,k,v,out}_proj``, ``LayerNorm`` and the FFN's.
 
-    def __init__(self, c: EncoderConfig, num_heads: int = 8):
+    The production path (temperature 1, no inverted attention, no prior)
+    runs :func:`dot_product_attention`.  ``cross_attention_lyx``'s other
+    options take an explicit path: scores over sqrt(Dh) plus the bias,
+    divided by ``tau``, softmax, ``1 - p`` under ``neg_type``, ``+
+    prior_score``, then dropout."""
+
+    def __init__(self, c: EncoderConfig, num_heads: int = 8, *, tau: float = 1.0,
+                 neg_type: bool = False):
         super().__init__(c)
         self.config = c
         self.num_heads = num_heads
+        self.tau = tau
+        self.neg_type = neg_type
         D, dt = c.hidden_size, c.torch_dtype
         self.cross_attention = nn.ModuleDict(
             {name: Linear(D, D, dt) for name in ("q_proj", "k_proj", "v_proj", "out_proj")}
@@ -43,6 +51,7 @@ class ClsLayerLyx(FeedForward):
         memory: torch.Tensor,                   # [B, M, D]
         cls: torch.Tensor,                      # [B, D]
         memory_bias: Optional[torch.Tensor],    # [B, 1, 1, M] additive or None
+        prior_score: Optional[torch.Tensor] = None,   # [B, 1, M] added to probs
     ) -> torch.Tensor:
         c = self.config
         D = c.hidden_size
@@ -52,10 +61,21 @@ class ClsLayerLyx(FeedForward):
         q = att.q_proj(cls[:, None, :]).view(B, 1, self.num_heads, Dh)
         k = att.k_proj(memory).view(B, M, self.num_heads, Dh)
         v = att.v_proj(memory).view(B, M, self.num_heads, Dh)
-        out, _ = dot_product_attention(
-            q, k, v, memory_bias,
-            dropout_rate=c.attention_probs_dropout_prob, training=self.training,
-        )
+        drop = c.attention_probs_dropout_prob
+        if self.tau != 1.0 or self.neg_type or prior_score is not None:
+            scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / Dh ** 0.5
+            if memory_bias is not None:
+                scores = scores + memory_bias.float()
+            probs = torch.softmax(scores / self.tau, dim=-1)
+            if self.neg_type:
+                probs = 1.0 - probs
+            if prior_score is not None:
+                probs = probs + prior_score[:, None].float()
+            probs = F.dropout(probs, drop, training=self.training)
+            out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+        else:
+            out, _ = dot_product_attention(q, k, v, memory_bias, dropout_rate=drop,
+                                           training=self.training)
         out = self.dropout(att.out_proj(out.reshape(B, 1, D))[:, 0])
         h = self.LayerNorm(out + cls)
         return super().forward(h[:, None, :])[:, 0]

@@ -44,6 +44,7 @@ from multimodal_context_reasoning_torch.core.config import (
 from multimodal_context_reasoning_torch.core.device import resolve_device
 from multimodal_context_reasoning_torch.models.encoders import (
     ChunkAlignEncoder,
+    EncoderOutput,
     GlobalImageEncoder,
 )
 from multimodal_context_reasoning_torch.models.gpt2 import GPT2Decoder
@@ -88,9 +89,10 @@ def binary_to_mp(logits: torch.Tensor, num_labels: int = 4) -> torch.Tensor:
 
 class ClsReasonLayer(FeedForward):
     """Single-query cross-attention of the CLS over a memory + BERT FFN
-    (ClsLayer2 in its exact form): one head, raw unscaled dot products of
-    ``cls_q_proj(cls)`` against ``align_k_proj(memory)``, whose output is
-    the values too; dense + residual + LayerNorm, then the FFN.  Returns the
+    (ClsLayer2 in its exact form): one head, raw dot products of
+    ``cls_q_proj(cls)`` against ``align_k_proj(memory)`` (no 1/sqrt(d), only
+    the temperature ``tau``), whose output is the values too; ``neg`` takes
+    1 - softmax; dense + residual + LayerNorm, then the FFN.  Returns the
     attention weights (after dropout, as the reference), so it stays plain
     PyTorch."""
 
@@ -104,16 +106,75 @@ class ClsReasonLayer(FeedForward):
         self.dropout = nn.Dropout(c.hidden_dropout_prob)
 
     def forward(self, memory: torch.Tensor, cls: torch.Tensor,
-                memory_bias: Optional[torch.Tensor]):
+                memory_bias: Optional[torch.Tensor], *, tau: float = 1.0,
+                neg: bool = False):
         q = self.cls_q_proj(cls[:, None, :])                       # [B, 1, D]
         kv = self.align_k_proj(memory)                             # [B, M, D]
         scores = torch.einsum("bqd,bmd->bqm", q, kv).float()
         if memory_bias is not None:
             scores = scores + memory_bias[:, 0].float()
-        probs = self.dropout(torch.softmax(scores, dim=-1))
+        probs = torch.softmax(scores / tau, dim=-1)
+        if neg:
+            probs = 1.0 - probs
+        probs = self.dropout(probs)
         ctx = torch.einsum("bqm,bmd->bqd", probs.to(kv.dtype), kv)[:, 0]
         h = self.LayerNorm(self.dropout(self.dense(ctx)) + cls)
         return super().forward(h[:, None, :])[:, 0], probs[:, 0, :]
+
+
+class CandidatePass(NamedTuple):
+    """What :func:`classify_candidates` computes for each candidate row."""
+    g: EncoderOutput                  # the global encoder's outputs
+    s: EncoderOutput                  # the ChunkAlign encoder's outputs
+    logits: torch.Tensor              # [B, 2] binary logits
+    cls_loss: torch.Tensor            # scalar binary CE (0 without a label)
+    mp_probs: torch.Tensor            # [Q, num_labels] choice probabilities
+    tri_mask: torch.Tensor            # [B, 3(T-1)] the reasoning memory's mask
+    cls_attn: torch.Tensor            # [B, 3(T-1)] summed reasoning-layer attention
+
+
+def classify_candidates(model: nn.Module, batch: Dict[str, torch.Tensor], *,
+                        output_attentions: bool) -> CandidatePass:
+    """The candidate classifier shared by the rationale family and the
+    stage-1 ChunkAlign classifier (models/chunkalign_cls.py): both encoders,
+    ``cls_ensemble`` over their pooled vectors, the ``cls_layer`` stack over
+    the ``[global ‖ seq ‖ chunk_hidden]`` memory of positions 1..T-1 with its
+    padding masked, ``classifier``, the binary CE in fp32 and
+    :func:`binary_to_mp`.  ``model`` carries those five children and
+    ``num_labels`` / ``max_chunks``; ``output_attentions`` asks the
+    ChunkAlign encoder's cross layers for their probabilities (their plain
+    attention path)."""
+    input_ids = batch["input_ids"]       # [B, T] (B = Q · num_labels)
+    text_mask = batch["text_mask"]
+    img_feat = batch["img_feat"]
+    token_type_ids = batch.get("token_type_ids")
+    T = input_ids.shape[1]
+
+    g = model.global_enc(input_ids, img_feat, torch.cat([text_mask, batch["img_mask"]], dim=-1),
+                         token_type_ids)
+    s = model.seq_enc(input_ids, img_feat, text_mask, batch["img_mask"],
+                      batch.get("chunk_mask"), batch["gather_index"], model.max_chunks,
+                      token_type_ids, output_attentions=output_attentions)
+
+    cls = model.cls_ensemble(torch.cat([g.pooled, s.pooled], dim=-1))
+    memory = torch.cat([g.sequence[:, 1:T], s.sequence[:, 1:T], s.chunk_hidden[:, 1:T]], dim=1)
+    word = text_mask[:, 1:T].float()
+    tri_mask = torch.cat([word, word, word], dim=-1)
+    memory_bias = ((1.0 - tri_mask) * NEG_INF)[:, None, None, :]
+    attn_sum = torch.zeros(memory.shape[:2], device=memory.device)
+    for layer in model.cls_layer:
+        cls, probs = layer(memory, cls, memory_bias)
+        attn_sum = attn_sum + probs.float()
+    logits = model.classifier(cls)                             # [B, 2]
+
+    cls_loss = torch.zeros((), device=logits.device)
+    label = batch.get("label")
+    if label is not None:
+        logp = F.log_softmax(logits.float(), dim=-1)
+        cls_loss = -logp.gather(1, label.reshape(-1).long()[:, None]).mean()
+    return CandidatePass(g=g, s=s, logits=logits, cls_loss=cls_loss,
+                         mp_probs=binary_to_mp(logits, model.num_labels), tri_mask=tri_mask,
+                         cls_attn=attn_sum)
 
 
 class RationaleOutput(NamedTuple):
@@ -169,49 +230,20 @@ class RationaleModel(nn.Module):
         return self
 
     def forward(self, batch: Dict[str, torch.Tensor]) -> RationaleOutput:
-        c, K = self.config, self.num_labels
-        input_ids = batch["input_ids"]       # [B, T] (B = Q · num_labels)
-        text_mask = batch["text_mask"]
-        img_feat = batch["img_feat"]
-        img_mask = batch["img_mask"]
-        token_type_ids = batch.get("token_type_ids")
-        B, T = input_ids.shape
-
-        g = self.global_enc(input_ids, img_feat, torch.cat([text_mask, img_mask], dim=-1),
-                            token_type_ids)
-        s = self.seq_enc(input_ids, img_feat, text_mask, img_mask, batch.get("chunk_mask"),
-                         batch["gather_index"], self.max_chunks, token_type_ids,
-                         output_attentions=False)
-
-        cls = self.cls_ensemble(torch.cat([g.pooled, s.pooled], dim=-1))
-        # reasoning-layer memory: [global ‖ seq ‖ chunk_hidden] over positions 1..T-1
-        memory = torch.cat([g.sequence[:, 1:T], s.sequence[:, 1:T], s.chunk_hidden[:, 1:T]],
-                           dim=1)
-        word = text_mask[:, 1:T].float()
-        tri_mask = torch.cat([word, word, word], dim=-1)
-        memory_bias = ((1.0 - tri_mask) * NEG_INF)[:, None, None, :]
-        attn_sum = torch.zeros(memory.shape[:2], device=memory.device)
-        for layer in self.cls_layer:
-            cls, probs = layer(memory, cls, memory_bias)
-            attn_sum = attn_sum + probs.float()
-        logits = self.classifier(cls)                             # [B, 2]
-
-        cls_loss = torch.zeros((), device=logits.device)
-        label = batch.get("label")
-        if label is not None:
-            logp = F.log_softmax(logits.float(), dim=-1)
-            cls_loss = -logp.gather(1, label.reshape(-1).long()[:, None]).mean()
-        mp_probs = binary_to_mp(logits, K)
+        K = self.num_labels
+        B, T = batch["input_ids"].shape
+        p = classify_candidates(self, batch, output_attentions=False)
+        g, s, label = p.g, p.s, batch.get("label")
 
         # decoder memory of each question's gold row
         dec_memory = torch.cat(
             [s.sequence[:, 1:T], g.sequence[:, 1:T], s.chunk_hidden[:, 1:T]], dim=1).detach()
         Q = B // K
-        gold = (label.reshape(Q, K) if label is not None else mp_probs).argmax(dim=-1)
+        gold = (label.reshape(Q, K) if label is not None else p.mp_probs).argmax(dim=-1)
         rows = torch.arange(Q, device=gold.device) * K + gold
-        mem_q, mask_q = dec_memory[rows], tri_mask[rows]
+        mem_q, mask_q = dec_memory[rows], p.tri_mask[rows]
 
-        gen_loss = torch.zeros((), device=logits.device)
+        gen_loss = torch.zeros((), device=p.logits.device)
         if "expl_ids" in batch:
             # one explanation stream per question
             expl = batch["expl_ids"]                              # [Q, Lg]
@@ -224,8 +256,8 @@ class RationaleModel(nn.Module):
             keep = (shift_labels != self.gpt2_config.pad_token_id).float()
             gen_loss = (nll * keep).sum() / torch.clamp(keep.sum(), min=1.0)
 
-        return RationaleOutput(gen_loss=gen_loss, cls_loss=cls_loss, mp_probs=mp_probs,
-                               cls_attn=attn_sum, decoder_memory=mem_q,
+        return RationaleOutput(gen_loss=gen_loss, cls_loss=p.cls_loss, mp_probs=p.mp_probs,
+                               cls_attn=p.cls_attn, decoder_memory=mem_q,
                                decoder_memory_mask=mask_q)
 
 

@@ -2,13 +2,15 @@
 the trainer without a dataset or checkpoint: random region features and
 short premises and answers with ``<|det#|>`` tokens, all drawn from a numpy
 generator, labelled datasets for training, and raw PMR / VCR rows and
-region features in the files the CLIs read."""
+region features in the files the CLIs read; per-image features seeded from
+the image id (:func:`synthetic_features`)."""
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Dict, List, Tuple
+import zlib
+from typing import Dict, Iterable, List, Tuple
 
 import numpy as np
 
@@ -134,3 +136,19 @@ def region_features(rng: np.random.Generator, rows: List[dict], n_regions: int,
     """[n_regions, dim] float32 features for each row's image."""
     return {row["img_id"]: rng.standard_normal((n_regions, dim), dtype=np.float32)
             for row in rows}
+
+
+def synthetic_features(img_ids: Iterable[str], dim: int,
+                       max_regions: int = 20) -> Dict[str, ImageFeatures]:
+    """Per-image region features seeded from the image id, 5 to
+    ``max_regions`` regions each: the same arrays as the JAX package's
+    ``scripts/train_real_pmr.py::synthetic_features`` (``zlib.crc32`` is
+    stable across processes, ``hash`` of a str is not)."""
+    out = {}
+    for img_id in img_ids:
+        seed = zlib.crc32(f"pmr-feat:{img_id}".encode()) % (2**31)
+        rng = np.random.default_rng(seed)
+        n = int(rng.integers(5, max_regions + 1))
+        out[str(img_id)] = ImageFeatures(
+            features=rng.standard_normal((n, dim)).astype(np.float32), num_regions=n)
+    return out

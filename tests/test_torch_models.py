@@ -47,7 +47,7 @@ def make_batch(cfg, n_examples=2, seed=0):
     img_mask = np.zeros((N, I), np.float32)
     feat = np.zeros((N, I, F), np.float32)
     for e in range(n_examples):
-        n_reg = int(rng.integers(2, I + 1))
+        n_reg = int(rng.integers(min(2, I), I + 1))   # one region where I = 1
         img_mask[e * K:(e + 1) * K, :n_reg] = 1.0
         feat[e * K:(e + 1) * K, :n_reg] = rng.normal(size=(n_reg, F))
     r_mask = np.zeros((N, R), np.float32)

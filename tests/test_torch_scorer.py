@@ -183,6 +183,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "from multimodal_context_reasoning_torch.models import rationale as rationale_model\n"
         "from multimodal_context_reasoning_torch.generation import api, decode\n"
         "from multimodal_context_reasoning_torch.serving import generator\n"
+        "from multimodal_context_reasoning_torch.models import chunkalign_cls, oscar_heads\n"
+        "from multimodal_context_reasoning_torch.interop import export\n"
+        "from multimodal_context_reasoning_torch.data import mixed, task_processors\n"
+        "from multimodal_context_reasoning_torch.cli import train_two_stage\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
@@ -194,4 +198,4 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 58
+    assert int(proc.stdout.strip()) >= 64
