@@ -4,8 +4,10 @@ run the two commands (``cli/run_pmr.py``, ``cli/run_vcr.py``) at full width,
 hold every kernel route to its plain version past 192 keys, serve
 concurrent HTTP clients through the serve command (``cli/serve.py``),
 score through the W8A8 int8 route, serve the rationale family at
-``POST /generate``, decode it by beam sampling and CBS, train it, and run
-the two-stage recipe (``cli/train_two_stage.py``).
+``POST /generate``, decode it by beam sampling and CBS, train it, run
+the two-stage recipe (``cli/train_two_stage.py``), and run the ensemble
+and CLIP ablations with the CLIP precompute command
+(``cli/precompute_clip.py``).
 
     python3 chip_smoke.py
 
@@ -70,7 +72,10 @@ the port is not beside this script, or when any phase fails.  Phases:
     phases 15-17, ``rationale_train_launches`` of both kernels from phase
     18, ``stage1_launches`` and ``two_stage_launches`` of all three from
     phase 19, the backward's ``encoder_shapes`` from 18b and 19c, the
-    stage-mask forward's from 19c), then the result line;
+    stage-mask forward's from 19c, ``ensemble_launches`` of all three from
+    phase 20b and each kernel's ``roberta_no_prefix`` rows from 20e), then
+    the result line; the summary line before it carries ``ensembles`` and
+    ``clip``;
 12. (run before 11) the two commands through ``main(argv)``, full-width
     bf16, on files written from the seed in a temporary directory (PMR
     JSONL of 64 / 32 / 32 examples, a VCR JSON of 64, 50 x 2054 region
@@ -181,11 +186,45 @@ the port is not beside this script, or when any phase fails.  Phases:
     float64 as a share of max |dq| for the kernel and the plain version;
     then the stage-mask forward and the backward on that pass's full-stage
     and chunk-stage inputs, (64, 190, 190, 12, 64) bf16: kernel, plain
-    version and SDPA per call and back to back, and the bound.
+    version and SDPA per call and back to back, and the bound;
+20. (run before 11) the ensembles and CLIP: 20a, full-width fp32
+    ``DualEnsembleModel`` (dropout 0, one question) on the card and on the
+    CPU from one state dict, the RoBERTa view's logits, loss, alignment loss
+    and each parameter group's gradient norm (45 stage-mask and 45 backward
+    launches) and the GPT-2 view's forward (``gpt_pool="last_real"``, 21),
+    then the CLIP ViT-B/16 towers on 2 images and 8 id rows, all within
+    1e-4 relative; 20b, the slice's main path with the counts set to 0
+    before it and read after: full-width bf16 evaluation forwards of 8
+    questions (``fusion`` concat and add with the RoBERTa view, 45
+    stage-mask launches each; the GPT-2 view, 21), the RoBERTa view's batch
+    through ``PMRDataset``, the GPT-2 view's through ``VCRDataset(lm_style=
+    "gpt")`` with a GPT-2 byte-BPE tokenizer, ms per forward (median of 10
+    after 3), examples/s and peak memory beside ``ModCRModel``'s forward and
+    phase 6's scorer; one forward and backward under
+    ``pmr_training_config()`` (RoBERTa remat "full", encoders frozen) with
+    exactly 21 stage-mask, 48 dense-forward and 24 backward launches, then
+    one more (uncounted) with each dense-forward launch held against its
+    plain version (2e-2 of max |plain|) and each backward launch against its
+    plain version and both against float64 (as 18 and 19c); 20c,
+    the ViT-B/16 towers in bf16 and fp32 on [32, 224, 224, 3] pixels and
+    [128, 77] ids (ms per call, images/s), ``ClipEndToEnd`` with both
+    variants, ``ClipGatedEnsemble`` over 20b's CALeC and RoBERTa vectors and
+    the top-2 gate with tied scores against a numpy twin; 20d,
+    ``cli.precompute_clip.main(argv)`` at full width on a random checkpoint
+    in OpenAI's layout, 32 examples over 16 PNG images and a reduced merges
+    table (the vocabulary, the one cut from ViT-B/16), both packs against
+    direct tower calls (a side whose host package is absent is named and
+    skipped); 20e, the three kernels at (32, 128, 128, 16, 64) bf16 with no
+    prefix on a RoBERTa layer's real inputs from 20b (the stage-mask
+    forward's from an evaluation forward, the dense-bias forward's and the
+    backward's from the held step), each against its plain version, then
+    kernel, plain version and SDPA per call and back to back, and the
+    bound.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -263,6 +302,10 @@ RATIONALE_PARITY_LAYERS = 3
 # --stage1_batch), steps of each stage, the validation cadence, PMR examples
 TWO_STAGE_QUESTIONS, STAGE1_STEPS, STAGE2_STEPS, TWO_STAGE_VALID = 16, 8, 4, 4
 TWO_STAGE_EXAMPLES = 96
+# phase 20: questions a DualEnsembleModel forward (4 rows each); images of
+# the CLIP towers' call (4 id rows each); the command's examples and images
+ENSEMBLE_QUESTIONS, CLIP_IMAGES = 8, 32
+CLIP_CMD_EXAMPLES, CLIP_CMD_IMAGES = 32, 16
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -427,6 +470,18 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {name: w.launches for name, w in wrappers().items()}
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches made inside compare a kernel with its plain version; they
+    are not the path's, so the counts are left as they were."""
+    before = read_counts()
+    try:
+        yield
+    finally:
+        for name, w in wrappers().items():
+            w.launches = before[name]
 
 
 def dense_case(rng, B, lq, prefix, H, dh):
@@ -1860,17 +1915,18 @@ def cbs_lattices(rng, n: int, gpt_tok, vocab_size: int):
     return torch.from_numpy(np.stack(adjacency)).bool(), torch.tensor(counts), chosen
 
 
-def device_kernels_per_call(fn, calls: int) -> float:
-    """Device kernels per decoder call of one run of ``fn`` under
-    ``torch.profiler`` (every CUDA kernel, the library's included)."""
+def device_profile(fn) -> tuple:
+    """The summed device time (ms) and the count of the CUDA kernels of one
+    ``fn()`` under ``torch.profiler`` (every kernel, the library's too)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = sum(e.count for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    return kernels / calls
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in kernels) / 1e3,
+            sum(e.count for e in kernels))
 
 
 def timed_decode(decoder, fn) -> dict:
@@ -1987,8 +2043,7 @@ def beam_cbs_phase(rng) -> dict:
         check(tuple(toks.shape) == (Q, max_len) and bool(((lens >= 1) & (lens <= max_len)).all())
               and bool(((toks >= 0) & (toks < gpt.vocab_size)).all()),
               f"17 {mode}: tokens {tuple(toks.shape)}, lengths {lens.tolist()}")
-        r["kernels_per_call"] = device_kernels_per_call(
-            beam if mode == "beam" else cbs, r["calls"])
+        r["kernels_per_call"] = device_profile(beam if mode == "beam" else cbs)[1] / r["calls"]
         r["questions_per_s"] = Q / (r["ms"] / 1e3)
         r["lengths"] = lens.tolist()
         if mode == "cbs":
@@ -2191,6 +2246,65 @@ class HeldBackward:
         return False
 
 
+class HeldDense:
+    """While active, every dense-bias forward launch is held against its
+    plain version on the same inputs: per (q shape, k shape, bias shape)
+    the launches and the worst |kernel - plain| over max |plain|; with
+    ``keep``, the first (q, k, v, bias) of each key."""
+
+    def __init__(self, keep: bool = False):
+        self.seen = {}
+        self.keep = keep
+        self.inputs = {}
+
+    def __enter__(self):
+        from multimodal_context_reasoning_torch.ops.fused_attention import (
+            fused_attention,
+            fused_attention_plain,
+        )
+
+        launch = fused_attention.launch
+
+        def held(q, k, v, bias):
+            key = (tuple(q.shape), tuple(k.shape), str(q.dtype),
+                   None if bias is None else tuple(bias.shape))
+            if self.keep and key not in self.inputs:
+                self.inputs[key] = tuple(t.detach() for t in (q, k, v, bias))
+            got = launch(q, k, v, bias)
+            err = errors(got, fused_attention_plain(q, k, v, bias))[1]
+            n, worst = self.seen.get(key, (0, 0.0))
+            self.seen[key] = (n + 1, max(worst, err))
+            return got
+
+        fused_attention.launch = held
+        return self
+
+    def __exit__(self, *exc):
+        from multimodal_context_reasoning_torch.ops.fused_attention import fused_attention
+
+        del fused_attention.launch
+        return False
+
+
+def held_backward_rows(held) -> dict:
+    """``HeldBackward.seen`` by shape: launches, the three error triples
+    ([dq, dk, dv], each over its max |exact|) and dq's share of them."""
+    return {f"{k[0]} {k[1]} bias {k[2]}": dict(
+        launches=n, kernel_vs_plain=w[0], kernel_vs_exact=w[1], plain_vs_exact=w[2],
+        dq_share_kernel=w[1][0], dq_share_plain=w[2][0])
+        for k, (n, w) in held.seen.items()}
+
+
+def backward_held_ok(rows) -> bool:
+    """The kernel rounds P and dS to bf16 as its plain version (and the
+    Pallas kernel) do; where cancellation in dq = dS·K amplifies those
+    roundings, the two round differently and both lie far from float64: the
+    kernel must lie no further from float64 than its plain version, plus
+    the bf16 tolerance."""
+    return all(k <= p + BWD_TOL[torch.bfloat16] for h in rows.values()
+               for k, p in zip(h["kernel_vs_exact"], h["plain_vs_exact"]))
+
+
 def rationale_train_phase(rng) -> dict:
     """Phase 18: ``Trainer.fit`` over ``RationaleForTraining`` at full width
     (bf16 encoders computing from fp32 parameters, fp32 GPT-2, encoders
@@ -2259,16 +2373,8 @@ def rationale_train_phase(rng) -> dict:
     with HeldBackward() as held:
         trainer.train_step(state, trainer.to_device(batches[-1]))
         torch.cuda.synchronize()
-    held_rows = {f"{k[0]} {k[1]} bias {k[2]}": dict(
-        launches=n, kernel_vs_plain=w[0], kernel_vs_exact=w[1], plain_vs_exact=w[2])
-        for k, (n, w) in held.seen.items()}
-    # the kernel rounds P and dS to bf16 as its plain version (and the Pallas
-    # kernel) do; where cancellation in dq = dS·K amplifies those roundings,
-    # the two round differently and both lie far from float64: the kernel
-    # must lie no further from float64 than its plain version, plus the
-    # bf16 tolerance
-    held_ok = all(k <= p + BWD_TOL[torch.bfloat16] for h in held_rows.values()
-                  for k, p in zip(h["kernel_vs_exact"], h["plain_vs_exact"]))
+    held_rows = held_backward_rows(held)
+    held_ok = backward_held_ok(held_rows)
     r = dict(questions_per_step=RATIONALE_QUESTIONS, rows_per_step=4 * RATIONALE_QUESTIONS,
              ms_per_step=step_ms, steady_ms_per_step=steady,
              questions_per_s=RATIONALE_QUESTIONS / steady * 1e3, peak_gib=peak,
@@ -2490,10 +2596,12 @@ def stage1_parity(rng) -> dict:
 
 class CapturedSpec:
     """While active, keeps the first stage-mask forward launch of each stage
-    (its detached inputs)."""
+    (its detached inputs); with ``select``, the first launch of each key
+    ``select(q, stage)`` gives, None keeping nothing."""
 
-    def __init__(self):
+    def __init__(self, select=None):
         self.inputs = {}
+        self.select = select or (lambda q, stage: stage)
 
     def __enter__(self):
         from multimodal_context_reasoning_torch.ops.spec_attention import fused_attention_spec
@@ -2501,8 +2609,9 @@ class CapturedSpec:
         launch = fused_attention_spec.launch
 
         def kept(q, k, v, valid, gi, rowfull, *, stage, text_len):
-            if stage not in self.inputs:
-                self.inputs[stage] = dict(
+            key = self.select(q, stage)
+            if key is not None and key not in self.inputs:
+                self.inputs[key] = dict(
                     args=tuple(t.detach() for t in (q, k, v, valid, gi, rowfull)),
                     stage=stage, text_len=text_len)
             return launch(q, k, v, valid, gi, rowfull, stage=stage, text_len=text_len)
@@ -2524,15 +2633,12 @@ def held_stage1_pass(model, batch) -> tuple:
     they were (these launches compare, they are not the path's)."""
     from multimodal_context_reasoning_torch.train.step import model_inputs
 
-    before = read_counts()
-    with HeldBackward(keep=True) as held, CapturedSpec() as spec:
+    with uncounted(), HeldBackward(keep=True) as held, CapturedSpec() as spec:
         model.train()
         out = model(model_inputs(batch))
         torch.autograd.grad(out.loss, [p for p in model.parameters() if p.requires_grad],
                             allow_unused=True)
         torch.cuda.synchronize()
-    for name, w in wrappers().items():
-        w.launches = before[name]
     return held, spec
 
 
@@ -2696,26 +2802,18 @@ def time_stage1_kernels(held, spec, per_step: int) -> dict:
     kernel and plain), then the stage-mask forward and the backward at the
     stage-1 shape on the kept full-stage and chunk-stage inputs: kernel,
     plain version and SDPA per call and back to back, and the bound."""
-    from multimodal_context_reasoning_torch.ops.flash import (
-        flash_attention_bwd,
-        flash_attention_bwd_plain,
-    )
     from multimodal_context_reasoning_torch.ops.spec_attention import (
         fused_attention_spec,
         spec_attention_plain,
     )
 
     dt = torch.bfloat16
-    held_rows = {f"{k[0]} {k[1]} bias {k[2]}": dict(
-        launches=n, kernel_vs_plain=w[0], kernel_vs_exact=w[1], plain_vs_exact=w[2],
-        dq_share_kernel=w[1][0], dq_share_plain=w[2][0])
-        for k, (n, w) in held.seen.items()}
+    held_rows = held_backward_rows(held)
     print(f"[19c stage-1 backward] one more stage-1 step, each backward launch against its plain "
           f"version and both against float64 ([dq, dk, dv], each over its max |exact|): "
           f"{held_rows}")
-    held_ok = all(k <= p + BWD_TOL[dt] for h in held_rows.values()
-                  for k, p in zip(h["kernel_vs_exact"], h["plain_vs_exact"]))
-    check(held_ok, f"19c: backward launches against plain and float64 {held_rows}")
+    check(backward_held_ok(held_rows),
+          f"19c: backward launches against plain and float64 {held_rows}")
     fwd_rows, bwd_rows = [], []
     for stage in ("full", "chunk"):
         kept = spec.inputs[stage]
@@ -2742,42 +2840,700 @@ def time_stage1_kernels(held, spec, per_step: int) -> dict:
 
         key = next(key for key in held.inputs if key[2] is not None
                    and (key[2][2] == 1) == (stage == "full"))
-        q, k, v, bias, d_out = held.inputs[key]
-        got = flash_attention_bwd(q, k, v, bias, d_out, want_dbias=False)
-        want = flash_attention_bwd_plain(q, k, v, bias, d_out)
-        err = max(errors(g, w)[0] for g, w in zip(got[:3], want[:3]))   # dq, dk, dv
-        del got, want
-        q4, k4, v4 = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-        out_t = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4,
-                                                                 attn_mask=bias.to(dt))
-        d_out_t = d_out.transpose(1, 2)
-        kernel = lambda: flash_attention_bwd(q, k, v, bias, d_out, want_dbias=False)
-        library = lambda: torch.autograd.grad(out_t, (q4, k4, v4), d_out_t, retain_graph=True)
-        B, L, H, Dh = q.shape
-        nbytes = 2 * (7 * B * L * H * Dh) + 4 * bias.numel()
-        flops = 10.0 * B * H * L * L * Dh
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dt]
-        share = held_rows[f"{key[0]} {key[1]} bias {key[2]}"]
-        row = dict(shape=name.replace("encoder", "encoder backward"), bias=list(bias.shape),
-                   kind="backward", max_abs_err=err, ms=median_ms(kernel),
-                   plain_ms=median_ms(lambda: flash_attention_bwd_plain(q, k, v, bias, d_out)),
-                   library_ms=median_ms(library), b2b_ms=back_to_back_ms(kernel),
-                   library_b2b_ms=back_to_back_ms(library), bound_ms=1e3 * max(t_bytes, t_ops),
-                   bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   launches_per_step=share["launches"], dq_share_kernel=share["dq_share_kernel"],
-                   dq_share_plain=share["dq_share_plain"])
-        bwd_rows.append(row)
-        print(f"[19c stage-1 backward] {name:44s} bias {row['bias']}: vs plain {err:.2e} | dq "
-              f"from float64 over max |dq|: kernel {row['dq_share_kernel']:.4f}, plain "
-              f"{row['dq_share_plain']:.4f} | per call: kernel {row['ms']:.4f} | plain "
-              f"{row['plain_ms']:.4f} | sdpa {row['library_ms']:.4f} ms; back to back: kernel "
-              f"{row['b2b_ms']:.4f} | sdpa {row['library_b2b_ms']:.4f} ms | bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
-        del q4, k4, v4, out_t
+        bwd_rows.append(time_backward("19c stage-1 backward",
+                                      name.replace("encoder", "encoder backward"),
+                                      held.inputs[key],
+                                      held_rows[f"{key[0]} {key[1]} bias {key[2]}"]))
     check(sum(h["launches"] for h in held_rows.values()) == per_step,
           f"19c: held launches {held_rows}")
     torch.cuda.empty_cache()
     return dict(forward=fwd_rows, backward=bwd_rows, held=held_rows)
+
+
+def time_backward(tag: str, name: str, inputs, share: dict) -> dict:
+    """The backward kernel on kept (q, k, v, bias, dO) of one held pass:
+    against its plain version, with ``share`` (its ``held_backward_rows``
+    row) beside it; kernel, plain version and SDPA's backward per call and
+    back to back, and the bound."""
+    from multimodal_context_reasoning_torch.ops.flash import (
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+    )
+
+    q, k, v, bias, d_out = inputs
+    dt = q.dtype
+    got = flash_attention_bwd(q, k, v, bias, d_out, want_dbias=False)
+    want = flash_attention_bwd_plain(q, k, v, bias, d_out)
+    err = max(errors(g, w)[0] for g, w in zip(got[:3], want[:3]))   # dq, dk, dv
+    del got, want
+    q4, k4, v4 = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    out_t = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, attn_mask=bias.to(dt))
+    d_out_t = d_out.transpose(1, 2)
+    kernel = lambda: flash_attention_bwd(q, k, v, bias, d_out, want_dbias=False)
+    library = lambda: torch.autograd.grad(out_t, (q4, k4, v4), d_out_t, retain_graph=True)
+    B, L, H, Dh = q.shape
+    nbytes = 2 * (7 * B * L * H * Dh) + 4 * bias.numel()
+    flops = 10.0 * B * H * L * L * Dh
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dt]
+    row = dict(shape=name, bias=list(bias.shape), kind="backward", max_abs_err=err,
+               ms=median_ms(kernel),
+               plain_ms=median_ms(lambda: flash_attention_bwd_plain(q, k, v, bias, d_out)),
+               library_ms=median_ms(library), b2b_ms=back_to_back_ms(kernel),
+               library_b2b_ms=back_to_back_ms(library), bound_ms=1e3 * max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               launches_per_step=share["launches"], dq_share_kernel=share["dq_share_kernel"],
+               dq_share_plain=share["dq_share_plain"])
+    print(f"[{tag}] {name:44s} bias {row['bias']}: vs plain {err:.2e} | dq "
+          f"from float64 over max |dq|: kernel {row['dq_share_kernel']:.4f}, plain "
+          f"{row['dq_share_plain']:.4f} | per call: kernel {row['ms']:.4f} | plain "
+          f"{row['plain_ms']:.4f} | sdpa {row['library_ms']:.4f} ms; back to back: kernel "
+          f"{row['b2b_ms']:.4f} | sdpa {row['library_b2b_ms']:.4f} ms | bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return row
+
+
+def time_dense_forward(tag: str, name: str, inputs, held: tuple) -> dict:
+    """The dense-bias forward on kept (q, k, v, bias) of one held pass:
+    against its plain version, with ``held`` (its launches and worst error
+    over max |plain| in that pass) beside it; kernel, plain version and SDPA
+    per call and back to back, and the bound."""
+    from multimodal_context_reasoning_torch.ops.fused_attention import (
+        fused_attention,
+        fused_attention_plain,
+    )
+
+    q, k, v, bias = inputs
+    dt = q.dtype
+    mask = bias.to(dt)
+    q4, k4, v4 = (t.transpose(1, 2) for t in (q, k, v))
+    kernel = lambda: fused_attention(q, k, v, bias)
+    plain = lambda: fused_attention_plain(q, k, v, bias)
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+    err, rel = errors(kernel(), plain())
+    check(rel <= TOL[dt], f"{tag} {name}: {rel} of max |plain|")
+    b_ms, b_by = train_bound(dict(q=q, k=k), dt, "forward")
+    row = dict(shape=name, bias=list(bias.shape), kind="forward", max_abs_err=err,
+               max_rel_err=rel, launches_per_step=held[0], held_max_rel_err=held[1],
+               ms=median_ms(kernel), plain_ms=median_ms(plain), library_ms=median_ms(library),
+               b2b_ms=back_to_back_ms(kernel), library_b2b_ms=back_to_back_ms(library),
+               bound_ms=b_ms, bound_by=b_by)
+    print(f"[{tag}] {name:44s} bias {row['bias']}: vs plain {err:.2e} ({rel:.2e} of max "
+          f"|plain|; {held[0]} launches of the held step, worst {held[1]:.2e}) | per call: "
+          f"kernel {row['ms']:.4f} | plain {row['plain_ms']:.4f} | sdpa "
+          f"{row['library_ms']:.4f} ms; back to back: kernel {row['b2b_ms']:.4f} | sdpa "
+          f"{row['library_b2b_ms']:.4f} ms | bound {b_ms:.4f} ms ({b_by})")
+    return row
+
+
+# ---------------------------------------------------------------- ensembles and CLIP
+
+def ensemble_launches_per_forward(cfg, text_view: str) -> int:
+    """Stage-mask launches of one deterministic ``DualEnsembleModel``
+    forward: the global encoder once (no vision pass), the ChunkAlign
+    encoder without its cross-stage layers (they return the alignment
+    probabilities), and RoBERTa's layers in the "full" stage with no prefix
+    unless ``remat`` or ``scan_layers`` gives them the dense bias; the
+    GPT-2 view's attention is plain.  Full width: 12 + 9 + 24 = 45, or 21."""
+    cross = cfg.seq_encoder.num_hidden_layers - cfg.chunkalign.full_layers_end
+    rob = 0 if text_view == "gpt2" or cfg.roberta.remat or cfg.roberta.scan_layers \
+        else cfg.roberta.num_hidden_layers
+    return cfg.global_encoder.num_hidden_layers + cfg.seq_encoder.num_hidden_layers - cross + rob
+
+
+def gpt2_view_config():
+    """The GPT-2 view's default tower (GPT-2 small at the encoders' width, no
+    cross-attention) with its dropouts at 0, as the encoders'."""
+    from multimodal_context_reasoning_torch.core.config import GPT2Config
+
+    return GPT2Config(n_embd=768, add_cross_attention=False, resid_pdrop=0.0,
+                      embd_pdrop=0.0, attn_pdrop=0.0)
+
+
+def gpt2_byte_bpe():
+    """A GPT-2 byte-level BPE tokenizer (``data/subword.py``) over the
+    synthetic words: the 256 byte symbols, one merge chain per word with its
+    leading space, ``<|endoftext|>`` as bos, eos and pad (GPT-2's one
+    special), the 45 ``<|det#|>`` tokens after it; every id below GPT-2's
+    50,257."""
+    from multimodal_context_reasoning_torch.data.subword import ByteBPETokenizer, bytes_to_unicode
+    from multimodal_context_reasoning_torch.serving.synthetic import OBJECTS, WORDS
+
+    be = bytes_to_unicode()
+    vocab = {be[b]: b for b in range(256)}
+    merges = []
+    for word in sorted(set(WORDS) | set(OBJECTS) | {"and", "."}):
+        sym = [be[b] for b in (" " + word).encode()]
+        while len(sym) > 1:
+            if (sym[0], sym[1]) not in merges:
+                merges.append((sym[0], sym[1]))
+                vocab[sym[0] + sym[1]] = len(vocab)
+            sym = [sym[0] + sym[1]] + sym[2:]
+    vocab["<|endoftext|>"] = len(vocab)
+    eot = "<|endoftext|>"
+    return ByteBPETokenizer(vocab, merges, unk_token=eot, cls_token=eot, sep_token=eot,
+                            pad_token=eot)
+
+
+def ensemble_batches(rng, cfg, questions: int, first: int) -> dict:
+    """One batch of ``questions`` questions for each text view, from the
+    seed: the RoBERTa view's through ``PMRDataset`` (the hash tokenizers),
+    the GPT-2 view's through ``VCRDataset(lm_style="gpt")`` with the GPT-2
+    byte-BPE tokenizer; numpy arrays."""
+    from multimodal_context_reasoning_torch.data.collate import BatchSpec
+    from multimodal_context_reasoning_torch.data.vcr import VCRDataset
+    from multimodal_context_reasoning_torch.serving.synthetic import (
+        hash_tokenizers,
+        synthetic_dataset,
+        synthetic_examples,
+    )
+
+    rob = synthetic_dataset(rng, questions, cfg, first=first).batch(list(range(questions)))
+    feats, examples = synthetic_examples(rng, questions, cfg, first=first + questions)
+    spec = BatchSpec(text_len=cfg.text_len, img_len=cfg.img_len, roberta_len=cfg.roberta_len,
+                     num_labels=cfg.num_labels, img_feature_dim=cfg.global_encoder.img_feature_dim)
+    gpt_ds = VCRDataset(examples, feats, hash_tokenizers(cfg)[0], gpt2_byte_bpe(), spec=spec,
+                        max_chunks=cfg.max_chunks, lm_style="gpt")
+    return {"roberta": rob, "gpt2": gpt_ds.batch(list(range(questions)))}
+
+
+def to_device(batch: dict, dev) -> dict:
+    return {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in batch.items()
+            if isinstance(v, np.ndarray)}
+
+
+def group_grad_norms(model, loss) -> dict:
+    """The gradient norm of each top-level parameter group, summed in
+    float64 on the CPU (a CPU fp32 norm of 10M elements drifts by ~4e-4)."""
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+    sums = {}
+    for (name, _), g in zip(named, grads):
+        if g is not None:
+            group = name.split(".")[0]
+            sums[group] = sums.get(group, 0.0) + float((g.detach().cpu().double() ** 2).sum())
+    return {k: v ** 0.5 for k, v in sums.items()}
+
+
+def rel(a, b) -> float:
+    """max |a - b| over max |b| (scalars: |a - b| / |b|)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def ensemble_parity(rng) -> dict:
+    """Phase 20a: full-width fp32 ``DualEnsembleModel`` (dropout 0, one
+    question) on the card (kernels) and on the CPU (plain versions) from one
+    state dict: the RoBERTa view's logits, loss, alignment loss and every
+    parameter group's gradient norm, the GPT-2 view's forward
+    (``gpt_pool="last_real"``); then the CLIP ViT-B/16 towers in fp32 on 2
+    seeded images and 8 id rows; all within 1e-4 relative."""
+    from multimodal_context_reasoning_torch.core.config import CLIPConfig, pmr_training_config
+    from multimodal_context_reasoning_torch.models.clip import CLIP
+    from multimodal_context_reasoning_torch.models.ensemble import DualEnsembleModel
+
+    cfg = pmr_training_config(dtype="float32", remat=False)
+    batches = ensemble_batches(rng, cfg, 1, first=400_000)
+    out = {}
+    for view, pool, kw in (("roberta", "first", dict(fusion="concat", loss="ce+hinge")),
+                           ("gpt2", "last_real", dict(fusion="concat", loss="ce"))):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+        kw.update(text_view=view, gpt_pool=pool, gpt2_config=gpt2_view_config())
+        model = DualEnsembleModel(cfg, device="cuda", generator=gen, **kw).train()
+        cpu_model = DualEnsembleModel(cfg, device="cpu", **kw).train()
+        cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        runs = {}
+        for dev, m in (("cuda", model), ("cpu", cpu_model)):
+            reset_counts()
+            t0 = time.perf_counter()
+            res, align = m(to_device(batches[view], dev))
+            r = dict(logits=res.logits.detach().cpu().numpy(), loss=res.loss.item(),
+                     align_loss=align.item())
+            if view == "roberta":
+                r["grad_norms"] = group_grad_norms(m, res.loss + align)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            r.update(seconds=time.perf_counter() - t0, launches=read_counts())
+            runs[dev] = r
+        c, g = runs["cpu"], runs["cuda"]
+        diffs = {k: rel(g[k], c[k]) for k in ("logits", "loss", "align_loss")}
+        if view == "roberta":
+            diffs.update({f"grad {k}": rel(g["grad_norms"][k], v)
+                          for k, v in c["grad_norms"].items()})
+            check(set(g["grad_norms"]) == {"global_enc", "seq_enc", "fusion", "roberta",
+                                           "ensemble"}, f"groups {g['grad_norms']}")
+        worst = max(diffs.values())
+        n_fwd = ensemble_launches_per_forward(cfg, view)
+        want = {"spec_attention": n_fwd, "fused_attention": 0,
+                "flash_bwd": n_fwd if view == "roberta" else 0}
+        print(f"[20a parity] full-width fp32 DualEnsembleModel({view}, {kw['fusion']}, "
+              f"{kw['loss']}, pool {pool}), dropout 0, 1 question: cuda logits "
+              f"{np.round(g['logits'], 5).tolist()} loss {g['loss']:.6f} align "
+              f"{g['align_loss']:.6f} | max rel diff {worst:.3e} (tol 1e-4) {diffs} | card "
+              f"launches {g['launches']} | cpu {c['seconds']:.1f} s")
+        check(np.isfinite(g["logits"]).all() and np.isfinite([g["loss"], g["align_loss"]]).all(),
+              f"20a {view}: non-finite")
+        check(worst <= 1e-4, f"20a {view}: rel diff {diffs}")
+        check(g["launches"] == want, f"20a {view}: launches {g['launches']}, want {want}")
+        out[view] = dict(max_rel_diff=worst, diffs=diffs, launches=g["launches"],
+                         cpu_seconds=c["seconds"])
+        del model, cpu_model
+        torch.cuda.empty_cache()
+
+    ccfg = CLIPConfig()
+    clip = CLIP(ccfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(SEED))
+    cpu_clip = CLIP(ccfg, device="cpu")
+    cpu_clip.load_state_dict({k: v.cpu() for k, v in clip.state_dict().items()})
+    px, ids = clip_inputs(rng, 2, 8)
+    diffs = {}
+    with torch.inference_mode():
+        for name, x in (("image", px), ("text", ids)):
+            enc = "encode_image" if name == "image" else "encode_text"
+            got = getattr(clip, enc)(torch.from_numpy(x).cuda()).cpu()
+            want = getattr(cpu_clip, enc)(torch.from_numpy(x))
+            check(torch.isfinite(got).all().item(), f"20a CLIP {name}: non-finite")
+            diffs[name] = rel(got.numpy(), want.numpy())
+    print(f"[20a parity] CLIP ViT-B/16 fp32, 2 images and 8 id rows: max rel diff card vs cpu "
+          f"{diffs} (tol 1e-4)")
+    check(max(diffs.values()) <= 1e-4, f"20a CLIP: {diffs}")
+    out["clip"] = diffs
+    return out
+
+
+def clip_inputs(rng, n_images: int, n_rows: int, cfg=None):
+    """Seeded normalized pixels [n, S, S, 3] and id rows [n_rows, T]: SOT,
+    random ids, EOT (the largest id) at a random length, zeros after."""
+    from multimodal_context_reasoning_torch.core.config import CLIPConfig
+
+    cfg = cfg or CLIPConfig()
+    px = rng.standard_normal((n_images, cfg.image_size, cfg.image_size, 3), dtype=np.float32)
+    ids = np.zeros((n_rows, cfg.context_length), np.int64)
+    for r, n in enumerate(rng.integers(4, cfg.context_length + 1, n_rows)):
+        ids[r, 0] = cfg.vocab_size - 2
+        ids[r, 1:n - 1] = rng.integers(1, cfg.vocab_size - 2, n - 2)
+        ids[r, n - 1] = cfg.vocab_size - 1
+    return px, ids
+
+
+def ensemble_path(rng, serving_ms: float) -> dict:
+    """Phase 20b, the slice's main path: full-width bf16 ``DualEnsembleModel``
+    (dropout 0) evaluation forwards of ``ENSEMBLE_QUESTIONS`` questions for
+    ``fusion`` concat and add with the RoBERTa view and one with the GPT-2
+    view, each launching exactly ``ensemble_launches_per_forward``
+    stage-mask kernels; then one forward and backward of the RoBERTa view
+    under ``pmr_training_config()`` (RoBERTa remat "full", encoders frozen):
+    exactly 21 stage-mask, 48 dense-forward and 24 backward launches, and
+    one more held against the plain versions (not counted).  The counts are
+    set to 0 before the path and read after it.  ms per forward
+    (CUDA events, median of 10 after 3 warm-up calls), examples/s, the
+    device time of one profiled forward and peak memory, beside
+    ``ModCRModel``'s serving forward on the same batch and phase 6's
+    ``ModCRScorer`` (``serving_ms``, per micro-batch).  The
+    first RoBERTa stage-mask launch's inputs and the held step's are kept
+    for 20e and the ensemble head's inputs for 20c."""
+    from multimodal_context_reasoning_torch.core.config import pmr_training_config
+    from multimodal_context_reasoning_torch.models.ensemble import DualEnsembleModel
+    from multimodal_context_reasoning_torch.models.modcr import ModCRModel
+
+    cfg = pmr_training_config(remat=False)        # bf16, dropout 0
+    Q = ENSEMBLE_QUESTIONS
+    batches = {k: to_device(v, "cuda")
+               for k, v in ensemble_batches(rng, cfg, Q, first=410_000).items()}
+    out, kept, heads = {}, None, {}
+    torch.cuda.synchronize()
+    reset_counts()
+    for name, view, fusion in (("roberta-concat", "roberta", "concat"),
+                               ("roberta-add", "roberta", "add"),
+                               ("gpt2-last_real", "gpt2", "concat")):
+        model = DualEnsembleModel(cfg, fusion=fusion, loss="ce", text_view=view,
+                                  gpt_pool="last_real", gpt2_config=gpt2_view_config(),
+                                  device="cuda",
+                                  generator=torch.Generator(device="cuda").manual_seed(SEED))
+        model.eval()
+        batch = batches[view]
+        def keep_views(module, args, result, name=name):
+            heads.setdefault(name, {k: v.detach() for k, v in args[0].items()})
+
+        hook = model.ensemble.register_forward_hook(keep_views)
+        n_fwd = ensemble_launches_per_forward(cfg, view)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = read_counts()
+        with torch.inference_mode():
+            if kept is None:
+                with CapturedSpec(select=lambda q, stage: "roberta"
+                                  if q.shape[1:3] == (cfg.roberta_len, 16) else None) as spec:
+                    res, align = model(batch)
+                kept = spec.inputs["roberta"]
+            else:
+                res, align = model(batch)
+            torch.cuda.synchronize()
+            after = read_counts()
+            hook.remove()
+            launches = {k: after[k] - before[k] for k in after}
+            logits = res.logits.float().cpu().numpy()
+            check(logits.shape == (Q, cfg.num_labels) and np.isfinite(logits).all()
+                  and np.isfinite(float(align)), f"20b {name}: logits {logits.shape}")
+            check(launches == {"spec_attention": n_fwd, "fused_attention": 0, "flash_bwd": 0},
+                  f"20b {name}: launches {launches}, want {n_fwd} stage-mask")
+            ms = median_ms(lambda: model(batch), reps=10)
+            device_ms, n_kernels = device_profile(lambda: model(batch))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        out[name] = dict(launches_per_forward=launches, ms=ms, examples_per_s=Q / ms * 1e3,
+                         device_ms=device_ms, device_kernels=n_kernels, peak_gib=peak,
+                         logits=logits.tolist())
+        print(f"[20b ensembles] bf16 {name}, {Q} questions ({4 * Q} rows): launches per "
+              f"forward {launches} (want {n_fwd} stage-mask) | {ms:.2f} ms per forward = "
+              f"{Q / ms * 1e3:.2f} examples/s; device kernels {device_ms:.2f} ms over "
+              f"{n_kernels} launches (torch.profiler) | peak {peak:.2f} GiB | logits[0] "
+              f"{np.round(logits[0], 4).tolist()}")
+        del model
+        torch.cuda.empty_cache()
+
+    # the gradient phase: RoBERTa under remat "full", the encoders frozen
+    tcfg = pmr_training_config()
+    model = DualEnsembleModel(tcfg, fusion="concat", loss="ce+hinge", device="cuda",
+                              generator=torch.Generator(device="cuda").manual_seed(SEED)).train()
+    for p in (*model.global_enc.parameters(), *model.seq_enc.parameters()):
+        p.requires_grad_(False)
+    params = [p for p in model.parameters() if p.requires_grad]
+    batch = batches["roberta"]
+    step_ms, step_launches = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        before = read_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res, align = model(batch)
+        grads = torch.autograd.grad(res.loss + align, params)
+        end.record()
+        end.synchronize()
+        after = read_counts()
+        step_ms.append(start.elapsed_time(end))
+        step_launches.append({k: after[k] - before[k] for k in after})
+        check(all(torch.isfinite(g).all().item() for g in grads) and np.isfinite(res.loss.item()),
+              "20b gradient phase: non-finite")
+        del grads
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {"spec_attention": 21, "fused_attention": 48, "flash_bwd": 24}
+    for got in step_launches:
+        check(got == want, f"20b gradient phase launches {got}, want {want}")
+    launches = read_counts()
+    out["train"] = dict(launches_per_step=step_launches[0], ms=step_ms,
+                        steady_ms=statistics.median(step_ms[1:]), peak_gib=peak,
+                        trainable_params=sum(p.numel() for p in params))
+    print(f"[20b ensembles] bf16 RoBERTa view under pmr_training_config (remat full, encoders "
+          f"frozen, {out['train']['trainable_params'] / 1e6:.1f}M trainable), one forward and "
+          f"backward of {Q} questions: launches {step_launches[0]} (all 3 equal) | ms "
+          f"{np.round(step_ms, 2).tolist()} | peak {peak:.2f} GiB")
+    print(f"[20b ensembles] launches over the path: {launches}")
+    check(all(launches[k] > 0 for k in KERNELS), f"20b path launches {launches}")
+
+    # one more step, each dense-forward and backward launch held against its
+    # plain version (these launches compare, they are not the path's)
+    with uncounted(), HeldDense(keep=True) as dense, HeldBackward(keep=True) as held:
+        res, align = model(batch)
+        torch.autograd.grad(res.loss + align, params)
+        torch.cuda.synchronize()
+    dense_rows = {f"{k[0]} k {k[1]} {k[2]} bias {k[3]}": dict(launches=n, max_rel_err=w)
+                  for k, (n, w) in dense.seen.items()}
+    bwd_rows = held_backward_rows(held)
+    out["train"]["held"] = dict(dense_forward=dense_rows, backward=bwd_rows)
+    print(f"[20b ensembles] one more step, each dense-forward launch against its plain version "
+          f"(over max |plain|, tol {TOL[torch.bfloat16]}): {dense_rows}")
+    print(f"[20b ensembles] and each backward launch against its plain version and both against "
+          f"float64 ([dq, dk, dv], each over its max |exact|): {bwd_rows}")
+    check(sum(h["launches"] for h in dense_rows.values()) == want["fused_attention"]
+          and all(h["max_rel_err"] <= TOL[torch.bfloat16] for h in dense_rows.values()),
+          f"20b: dense-forward launches against plain {dense_rows}")
+    check(sum(h["launches"] for h in bwd_rows.values()) == want["flash_bwd"]
+          and backward_held_ok(bwd_rows),
+          f"20b: backward launches against plain and float64 {bwd_rows}")
+    kept = dict(spec=kept, dense=dense, held=held, backward_rows=bwd_rows)
+    del model, params
+    torch.cuda.empty_cache()
+
+    # beside it, ModCR's serving forward on the same batch (not counted)
+    modcr = ModCRModel(dataclasses.replace(cfg, compute_alignment=False), device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(SEED)).eval()
+    with torch.inference_mode():
+        modcr_ms = median_ms(lambda: modcr(batches["roberta"]), reps=10)
+        modcr_device_ms, modcr_kernels = device_profile(lambda: modcr(batches["roberta"]))
+    out.update(modcr_forward_ms=modcr_ms, modcr_device_ms=modcr_device_ms)
+    print(f"[20b ensembles] beside: ModCRModel bf16 forward (alignment off, 60 stage-mask "
+          f"launches) on the same {Q} questions {modcr_ms:.2f} ms = {Q / modcr_ms * 1e3:.2f} "
+          f"examples/s; device kernels {modcr_device_ms:.2f} ms over {modcr_kernels} launches; "
+          f"phase 6's ModCRScorer at micro-batch {Q}: {serving_ms:.2f} ms per micro-batch "
+          f"(bf16 weights, host featurize included)")
+    del modcr
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out, kept, heads
+
+
+def clip_path(rng, heads) -> dict:
+    """Phase 20c: the ViT-B/16 towers at full width in bf16 and fp32 on
+    seeded normalized pixels [32, 224, 224, 3] and id rows [128, 77]
+    (ms per call, CUDA events, median of 10 after 3; images/s); then
+    ``ClipEndToEnd`` with both variants on 8 images and their 32 candidate
+    rows, and ``ClipGatedEnsemble`` and ``ClipSimilarityFusion`` over 20b's
+    CALeC and RoBERTa vectors with tied scores: finite, and the gate equal
+    to a numpy twin."""
+    from multimodal_context_reasoning_torch.core.config import CLIPConfig
+    from multimodal_context_reasoning_torch.models.clip import CLIP
+    from multimodal_context_reasoning_torch.models.clip_ensemble import (
+        ClipEndToEnd,
+        ClipGatedEnsemble,
+        ClipSimilarityFusion,
+        clip_similarity,
+        clip_top2_gate,
+    )
+
+    out = {}
+    ccfg = CLIPConfig()
+    clip = CLIP(ccfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(SEED))
+    sd = clip.state_dict()
+    px, ids = clip_inputs(rng, CLIP_IMAGES, 4 * CLIP_IMAGES)
+    px_d, ids_d = torch.from_numpy(px).cuda(), torch.from_numpy(ids).cuda()
+    embs = {}
+    torch.cuda.reset_peak_memory_stats()
+    for dtype in ("bfloat16", "float32"):
+        model = CLIP(dataclasses.replace(ccfg, dtype=dtype), device="cuda").eval()
+        model.load_state_dict(sd)
+        with torch.inference_mode():
+            for tower, enc, x in (("image", model.encode_image, px_d),
+                                  ("text", model.encode_text, ids_d)):
+                e = enc(x)
+                check(torch.isfinite(e).all().item() and e.shape == (x.shape[0], 512),
+                      f"20c {dtype} {tower}: {tuple(e.shape)}")
+                embs[dtype, tower] = e.float()
+                ms = median_ms(lambda: enc(x), reps=10)
+                out[f"{tower}_{dtype}_ms"] = ms
+                rate = x.shape[0] / ms * 1e3
+                print(f"[20c clip] ViT-B/16 {tower} tower {dtype}, {x.shape[0]} "
+                      f"{'images' if tower == 'image' else 'id rows'} {tuple(x.shape)}: "
+                      f"{ms:.2f} ms per call = {rate:.1f} "
+                      f"{'images' if tower == 'image' else 'rows'}/s")
+        del model
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    bf_err = {t: rel(embs["bfloat16", t].cpu().numpy(), embs["float32", t].cpu().numpy())
+              for t in ("image", "text")}
+    out.update(peak_gib=peak, bf16_vs_fp32=bf_err)
+    print(f"[20c clip] peak {peak:.2f} GiB | bf16 against fp32 embeddings, max |diff| over max "
+          f"|fp32|: {bf_err} (not a check)")
+
+    Q = ENSEMBLE_QUESTIONS
+    logits = {}
+    for variant in ("fusion", "product"):
+        m = ClipEndToEnd(ccfg, variant=variant, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(SEED)).eval()
+        m.clip.load_state_dict(sd)
+        label = torch.zeros(Q, 4, device="cuda")
+        label[:, 0] = 1.0
+        with torch.inference_mode():
+            r = m(px_d[:Q], ids_d[:4 * Q], label)
+        check(r.logits.shape == (Q, 4) and torch.isfinite(r.logits).all().item()
+              and torch.isfinite(r.loss).item(), f"20c ClipEndToEnd {variant}")
+        logits[variant] = r.logits.cpu().numpy()
+        del m
+    img = embs["float32", "image"][:Q]
+    txt = embs["float32", "text"][:4 * Q].view(Q, 4, -1).clone()
+    txt[0, 2] = txt[0, 1]            # tied candidates: 1 and 2 of question 0,
+    txt[1, :] = txt[1, 0]            # all four of question 1
+    sim = clip_similarity(img, txt)
+    sim[0, 2] = sim[0, 1]            # the same ties, exact in the scores
+    sim[1, :] = sim[1, 0]
+    gate = clip_top2_gate(sim).cpu().numpy()
+    s = sim.cpu().numpy()
+    twin = np.ones_like(s)           # lax.top_k: of tied scores the lower index first
+    for q in range(Q):
+        top2 = np.argsort(-s[q], kind="stable")[:2]
+        twin[q, top2] = s[q, top2].mean()
+    gate_err = float(np.abs(gate - twin).max())
+    calec, rob = (heads["roberta-concat"][k].clone() for k in ("calec", "roberta"))
+    label = torch.zeros(Q, 4, device="cuda")
+    label[:, 0] = 1.0
+    with torch.no_grad():
+        head = ClipGatedEnsemble(feature_dim=calec.shape[1] + rob.shape[1]).cuda()
+        g = head(calec, rob, img, txt, label.view(-1))
+        f = ClipSimilarityFusion()(torch.from_numpy(logits["fusion"]).cuda(), img, txt, label)
+    check(gate_err <= 1e-6 and (gate[1, :2] == s[1, 0]).all() and (gate[1, 2:] == 1).all(),
+          f"20c gate vs numpy twin {gate_err}, {gate[:2]}")
+    check(torch.isfinite(g.logits).all().item() and torch.isfinite(g.loss).item()
+          and torch.isfinite(f.logits).all().item(), "20c CLIP-gated heads: non-finite")
+    out.update(end_to_end_logits={k: v.tolist() for k, v in logits.items()},
+               gate_max_abs_diff_vs_numpy=gate_err)
+    print(f"[20c clip] ClipEndToEnd on {Q} images and {4 * Q} candidate rows: fusion logits[0] "
+          f"{np.round(logits['fusion'][0], 4).tolist()}, product logits[0] "
+          f"{np.round(logits['product'][0], 4).tolist()} | ClipGatedEnsemble over 20b's CALeC "
+          f"{tuple(calec.shape)} and RoBERTa {tuple(rob.shape)} vectors: loss "
+          f"{float(g.loss):.4f}; gate with ties against its numpy twin max |diff| "
+          f"{gate_err:.1e}, question 1 (four tied) {np.round(gate[1], 4).tolist()}")
+    del clip
+    torch.cuda.empty_cache()
+    return out
+
+
+def clip_command(rng) -> dict:
+    """Phase 20d: ``cli.precompute_clip.main(argv)`` at full width on the
+    card: a random ViT-B/16 checkpoint in OpenAI's layout (``torch.save`` of
+    the port's state dict), a merges file from ``build_test_merges`` (the
+    vocabulary cut to it through ``--config_overrides``, the only cut from
+    ViT-B/16), 32 examples over 16 seeded PNG images; both packs read back
+    and held against direct tower calls (1e-4 of max |direct|, fp32).  A
+    side whose host package (PIL for images, ``regex`` for text) is absent
+    does not run, and a line says so."""
+    import importlib.util
+
+    from multimodal_context_reasoning_torch.cli import precompute_clip
+    from multimodal_context_reasoning_torch.core.config import CLIPConfig
+    from multimodal_context_reasoning_torch.data.clip_preprocess import preprocess_image
+    from multimodal_context_reasoning_torch.data.clip_tokenizer import build_test_merges
+    from multimodal_context_reasoning_torch.data.feature_store import FeatureStore
+    from multimodal_context_reasoning_torch.models.clip import CLIP
+    from multimodal_context_reasoning_torch.serving.synthetic import OBJECTS, WORDS
+
+    have = {m: importlib.util.find_spec(m) is not None for m in ("PIL", "regex")}
+    sides = [s for s, m in (("image", "PIL"), ("text", "regex")) if have[m]]
+    for side, mod in (("image", "PIL"), ("text", "regex")):
+        if not have[mod]:
+            print(f"[20d command] {mod} is absent on this machine: the {side} side of "
+                  f"precompute_clip did not run")
+    check(bool(sides), "20d: neither PIL nor regex: the command cannot run")
+    tmp = tempfile.mkdtemp(prefix="clip_cmd_")
+    merges = build_test_merges((list(WORDS) + list(OBJECTS)) * 3, max_merges=4096)
+    full = CLIPConfig()
+    cfg = dataclasses.replace(full, vocab_size=512 + len(merges) + 2)
+    print(f"[20d command] the one cut from ViT-B/16: vocab_size {full.vocab_size} -> "
+          f"{cfg.vocab_size} (a merges table of {len(merges)} from build_test_merges)")
+    model = CLIP(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(SEED))
+    ckpt = os.path.join(tmp, "ViT-B-16.pt")
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, ckpt)
+    bpe = os.path.join(tmp, "merges.txt")
+    with open(bpe, "w") as fh:
+        fh.write("#version: test\n" + "\n".join(" ".join(m) for m in merges) + "\n")
+    rows = []
+    if "image" in sides:
+        from PIL import Image
+
+        for i in range(CLIP_CMD_IMAGES):
+            h, w = (int(x) for x in rng.integers(200, 480, 2))
+            Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(
+                os.path.join(tmp, f"img_{i}.png"))
+    for i in range(CLIP_CMD_EXAMPLES):
+        objects = [str(o) for o in rng.choice(OBJECTS, 3)]
+        choice = lambda: [str(w) for w in rng.choice(WORDS, int(rng.integers(3, 9)))] + [[0, 2]]
+        rows.append({"img_id": f"img-{i % CLIP_CMD_IMAGES}",
+                     "img_fn": f"img_{i % CLIP_CMD_IMAGES}.png", "total_id": f"ex-{i}",
+                     "objects": objects, "answer_choices": [choice() for _ in range(4)]})
+    jsonl = os.path.join(tmp, "examples.jsonl")
+    with open(jsonl, "w") as fh:
+        fh.writelines(json.dumps(r) + "\n" for r in rows)
+    packs = {s: os.path.join(tmp, f"clip_{s}.mcrpack") for s in sides}
+    argv = ["--checkpoint", ckpt, "--examples_jsonl", jsonl, "--device", "cuda",
+            "--config_overrides", json.dumps({"vocab_size": cfg.vocab_size})]
+    if "image" in sides:
+        argv += ["--images_root", tmp, "--out_image_pack", packs["image"]]
+    if "text" in sides:
+        argv += ["--bpe_vocab", bpe, "--out_text_pack", packs["text"]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    precompute_clip.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    model.eval()
+    errs = {}
+    with torch.inference_mode():
+        if "image" in sides:
+            store = FeatureStore(packs["image"])
+            keys = sorted(store.keys())
+            check(keys == sorted({r["img_id"] for r in rows}), f"20d image keys {keys[:3]}")
+            px = np.stack([preprocess_image(os.path.join(tmp, f"img_{k.split('-')[1]}.png"),
+                                            cfg.image_size) for k in keys])
+            direct = model.encode_image(torch.from_numpy(px).cuda()).float().cpu().numpy()
+            got = np.concatenate([store[k].features for k in keys])
+            errs["image"] = rel(got, direct)
+            store.close()
+        if "text" in sides:
+            from multimodal_context_reasoning_torch.data.clip_tokenizer import ClipTokenizer
+
+            store = FeatureStore(packs["text"])
+            keys = [r["total_id"] for r in rows]
+            check(sorted(store.keys()) == sorted(keys), "20d text keys")
+            tok = ClipTokenizer(bpe)
+            texts = [precompute_clip.render_plain(c, r["objects"]) for r in rows
+                     for c in r["answer_choices"]]
+            ids = tok.tokenize(texts, cfg.context_length, truncate=True).astype(np.int64)
+            direct = model.encode_text(torch.from_numpy(ids).cuda()).float().cpu().numpy()
+            got = np.concatenate([store[k].features for k in keys])
+            check(all(store[k].features.shape == (4, 512) for k in keys), "20d text blocks")
+            errs["text"] = rel(got, direct)
+            store.close()
+    shutil.rmtree(tmp)
+    print(f"[20d command] precompute_clip.main at full width (fp32, --batch 32) on "
+          f"{CLIP_CMD_EXAMPLES} examples over {CLIP_CMD_IMAGES} images: sides {sides}, wall "
+          f"{wall:.2f} s | packs against direct tower calls, max |diff| over max |direct|: "
+          f"{errs} (tol 1e-4)")
+    check(all(e <= 1e-4 for e in errs.values()), f"20d packs {errs}")
+    del model
+    torch.cuda.empty_cache()
+    return dict(sides=sides, wall_s=wall, max_rel_diff=errs, vocab_size=cfg.vocab_size,
+                absent=[m for m, h in have.items() if not h])
+
+
+def roberta_no_prefix_kernels(kept) -> dict:
+    """Phase 20e: the three kernels at RoBERTa's no-prefix shape (32, 128,
+    128, 16, 64), bf16, each on a RoBERTa layer's real inputs from 20b: the
+    stage-mask forward's from an evaluation forward (against its plain
+    version, 2e-2 abs), the dense-bias forward's and the backward's from the
+    held gradient step (2e-2 of max |plain|; the backward beside its
+    float64 error); each kernel, its plain version and SDPA per call and
+    back to back, and the bound."""
+    with uncounted():
+        spec = roberta_no_prefix_spec(kept["spec"])
+        (dkey, dense_in), = kept["dense"].inputs.items()
+        (bkey, bwd_in), = kept["held"].inputs.items()
+        B, L, H, Dh = dense_in[0].shape
+        shape = f"({B}, {L}, {dense_in[1].shape[1]}, {H}, {Dh})"
+        dense = time_dense_forward("20e kernel", f"roberta no prefix {shape}", dense_in,
+                                   kept["dense"].seen[dkey])
+        bwd = time_backward("20e kernel", f"roberta backward no prefix {shape}", bwd_in,
+                            kept["backward_rows"][f"{bkey[0]} {bkey[1]} bias {bkey[2]}"])
+    return dict(spec=spec, dense=[dense], backward=[bwd])
+
+
+def roberta_no_prefix_spec(kept) -> list:
+    """Phase 20e's stage-mask forward: against its plain version (2e-2
+    abs), then kernel, plain version and SDPA per call and back to back,
+    and the bound."""
+    from multimodal_context_reasoning_torch.ops.spec_attention import (
+        fused_attention_spec,
+        spec_attention_plain,
+    )
+
+    dt = torch.bfloat16
+    # copies outside inference mode (the 20b forward ran under it)
+    q, k, v, valid, gi, rowfull = (t.clone() for t in kept["args"])
+    kw = dict(stage=kept["stage"], text_len=kept["text_len"])
+    check(q.dtype == dt and kept["stage"] == "full" and q.shape[1] == k.shape[1],
+          f"20e: kept {q.dtype} {kept['stage']} {tuple(q.shape)} {tuple(k.shape)}")
+    case = dict(q=q, k=k, stage=kept["stage"], text_len=kept["text_len"])
+    name = f"roberta no prefix {tuple(q.shape[:2]) + (k.shape[1],) + tuple(q.shape[2:])}"
+    kernel = lambda: fused_attention_spec(q, k, v, valid, gi, rowfull, **kw)
+    plain = lambda: spec_attention_plain(q, k, v, valid, gi, rowfull, **kw)
+    sdpa = sdpa_call(q, k, v, valid, gi, rowfull, case)
+    err = errors(kernel(), plain())[0]
+    check(err <= TOL[dt], f"20e forward: {err}")
+    b_ms, b_by = bound(case, dt)
+    row = dict(shape=name, max_abs_err=err, ms=median_ms(kernel), plain_ms=median_ms(plain),
+               library_ms=median_ms(sdpa), b2b_ms=back_to_back_ms(kernel),
+               plain_b2b_ms=back_to_back_ms(plain), library_b2b_ms=back_to_back_ms(sdpa),
+               bound_ms=b_ms, bound_by=b_by)
+    print(f"[20e kernel] {name:40s} vs plain {err:.2e} (tol 2e-2) | per call: kernel "
+          f"{row['ms']:.4f} | plain {row['plain_ms']:.4f} | sdpa {row['library_ms']:.4f} ms; "
+          f"back to back: kernel {row['b2b_ms']:.4f} | plain {row['plain_b2b_ms']:.4f} | sdpa "
+          f"{row['library_b2b_ms']:.4f} ms | bound {b_ms:.4f} ms ({b_by})")
+    return [row]
 
 
 # ---------------------------------------------------------------- main
@@ -3024,6 +3780,20 @@ def main() -> int:
                      phase_seconds=time.perf_counter() - t19)
     print(f"[19] phases 19a-19c took {two_stage['phase_seconds']:.1f} s")
 
+    # 20. the ensembles and CLIP: parity, the ensemble path (counted), the
+    # CLIP towers and ensembles, the precompute command, the kernel at
+    # RoBERTa's no-prefix shape
+    t20 = time.perf_counter()
+    ensemble_parity_r = ensemble_parity(rng)
+    ensembles, kept, heads = ensemble_path(
+        rng, serving[ENSEMBLE_QUESTIONS]["ms_per_micro_batch"])
+    clip = clip_path(rng, heads)
+    clip["command"] = clip_command(rng)
+    no_prefix = roberta_no_prefix_kernels(kept)
+    del kept, heads
+    ensembles.update(parity=ensemble_parity_r, phase_seconds=time.perf_counter() - t20)
+    print(f"[20] phases 20a-20e took {ensembles['phase_seconds']:.1f} s")
+
     # 11. kernels line, then the result line
     print(card)
     print(json.dumps({"serving": serving, "e2e_fp32_max_abs_diff": e2e_err,
@@ -3036,7 +3806,9 @@ def main() -> int:
                       "beam_cbs": {k: v for k, v in beam_cbs.items() if k != "launches"},
                       "rationale_train": {k: v for k, v in rationale.items()
                                           if k != "launches"},
-                      "two_stage": {k: v for k, v in two_stage.items() if k != "launches"}}))
+                      "two_stage": {k: v for k, v in two_stage.items() if k != "launches"},
+                      "ensembles": {k: v for k, v in ensembles.items() if k != "launches"},
+                      "clip": clip}))
     main_path = train["launches"]
     shape = "bf16 (128, 128, 138, 16, 64), one launch, as one RoBERTa layer of the slice"
 
@@ -3058,9 +3830,11 @@ def main() -> int:
         "rationale_train_launches": rationale["launches"]["spec_attention"],
         "stage1_launches": two_stage["stage1_launches"]["spec_attention"],
         "two_stage_launches": two_stage["launches"]["spec_attention"],
+        "ensemble_launches": ensembles["launches"]["spec_attention"],
         "max_abs_err": max(max_err, train_err["spec_attention"],
                            long_keys["max_abs_err"]["spec_attention"],
-                           *(r["max_abs_err"] for r in stage1_kernels["forward"])),
+                           *(r["max_abs_err"] for r in stage1_kernels["forward"]
+                             + no_prefix["spec"])),
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],
         "bound_ms": totals["bound_ms"],
@@ -3074,6 +3848,7 @@ def main() -> int:
         "training_shapes": train_spec,
         "long_keys": long_key_row("spec_attention"),
         "encoder_shapes": stage1_kernels["forward"],
+        "roberta_no_prefix": no_prefix["spec"],
     }, {
         "name": "fused_attention",
         "route": "cuda",
@@ -3084,11 +3859,14 @@ def main() -> int:
         "serve_launches": served["launches"]["fused_attention"],
         "stage1_launches": two_stage["stage1_launches"]["fused_attention"],
         "two_stage_launches": two_stage["launches"]["fused_attention"],
+        "ensemble_launches": ensembles["launches"]["fused_attention"],
         "max_abs_err": max(train_err["fused_attention"],
-                           long_keys["max_abs_err"]["fused_attention"]),
+                           long_keys["max_abs_err"]["fused_attention"],
+                           *(r["max_abs_err"] for r in no_prefix["dense"])),
         **train_times["fused_attention"],
         "timed_as": shape,
         "long_keys": long_key_row("fused_attention"),
+        "roberta_no_prefix": no_prefix["dense"],
     }, {
         "name": "flash_bwd",
         "route": "cuda",
@@ -3100,12 +3878,15 @@ def main() -> int:
         "rationale_train_launches": rationale["launches"]["flash_bwd"],
         "stage1_launches": two_stage["stage1_launches"]["flash_bwd"],
         "two_stage_launches": two_stage["launches"]["flash_bwd"],
+        "ensemble_launches": ensembles["launches"]["flash_bwd"],
         "max_abs_err": max(train_err["flash_bwd"], long_keys["max_abs_err"]["flash_bwd"],
-                           *(r["max_abs_err"] for r in encoder_bwd + stage1_kernels["backward"])),
+                           *(r["max_abs_err"] for r in encoder_bwd + stage1_kernels["backward"]
+                             + no_prefix["backward"])),
         **train_times["flash_bwd"],
         "timed_as": shape + ", no dbias plane",
         "long_keys": long_key_row("flash_bwd"),
         "encoder_shapes": encoder_bwd + stage1_kernels["backward"],
+        "roberta_no_prefix": no_prefix["backward"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

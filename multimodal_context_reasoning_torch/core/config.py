@@ -1,10 +1,10 @@
 """Configuration dataclasses of the PyTorch port.
 
 A copy of the JAX package's ``core/config.py`` (``EncoderConfig``,
-``ChunkAlignConfig``, ``RobertaConfig``, ``GPT2Config``, ``ModCRConfig``,
-``TrainConfig``): every field is kept with its default, so a config written
-by ``to_json`` on either side loads on the other.  ``torch_dtype`` replaces
-``jnp_dtype``.
+``ChunkAlignConfig``, ``RobertaConfig``, ``GPT2Config``, ``CLIPConfig``,
+``ModCRConfig``, ``TrainConfig``): every field is kept with its default, so
+a config written by ``to_json`` on either side loads on the other.
+``torch_dtype`` replaces ``jnp_dtype``.
 
 Fields that steer the JAX program only are kept for that round trip and
 have no effect here:
@@ -165,6 +165,51 @@ class GPT2Config:
     @property
     def head_dim(self) -> int:
         return self.n_embd // self.n_head
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPConfig:
+    """Frozen CLIP tower hyperparameters (ViT-B/16 defaults): the OpenAI CLIP
+    the reference loads at import (run_PMR_ModCR.py:450) and its
+    ``clip_model`` / ``clip_model_r`` ablations call inside the forward
+    (modeling_ensemble.py:804-806,833-835).  models/clip.py builds both
+    towers."""
+
+    # Vision tower (ViT-B/16): 224² pixels, 16² patches -> 14×14 grid.
+    image_size: int = 224
+    patch_size: int = 16
+    vision_width: int = 768
+    vision_layers: int = 12
+    vision_heads: int = 12  # OpenAI convention: vision_width // 64
+    # Text tower: 77-token causal transformer.
+    vocab_size: int = 49408
+    context_length: int = 77
+    text_width: int = 512
+    text_layers: int = 12
+    text_heads: int = 8
+    # Joint embedding space (both towers project here).
+    embed_dim: int = 512
+    # Compute dtype; parameters stay fp32.  The CLIP ensembles cast the
+    # features to fp32 where the reference does (modeling_ensemble.py:810,846).
+    dtype: str = "float32"
+
+    @property
+    def grid_size(self) -> int:
+        return self.image_size // self.patch_size
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return _torch_dtype(self.dtype)
+
+    @classmethod
+    def tiny(cls) -> "CLIPConfig":
+        """The JAX package's small test geometry (same topology: class token,
+        pre-LN blocks, causal text tower, joint projection)."""
+        return cls(
+            image_size=32, patch_size=8, vision_width=32, vision_layers=2,
+            vision_heads=4, vocab_size=512, context_length=16, text_width=32,
+            text_layers=2, text_heads=4, embed_dim=24,
+        )
 
 
 @dataclasses.dataclass(frozen=True)

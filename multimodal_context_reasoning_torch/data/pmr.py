@@ -114,6 +114,10 @@ class PMRDataset:
         """The answer text of the BERT stream."""
         return ans
 
+    def roberta_question(self, premise: str) -> str:
+        """The question text of the RoBERTa stream, after the prompt."""
+        return PROMPT_TEXT + premise.lower()
+
     def roberta_answer(self, ans: str) -> str:
         """The answer text of the RoBERTa stream, after its prefix."""
         return ANSWER_PREFIX + " ".join(ans.split(" , "))
@@ -122,7 +126,7 @@ class PMRDataset:
         """One example → num_labels candidate feature rows."""
         spec = self.spec
         premise_tokens = self.bert.tokenize(ex.premise.lower())
-        r_que = self.roberta.tokenize(PROMPT_TEXT + ex.premise.lower())
+        r_que = self.roberta.tokenize(self.roberta_question(ex.premise))
 
         out: List[CandidateFeatures] = []
         for ans_idx, ans in enumerate(ex.answer_choices):

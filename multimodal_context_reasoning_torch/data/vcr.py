@@ -15,9 +15,6 @@ VCR-specific behaviors preserved:
 - integer ``answer_label`` defaulting to 0 when missing (:806-809);
 - the same prompt template and ``Answer is`` prefix as PMR (:821-823, 836),
   with the answer text taken as it is (PMR rejoins " , ").
-
-The JAX ``VCRDataset``'s ``lm_style="gpt"`` framing serves the GPT-2
-ensemble, which the port does not have yet.
 """
 
 from __future__ import annotations
@@ -79,10 +76,32 @@ class VCRDataset(PMRDataset):
     whose answer strings may differ; here both sides derive from the same raw
     example, so the truncation reduces to capping the BERT answer at
     len(answer)+10 tokens — the heuristic is applied verbatim for parity.
+
+    ``lm_style`` selects the second-view (LM) stream framing:
+
+    - ``"prompt"`` (default) — the prefix-RoBERTa prompt template
+      (ensemble_T flavor, Data/VCRChunkAlign.py:821-836);
+    - ``"gpt"`` — the ``_ensemble_gpt`` flavor (:413-421): no prompt
+      template, no "Answer is" prefix, tokens framed
+      ``[bos] question [eos] answer [eos]`` by a tokenizer whose
+      ``cls_token`` and ``sep_token`` are GPT-2's bos and eos; pass it as
+      ``roberta_tokenizer``.  ``DualEnsembleModel(text_view="gpt2")``
+      consumes it.
     """
+
+    def __init__(self, *args, lm_style: str = "prompt", **kwargs):
+        super().__init__(*args, **kwargs)
+        if lm_style not in ("prompt", "gpt"):
+            raise ValueError(f"unknown lm_style {lm_style!r}")
+        self.lm_style = lm_style
 
     def bert_answer(self, ans: str) -> str:
         return truncate_answer(ans, ans)   # the roberta-side answer is the same text
 
+    def roberta_question(self, premise: str) -> str:
+        if self.lm_style == "gpt":
+            return premise.lower()
+        return super().roberta_question(premise)
+
     def roberta_answer(self, ans: str) -> str:
-        return ANSWER_PREFIX + ans
+        return ans if self.lm_style == "gpt" else ANSWER_PREFIX + ans

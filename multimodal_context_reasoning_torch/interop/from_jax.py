@@ -24,6 +24,12 @@ layout ([in, out], fused [in, 3D] ``attn.c_attn``, cross-attention
 ``q_attn`` and [in, 2D] ``c_attn``), the untied ``lm_head`` as
 ``nn.Linear``'s [vocab, D].  ``gpt2_params_from_jax`` maps a bare JAX
 ``GPT2Decoder`` tree the same way.
+
+``dual_ensemble_params_from_jax(tree, cfg, text_view=...)`` maps a JAX
+``DualEnsembleModel`` tree tower by tower (the same encoder, fusion,
+RoBERTa and GPT-2 mappings, under the JAX tree's names),
+``ensemble_params_from_jax`` a JAX ensemble head's, and
+``clip_params_from_jax`` a JAX ``CLIP`` tree to OpenAI's layout.
 """
 
 from __future__ import annotations
@@ -99,6 +105,27 @@ def _encoder(out: StateDict, prefix: str, tree: Dict[str, Any], num_layers: int)
     _lin(out, prefix + "pooler.dense.", tree["pooler"]["dense"])
 
 
+def _fusion(out: StateDict, prefix: str, fusion: Dict[str, Any], cls_layer_num: int) -> None:
+    """A JAX ``ChunkAlignFusion`` -> ``cls_ensemble_1`` and ``cls_layer_lyx``."""
+    _lin(out, prefix + "cls_ensemble_1.", fusion["cls_ensemble_1"])
+    for i in range(cls_layer_num):
+        layer = fusion[f"cls_layer_{i}"]
+        p = f"{prefix}cls_layer_lyx.{i}."
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _lin(out, f"{p}cross_attention.{proj}.", layer[proj])
+        _ln(out, p + "LayerNorm.", layer["layer_norm"])
+        _lin(out, p + "intermediate.dense.", layer["ffn"]["intermediate"])
+        _lin(out, p + "output.dense.", layer["ffn"]["output"])
+        _ln(out, p + "output.LayerNorm.", layer["ffn"]["output_layer_norm"])
+
+
+def _roberta(out: StateDict, rob: Dict[str, Any], num_layers: int) -> None:
+    """A JAX ``PrefixRoberta``, scanned or not -> ``roberta.*``."""
+    if "layers" in rob:
+        rob = unstack_layer_params(rob, num_layers)
+    _encoder(out, "roberta.", rob, num_layers)
+
+
 def params_from_jax(tree: Dict[str, Any], cfg: ModCRConfig) -> StateDict:
     """JAX ModCR parameter tree -> the port's state dict (fp32, CPU)."""
     root = tree["params"] if "params" in tree else tree
@@ -111,22 +138,8 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModCRConfig) -> StateDict:
                  cfg.seq_encoder.num_hidden_layers)
         out["calec.seq_enc.edge_dense.weight"] = _t(root["seq_enc"]["edge_dense"])
 
-    fusion = root["fusion"]
-    _lin(out, "calec.cls_ensemble_1.", fusion["cls_ensemble_1"])
-    for i in range(cfg.chunkalign.cls_layer_num):
-        layer = fusion[f"cls_layer_{i}"]
-        p = f"calec.cls_layer_lyx.{i}."
-        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
-            _lin(out, f"{p}cross_attention.{proj}.", layer[proj])
-        _ln(out, p + "LayerNorm.", layer["layer_norm"])
-        _lin(out, p + "intermediate.dense.", layer["ffn"]["intermediate"])
-        _lin(out, p + "output.dense.", layer["ffn"]["output"])
-        _ln(out, p + "output.LayerNorm.", layer["ffn"]["output_layer_norm"])
-
-    rob = root["roberta"]
-    if "layers" in rob:
-        rob = unstack_layer_params(rob, cfg.roberta.num_hidden_layers)
-    _encoder(out, "roberta.", rob, cfg.roberta.num_hidden_layers)
+    _fusion(out, "calec.", root["fusion"], cfg.chunkalign.cls_layer_num)
+    _roberta(out, root["roberta"], cfg.roberta.num_hidden_layers)
 
     # torch Sequential indices 1 / 4 are the mapping networks' two linears
     for name in ("mapping_network_vision", "mapping_network_alignment"):
@@ -213,11 +226,15 @@ def rationale_params_from_jax(tree: Dict[str, Any], enc_cfg, gpt2_cfg, *,
     return out
 
 
-def oscar_heads_params_from_jax(tree: Dict[str, Any]) -> StateDict:
-    """A JAX ``models/oscar_heads.py`` head's parameter tree -> the port
-    head's state dict (fp32, CPU): each Dense by its Flax name, the
-    transform's LayerNorm as ``transform_layer_norm``, ``decoder_bias`` as
-    it is, nested heads (``predictions``) under their names."""
+def oscar_heads_params_from_jax(tree: Dict[str, Any], prefix: str = "") -> StateDict:
+    """A JAX head's parameter tree -> the port head's state dict (fp32,
+    CPU), its keys under ``prefix``: every Dense by its Flax name (kernel
+    transposed), every LayerNorm likewise, bare parameters as they are,
+    nested modules under their names.  For the ``models/oscar_heads.py``
+    heads: the transform's LayerNorm as ``transform_layer_norm``,
+    ``decoder_bias`` as it is, ``predictions`` nested; for the ensemble
+    heads: ``classifier``, ``classifier_<view>``, ``vote`` and
+    ``easy_fusion`` as ``nn.Linear``, ``view_gates`` as it is."""
     root = tree["params"] if "params" in tree else tree
     out: StateDict = {}
 
@@ -232,5 +249,70 @@ def oscar_heads_params_from_jax(tree: Dict[str, Any]) -> StateDict:
             else:
                 walk(child, f"{prefix}{name}.")
 
-    walk(root, "")
+    walk(root, prefix)
+    return out
+
+
+# A JAX ``CandidateEnsemble`` or ``VoteEnsemble`` (or a CLIP head of
+# ``models/clip_ensemble.py``) maps as the Oscar heads do.
+ensemble_params_from_jax = oscar_heads_params_from_jax
+
+
+def dual_ensemble_params_from_jax(tree: Dict[str, Any], cfg: ModCRConfig, *,
+                                  text_view: str = "roberta") -> StateDict:
+    """JAX ``DualEnsembleModel`` parameter tree -> the port's state dict
+    (fp32, CPU): the towers under ``global_enc.``, ``seq_enc.``,
+    ``fusion.``, ``roberta.`` or ``gpt.`` (the vendored GPT-2 layout), the
+    head under ``ensemble.``."""
+    root = tree["params"] if "params" in tree else tree
+    out: StateDict = {}
+    _encoder(out, "global_enc.", root["global_enc"], cfg.global_encoder.num_hidden_layers)
+    _encoder(out, "seq_enc.", root["seq_enc"], cfg.seq_encoder.num_hidden_layers)
+    out["seq_enc.edge_dense.weight"] = _t(root["seq_enc"]["edge_dense"])
+    _fusion(out, "fusion.", root["fusion"], cfg.chunkalign.cls_layer_num)
+    if text_view == "gpt2":
+        gpt = root["gpt"]
+        n_layer = sum(1 for k in gpt if k.startswith("block_"))
+        out.update(gpt2_params_from_jax(gpt, n_layer, "gpt."))
+    else:
+        _roberta(out, root["roberta"], cfg.roberta.num_hidden_layers)
+    out.update(oscar_heads_params_from_jax(root["ensemble"], "ensemble."))
+    return out
+
+
+def clip_params_from_jax(tree: Dict[str, Any]) -> StateDict:
+    """JAX ``models/clip.py::CLIP`` parameter tree -> the port's ``CLIP``
+    state dict, OpenAI's layout (fp32, CPU): the Flax HWIO conv kernel to
+    torch's OIHW, fused ``in_proj`` kernels [W, 3W] to ``in_proj_weight``
+    [3W, W], the projections kept [in, out]."""
+    root = tree["params"] if "params" in tree else tree
+    out: StateDict = {}
+
+    def blocks(prefix: str, tower: Dict[str, Any]) -> None:
+        i = 0
+        while f"block_{i}" in tower:
+            blk, p = tower[f"block_{i}"], f"{prefix}resblocks.{i}."
+            _ln(out, p + "ln_1.", blk["ln_1"])
+            out[p + "attn.in_proj_weight"] = _t(np.asarray(blk["in_proj"]["kernel"]).T)
+            out[p + "attn.in_proj_bias"] = _t(blk["in_proj"]["bias"])
+            _lin(out, p + "attn.out_proj.", blk["out_proj"])
+            _ln(out, p + "ln_2.", blk["ln_2"])
+            _lin(out, p + "mlp.c_fc.", blk["mlp_c_fc"])
+            _lin(out, p + "mlp.c_proj.", blk["mlp_c_proj"])
+            i += 1
+
+    vis = root["visual"]
+    out["visual.conv1.weight"] = _t(np.asarray(vis["conv1"]["kernel"]).transpose(3, 2, 0, 1))
+    for name in ("class_embedding", "positional_embedding", "proj"):
+        out["visual." + name] = _t(vis[name])
+    _ln(out, "visual.ln_pre.", vis["ln_pre"])
+    _ln(out, "visual.ln_post.", vis["ln_post"])
+    blocks("visual.transformer.", vis)
+    txt = root["text"]
+    out["token_embedding.weight"] = _t(txt["token_embedding"]["embedding"])
+    out["positional_embedding"] = _t(txt["positional_embedding"])
+    out["text_projection"] = _t(txt["text_projection"])
+    _ln(out, "ln_final.", txt["ln_final"])
+    blocks("transformer.", txt)
+    out["logit_scale"] = _t(root["logit_scale"]).reshape(())
     return out

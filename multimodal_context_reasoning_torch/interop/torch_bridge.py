@@ -1,6 +1,6 @@
 """Reference PyTorch/HuggingFace checkpoints -> the port's state-dict keys
 (port of the part of the JAX package's ``interop/torch_bridge.py`` that the
-ModCR import needs).
+ModCR import and the CLIP towers need).
 
 The port's state dict already has the reference's composite layout
 (``interop/from_jax.py``), so a tower's HF keys are its keys in the port
@@ -17,10 +17,13 @@ under the tower's prefix (``calec.global_enc.``, ``calec.seq_enc.``,
   ``gamma``/``beta`` aliases renamed), resize its word embeddings, and for
   RoBERTa re-initialise the token-type table to 2 rows
   (run_PMR_ModCR.py:779-781).  They return flat ``{HF key: array}`` dicts
-  where the JAX functions return Flax trees.
+  where the JAX functions return Flax trees;
+- ``load_clip_checkpoint`` and ``convert_clip`` (with ``_normalize_hf_clip``
+  for HF ``CLIPModel`` keys): a CLIP checkpoint, OpenAI's or HF's, to the
+  OpenAI layout that models/clip.py takes.
 
-The GPT-2 and CLIP converters are not ported yet (ROADMAP).  Source dicts
-are flat ``{name: numpy array}``.
+The GPT-2 converter is not ported: no path of the port loads a GPT-2
+checkpoint.  Source dicts are flat ``{name: numpy array}``.
 """
 
 from __future__ import annotations
@@ -192,3 +195,116 @@ def convert_roberta(
         "embeddings.LayerNorm.bias": _require(sd, "embeddings.LayerNorm.bias"),
     }
     return _layers_and_pooler(sd, num_layers, out)
+
+
+# the keys of one CLIP residual block, OpenAI's layout
+_CLIP_BLOCK_KEYS = tuple(
+    f"{module}.{leaf}"
+    for module in ("ln_1", "attn.out_proj", "ln_2", "mlp.c_fc", "mlp.c_proj")
+    for leaf in ("weight", "bias")
+) + ("attn.in_proj_weight", "attn.in_proj_bias")
+
+
+def _normalize_hf_clip(sd: StateDict) -> StateDict:
+    """HF ``CLIPModel`` layout -> OpenAI layout (the one convert_clip reads).
+
+    HF splits the fused in_proj into q/k/v and stores the projections as
+    Linear ``[out, in]``; OpenAI packs ``in_proj_weight`` [3W, W] and keeps
+    ``proj``/``text_projection`` as plain ``[in, out]`` matrices.
+    """
+    out: StateDict = {}
+
+    def block(src_prefix: str, dst_prefix: str) -> None:
+        i = 0
+        while f"{src_prefix}.layers.{i}.layer_norm1.weight" in sd:
+            s = f"{src_prefix}.layers.{i}."
+            d = f"{dst_prefix}.resblocks.{i}."
+            out[d + "ln_1.weight"] = sd[s + "layer_norm1.weight"]
+            out[d + "ln_1.bias"] = sd[s + "layer_norm1.bias"]
+            out[d + "attn.in_proj_weight"] = np.concatenate(
+                [sd[s + f"self_attn.{n}_proj.weight"] for n in "qkv"], axis=0)
+            out[d + "attn.in_proj_bias"] = np.concatenate(
+                [sd[s + f"self_attn.{n}_proj.bias"] for n in "qkv"], axis=0)
+            out[d + "attn.out_proj.weight"] = sd[s + "self_attn.out_proj.weight"]
+            out[d + "attn.out_proj.bias"] = sd[s + "self_attn.out_proj.bias"]
+            out[d + "ln_2.weight"] = sd[s + "layer_norm2.weight"]
+            out[d + "ln_2.bias"] = sd[s + "layer_norm2.bias"]
+            out[d + "mlp.c_fc.weight"] = sd[s + "mlp.fc1.weight"]
+            out[d + "mlp.c_fc.bias"] = sd[s + "mlp.fc1.bias"]
+            out[d + "mlp.c_proj.weight"] = sd[s + "mlp.fc2.weight"]
+            out[d + "mlp.c_proj.bias"] = sd[s + "mlp.fc2.bias"]
+            i += 1
+
+    out["visual.conv1.weight"] = _require(
+        sd, "vision_model.embeddings.patch_embedding.weight")
+    out["visual.class_embedding"] = _require(
+        sd, "vision_model.embeddings.class_embedding")
+    out["visual.positional_embedding"] = _require(
+        sd, "vision_model.embeddings.position_embedding.weight")
+    # "pre_layrnorm" is HF's historical typo, kept for compatibility there.
+    out["visual.ln_pre.weight"] = _require(
+        sd, "vision_model.pre_layrnorm.weight", "vision_model.pre_layernorm.weight")
+    out["visual.ln_pre.bias"] = _require(
+        sd, "vision_model.pre_layrnorm.bias", "vision_model.pre_layernorm.bias")
+    block("vision_model.encoder", "visual.transformer")
+    out["visual.ln_post.weight"] = _require(sd, "vision_model.post_layernorm.weight")
+    out["visual.ln_post.bias"] = _require(sd, "vision_model.post_layernorm.bias")
+    out["visual.proj"] = np.ascontiguousarray(_require(sd, "visual_projection.weight").T)
+
+    out["token_embedding.weight"] = _require(
+        sd, "text_model.embeddings.token_embedding.weight")
+    out["positional_embedding"] = _require(
+        sd, "text_model.embeddings.position_embedding.weight")
+    block("text_model.encoder", "transformer")
+    out["ln_final.weight"] = _require(sd, "text_model.final_layer_norm.weight")
+    out["ln_final.bias"] = _require(sd, "text_model.final_layer_norm.bias")
+    out["text_projection"] = np.ascontiguousarray(_require(sd, "text_projection.weight").T)
+    out["logit_scale"] = _require(sd, "logit_scale")
+    return out
+
+
+def convert_clip(sd: StateDict) -> StateDict:
+    """CLIP checkpoint -> ``models/clip.py::CLIP``'s state dict, fp32 numpy.
+
+    Accepts OpenAI's published layout (``visual.conv1.weight``,
+    ``…resblocks.N.attn.in_proj_weight``, ``text_projection``, … — what
+    ``clip.load('ViT-B/16')`` holds, run_PMR_ModCR.py:450) and HF's
+    ``CLIPModel`` layout (``vision_model.…``, split q/k/v projections).
+    Only the towers' keys are kept (OpenAI's archive also carries
+    ``input_resolution``, ``context_length`` and ``vocab_size``); OpenAI
+    ships fp16 weights, cast to fp32 here."""
+    if "visual.conv1.weight" not in sd and \
+            "vision_model.embeddings.patch_embedding.weight" in sd:
+        sd = _normalize_hf_clip(sd)
+    names = ["visual.conv1.weight", "visual.class_embedding",
+             "visual.positional_embedding", "visual.ln_pre.weight", "visual.ln_pre.bias",
+             "visual.ln_post.weight", "visual.ln_post.bias", "visual.proj",
+             "token_embedding.weight", "positional_embedding", "ln_final.weight",
+             "ln_final.bias", "text_projection"]
+    for prefix in ("visual.transformer", "transformer"):
+        i = 0
+        while f"{prefix}.resblocks.{i}.ln_1.weight" in sd:
+            names += [f"{prefix}.resblocks.{i}.{k}" for k in _CLIP_BLOCK_KEYS]
+            i += 1
+    out = {n: np.asarray(_require(sd, n), np.float32) for n in names}
+    out["logit_scale"] = np.asarray(_require(sd, "logit_scale"), np.float32).reshape(())
+    return out
+
+
+def load_clip_checkpoint(path: str) -> StateDict:
+    """OpenAI .pt (a TorchScript archive or a plain dict) or HF .bin -> flat
+    numpy state dict for :func:`convert_clip`.  A plain file is unpickled
+    tensors only (``weights_only``); a TorchScript archive is loaded with
+    ``torch.jit.load``."""
+    import torch
+
+    try:
+        raw = torch.load(path, map_location="cpu", weights_only=True)
+    except RuntimeError:   # a TorchScript archive (weights_only refuses it)
+        raw = torch.jit.load(path, map_location="cpu")
+    if hasattr(raw, "state_dict"):
+        raw = raw.state_dict()
+    if isinstance(raw, dict) and "state_dict" in raw:
+        raw = raw["state_dict"]
+    return {k: v.detach().cpu().float().numpy() for k, v in raw.items()
+            if hasattr(v, "detach")}

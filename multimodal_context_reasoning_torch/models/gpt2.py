@@ -207,7 +207,15 @@ class GPT2Decoder(nn.Module):
         """Every block's cross-attention keys and values of ``memory``."""
         return [blk.crossattention.kv(memory) for blk in self.h]
 
-    def forward(
+    def forward(self, input_ids: torch.Tensor, **kw) -> Tuple[torch.Tensor, Optional[KVCache]]:
+        """``(logits, cache)``: the LM head over :meth:`final_hidden`'s
+        states (its keywords)."""
+        h, cache = self.final_hidden(input_ids, **kw)
+        if self._head is None:
+            return h @ self.wte.weight.t(), cache
+        return self._head[0](h), cache
+
+    def final_hidden(
         self,
         input_ids: torch.Tensor,                          # [B, L]
         *,
@@ -220,6 +228,11 @@ class GPT2Decoder(nn.Module):
         cache_valid: Optional[torch.Tensor] = None,       # [B, L_max] {0,1}
         attn_mask: Optional[torch.Tensor] = None,         # [B, L] {0,1}, uncached
     ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+        """The hidden states after ``ln_f`` [B, L, D] and the cache, without
+        the LM head: what the JAX decoder's ``output_hidden=True`` adds to
+        its logits.  A caller that reads only the states skips the [B, L,
+        vocab] product, as XLA drops it from the JAX decoder's jitted
+        program."""
         c = self.config
         B, L = input_ids.shape
         dev = input_ids.device
@@ -255,9 +268,4 @@ class GPT2Decoder(nn.Module):
                     memory_bias=memory_bias,
                     cache_kv=None if cache is None else (cache.k[i], cache.v[i]),
                     cache_index=cache_index)
-        h = self.ln_f(h)
-        if self._head is None:
-            logits = h @ self.wte.weight.t()
-        else:
-            logits = self._head[0](h)
-        return logits, cache
+        return self.ln_f(h), cache

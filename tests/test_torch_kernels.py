@@ -23,7 +23,7 @@ from multimodal_context_reasoning_torch.ops.fused_attention import (
     fused_attention,
     fused_attention_plain,
 )
-from multimodal_context_reasoning_torch.ops.masks import stage_mask_specs
+from multimodal_context_reasoning_torch.ops.masks import full_mask_spec, stage_mask_specs
 from multimodal_context_reasoning_torch.ops.quant import (
     int8_matmul,
     int8_mm,
@@ -276,11 +276,13 @@ def _rel_close(got, want, tol):
     assert err <= tol * scale, (err, scale)
 
 
-@pytest.mark.parametrize("lq,prefix,bias_shape", [(190, 0, "plane"), (128, 10, "row")])
+@pytest.mark.parametrize("lq,prefix,bias_shape",
+                         [(190, 0, "plane"), (128, 10, "row"), (128, 0, "row")])
 def test_bf16_backward_at_model_lengths(card, lq, prefix, bias_shape):
     """The chunk stage's Lq = Lk = 190 with a [B, 1, Lq, Lk] plane, and
-    RoBERTa's Lk = 138 with a [B, 1, 1, Lk] row: dq, dk, dv and the dbias
-    plane within 2e-2 of each output's max |plain|."""
+    RoBERTa's Lk = 138 (10 prefix keys) and Lk = 128 (no prefix) with a
+    [B, 1, 1, Lk] row: dq, dk, dv and the dbias plane within 2e-2 of each
+    output's max |plain|."""
     q, k, v, bias, d_out = _dense_case(card, Lq=lq, P=prefix, bias_shape=bias_shape)
     q, k, v, d_out = _bf16(q, k, v, d_out)
     before = flash_attention_bwd.launches
@@ -321,10 +323,12 @@ def test_bf16_backward_refuses_what_it_does_not_take(card):
 # dense-bias forward's tensor-core kernel (csrc/fused_attention.cu,
 # dense_attention_mma_kernel); relative error within 2e-2 of max |plain|
 
-@pytest.mark.parametrize("lq,prefix,bias_shape", [(190, 0, "plane"), (128, 10, "row")])
+@pytest.mark.parametrize("lq,prefix,bias_shape",
+                         [(190, 0, "plane"), (128, 10, "row"), (128, 0, "row")])
 def test_bf16_dense_forward_at_model_lengths(card, lq, prefix, bias_shape):
     """The chunk stage's Lq = Lk = 190 with a [B, 1, Lq, Lk] plane, and
-    RoBERTa's Lk = 138 with a [B, 1, 1, Lk] padding row."""
+    RoBERTa's Lk = 138 (ModCR's 10 prefix keys) and Lk = 128 (the
+    ensembles' RoBERTa, no prefix) with a [B, 1, 1, Lk] padding row."""
     q, k, v, bias, _ = _dense_case(card, Lq=lq, P=prefix, bias_shape=bias_shape)
     q, k, v = _bf16(q, k, v)
     before = fused_attention.launches
@@ -415,6 +419,54 @@ def test_bf16_spec_full_stage_prefixed_and_strided(card):
     want = spec_attention_plain(q, k, v, valid, gi, rowfull, stage="full", text_len=Lq)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=TOL[torch.bfloat16])
+
+
+def _roberta_no_prefix(card, B=6, L=128, H=16, Dh=64, seed=8):
+    """RoBERTa with no prefix, as the ensembles run it: Lq = Lk = 128, the
+    full stage's spec of ``full_mask_spec`` over ragged padding masks (one
+    row full, one of 5 tokens)."""
+    rng = np.random.default_rng(seed)
+    mask = np.zeros((B, L), np.float32)
+    for b, n in enumerate([L, 5, *rng.integers(6, L, B - 2)]):
+        mask[b, :n] = 1.0
+    spec = full_mask_spec(torch.from_numpy(mask).to(card), L)
+    qkv = [torch.from_numpy(rng.normal(size=(B, L, H, Dh)).astype(np.float32)).to(card)
+           for _ in range(3)]
+    return qkv, spec
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spec_roberta_no_prefix_matches_plain(card, dtype):
+    """The stage-mask forward at (B, 128, 128, 16, 64), no prefix keys."""
+    (q, k, v), spec = _roberta_no_prefix(card)
+    args = (q.to(dtype), k.to(dtype), v.to(dtype), spec.valid, spec.gi, spec.rowfull)
+    kw = dict(stage=spec.stage, text_len=spec.text_len)
+    assert spec.stage == "full" and spec.valid.shape == (6, 128)
+    before = fused_attention_spec.launches
+    got = fused_attention_spec(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_attention_spec.launches == before + 1
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), spec_attention_plain(*args, **kw).float(),
+                               rtol=0, atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spec_function_grads_roberta_no_prefix(card, dtype):
+    """The stage-mask Function's gradients there (RoBERTa without remat)
+    against autograd of its plain version."""
+    (q, k, v), spec = _roberta_no_prefix(card, seed=9)
+    d_out = torch.randn(q.shape, device=card, generator=torch.Generator(card).manual_seed(1))
+    vec = (spec.valid, spec.gi, spec.rowfull)
+    kw = dict(stage=spec.stage, text_len=spec.text_len)
+    leaves = [t.to(dtype).requires_grad_() for t in (q, k, v)]
+    before = flash_attention_bwd.launches
+    fused_attention_spec(*leaves, *vec, **kw).backward(d_out.to(dtype))
+    assert flash_attention_bwd.launches == before + 1
+    ref = [t.to(dtype).requires_grad_() for t in (q, k, v)]
+    spec_attention_plain(*ref, *vec, **kw).backward(d_out.to(dtype))
+    for a, b in zip(leaves, ref):
+        _close(a.grad, b.grad, BWD_TOL[dtype])
 
 
 @pytest.mark.parametrize("stage", ["chunk", "full", "cross"])
