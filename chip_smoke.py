@@ -5,9 +5,11 @@ hold every kernel route to its plain version past 192 keys, serve
 concurrent HTTP clients through the serve command (``cli/serve.py``),
 score through the W8A8 int8 route, serve the rationale family at
 ``POST /generate``, decode it by beam sampling and CBS, train it, run
-the two-stage recipe (``cli/train_two_stage.py``), and run the ensemble
+the two-stage recipe (``cli/train_two_stage.py``), run the ensemble
 and CLIP ablations with the CLIP precompute command
-(``cli/precompute_clip.py``).
+(``cli/precompute_clip.py``), and hold the kernels' dispatcher ops, the
+device-resident feature table, the AOT artifacts (``serving/aot.py``) and
+the profiled, logged trainer (phase 21).
 
     python3 chip_smoke.py
 
@@ -44,7 +46,7 @@ the port is not beside this script, or when any phase fails.  Phases:
    plane as bias, 2e-2 of max |plain|); the backward's dq, dk, dv and
    dbias plane with a random dO (1e-4 of each output's max |plain| in fp32:
    atomics and summation order; 2e-2 in bf16: P and dS are rounded before
-   their products); the stage-mask Function's gradients against autograd of
+   their products); the stage-mask op's gradients against autograd of
    its plain version in the full stage at that shape and in the chunk stage
    at (32, 190, 190, 12, 64); a fully masked row; the bf16 backward at
    Lq = Lk = 190 with the chunk stage's [B, 1, Lq, Lk] mask plane as bias,
@@ -73,9 +75,10 @@ the port is not beside this script, or when any phase fails.  Phases:
     18, ``stage1_launches`` and ``two_stage_launches`` of all three from
     phase 19, the backward's ``encoder_shapes`` from 18b and 19c, the
     stage-mask forward's from 19c, ``ensemble_launches`` of all three from
-    phase 20b and each kernel's ``roberta_no_prefix`` rows from 20e), then
-    the result line; the summary line before it carries ``ensembles`` and
-    ``clip``;
+    phase 20b and each kernel's ``roberta_no_prefix`` rows from 20e,
+    ``aot_launches``, ``device_table_launches`` and ``op_host_us`` from
+    phase 21), then the result line; the summary line before it carries
+    ``ensembles``, ``clip`` and ``standalone`` (phase 21);
 12. (run before 11) the two commands through ``main(argv)``, full-width
     bf16, on files written from the seed in a temporary directory (PMR
     JSONL of 64 / 32 / 32 examples, a VCR JSON of 64, 50 x 2054 region
@@ -165,7 +168,7 @@ the port is not beside this script, or when any phase fails.  Phases:
     2-layer GPT-2 (full widths): losses and gradient norms within 1e-4
     relative, parameters within 2 x steps x lr; 18b: the backward at
     (32, 190, 190, 12, 64) bf16 with each stage's mask as the stage-mask
-    Function passes it, against its plain version, then kernel, plain
+    op's gradient passes it, against its plain version, then kernel, plain
     version and SDPA's backward per call and back to back, and the bound;
 19. (run before 11) the two-stage recipe: 19a, two fp32 ``train_step``s of
     ``ChunkAlignClassifier`` at full width (schedule 3/9, dropout 0, one
@@ -219,7 +222,37 @@ the port is not beside this script, or when any phase fails.  Phases:
     forward's from an evaluation forward, the dense-bias forward's and the
     backward's from the held step), each against its plain version, then
     kernel, plain version and SDPA per call and back to back, and the
-    bound.
+    bound;
+21. (run before 11) the standalone half of ROADMAP item 9: 21a, each of
+    the three dispatcher ops (``torch.ops.modcr_torch.*``, which every
+    earlier phase already ran through) bit-equal to its direct launcher at
+    phase 3's micro-batch-8 shapes and phase 7's training shapes in bf16,
+    the stage-mask op's gradients to the direct backward launch,
+    ``torch.library.opcheck`` on the card at (2, 24, 24, 2, 64) in fp32
+    and bf16, and host µs per call over 1,000 calls with no synchronisation
+    inside (and in windows of 100, which time the host alone), direct
+    launcher against the op (and a ``custom_op`` twin) in turns; 21b, the full-width bf16 scorer (alignment off) with the device
+    feature table against the host path, logits bit-equal, 60 launches a
+    forward, collate + copy ms and bytes per micro-batch of 8, then one
+    training forward and backward at phase 10's geometry on one model,
+    host, table, host (the loss bit-equal; the gradients within 1e-4 of max
+    |g| of host mode's, beside host mode against its own second run; 36 /
+    48 / 24 launches); 21c, ``serve --save_artifact`` then ``serve --artifact`` as
+    processes at full width in bf16, phase 14's clients on the artifact
+    command (replies within phase 14's bound of the live scorer, the
+    bit-equal ones counted), the artifact loaded in-process bit-equal to
+    the live scorer with 57 launches a forward, ms per micro-batch of both
+    in turns, export and standup seconds; 21d, ``serve --generate
+    --save_gen_artifact`` (started after 21a, exporting beside 21b and
+    21c) and ``serve --gen_artifact`` as processes (phase 16's geometry, 32
+    greedy steps), the loaded generator's tokens equal
+    to live generation with 24 launches a classify forward, the command's
+    replies equal to live under phase 16's clients, export seconds,
+    program bytes, ms per request of both; 21e, ``Trainer.fit`` at phase
+    10's geometry with the table, ``profile_dir`` (two steps captured) and
+    ``tensorboard_dir``: the Chrome trace's spec_attention*,
+    dense_attention* and flash_bwd* kernels are 36 / 48 / 24 a profiled
+    step, and the writer branch that ran is printed.
 """
 
 from __future__ import annotations
@@ -504,7 +537,7 @@ def errors(got, want):
 
 
 def spec_grad_errors(q, k, v, vecs, d_out, **kw):
-    """The stage-mask Function's q, k, v gradients (kernel forward, backward
+    """The stage-mask op's q, k, v gradients (kernel forward, backward
     kernel) against autograd of its plain version: worst (abs, rel)."""
     from multimodal_context_reasoning_torch.ops.spec_attention import (
         fused_attention_spec,
@@ -568,7 +601,7 @@ def check_training_kernels(rng) -> dict:
             worst["spec_attention"] = max(worst["spec_attention"], s_err)
             print(f"[7 train check] {name:32s} {str(dtype):15s} forward {f_err:.2e} | "
                   "backward " + " | ".join(line)
-                  + f" | spec-Function grads {s_err:.2e} ({s_rel:.1e} rel)")
+                  + f" | spec-op grads {s_err:.2e} ({s_rel:.1e} rel)")
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, *vecs = cuda_args(chunk, dtype)
         d_out = torch.randn(q.shape, device="cuda", dtype=dtype,
@@ -578,7 +611,7 @@ def check_training_kernels(rng) -> dict:
         check(s_rel <= BWD_TOL[dtype], f"spec grads chunk {dtype}: rel {s_rel}")
         worst["spec_attention"] = max(worst["spec_attention"], s_err)
         print(f"[7 train check] {'chunk (32, 190, 190, 12, 64)':32s} {str(dtype):15s} "
-              f"spec-Function grads {s_err:.2e} ({s_rel:.1e} rel)")
+              f"spec-op grads {s_err:.2e} ({s_rel:.1e} rel)")
     # bf16 at the chunk stage's length, the longest keys the tensor-core
     # kernels take on the model's path, with the stage's [B, 1, Lq, Lk] mask
     # plane: the forward, then the backward
@@ -1269,10 +1302,10 @@ def as_json(ex) -> dict:
             "answer_choices": ex.answer_choices}
 
 
-def start_serve_command(tmp: str, pack: str, *flags) -> tuple:
-    """``python -m multimodal_context_reasoning_torch.cli.serve`` on a free
-    port over the ``.mcrpack``, polled on ``/healthz``; returns ``(process,
-    port, log path, seconds to /healthz)``."""
+def start_serve_command_nowait(tmp: str, pack: str, *flags) -> tuple:
+    """``python -m multimodal_context_reasoning_torch.cli.serve`` started on
+    a free port over the ``.mcrpack``; returns ``(process, port, log
+    path)`` at once (:func:`wait_healthz` waits for it)."""
     port = free_port()
     log_path = os.path.join(tmp, f"serve_{port}.log")
     with open(log_path, "w") as log:
@@ -1280,22 +1313,36 @@ def start_serve_command(tmp: str, pack: str, *flags) -> tuple:
             [sys.executable, "-m", "multimodal_context_reasoning_torch.cli.serve",
              "--port", str(port), "--img_feat_file", pack, "--compute_dtype", "bfloat16",
              *flags], cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    return proc, port, log_path
+
+
+def wait_healthz(proc, port: int, log_path: str, started_at: float) -> float:
+    """Poll ``/healthz`` until the command answers; seconds since
+    ``started_at``."""
+    while True:
+        check(proc.poll() is None, "the serve command exited: "
+              + open(log_path).read()[-2000:])
+        check(time.perf_counter() - started_at < 600, "no /healthz within 600 s")
+        try:
+            if http(port, "/healthz", timeout=5)[0] == 200:
+                return time.perf_counter() - started_at
+        except OSError:
+            pass
+        time.sleep(0.5)
+
+
+def start_serve_command(tmp: str, pack: str, *flags) -> tuple:
+    """``python -m multimodal_context_reasoning_torch.cli.serve`` on a free
+    port over the ``.mcrpack``, polled on ``/healthz``; returns ``(process,
+    port, log path, seconds to /healthz)``."""
     t0 = time.perf_counter()
+    proc, port, log_path = start_serve_command_nowait(tmp, pack, *flags)
     try:
-        while True:
-            check(proc.poll() is None, "the serve command exited: "
-                  + open(log_path).read()[-2000:])
-            check(time.perf_counter() - t0 < 600, "no /healthz within 600 s")
-            try:
-                if http(port, "/healthz", timeout=5)[0] == 200:
-                    break
-            except OSError:
-                pass
-            time.sleep(0.5)
+        startup = wait_healthz(proc, port, log_path, t0)
     except BaseException:
         stop_serve_command(proc)
         raise
-    return proc, port, log_path, time.perf_counter() - t0
+    return proc, port, log_path, startup
 
 
 def stop_serve_command(proc) -> bool:
@@ -2474,7 +2521,7 @@ def rationale_train_parity(rng) -> dict:
 def time_encoder_backward(rng) -> list:
     """Phase 18b: the backward at the rationale family's trainable encoder
     shape, (32, 190, 190, 12, 64) bf16, with each stage's mask as
-    ``_SpecAttentionFn`` passes it (``spec_bias``): against its plain version,
+    the stage-mask op's gradient passes it (``spec_bias``): against its plain version,
     then kernel, plain version and SDPA's backward (the mask as a float
     ``attn_mask``, through autograd) per call and back to back, with the
     bound (inputs read once, dq, dk, dv written once, no dbias plane)."""
@@ -2533,7 +2580,7 @@ def stage1_launches(enc, sched) -> dict:
     """Kernel launches of one stage-1 train step of ``ChunkAlignClassifier``:
     every encoder layer but the ChunkAlign encoder's cross layers (they
     return probabilities for the alignment loss, so they take the plain
-    attention) runs the stage-mask forward, and through ``_SpecAttentionFn``
+    attention) runs the stage-mask forward, and through that op's gradient
     the backward kernel; no layer takes the dense-bias forward.  Full depth:
     12 global + 3 chunk-stage + 6 full-stage = 21.  An evaluation forward
     launches the same stage-mask count and no backward."""
@@ -3536,9 +3583,705 @@ def roberta_no_prefix_spec(kept) -> list:
     return [row]
 
 
+# ---------------------------------------------------------------- ops, AOT, table, profiler
+
+def host_us_per_call(fn, n: int = 1000, window: int = 100) -> tuple:
+    """(host µs per call, device µs per call) of ``n`` calls with no
+    synchronisation inside the loop, and the host µs per call of the same
+    calls in windows of ``window`` (synchronised between windows, outside
+    the timed part): a window never fills the launch queue, so it times the
+    host alone, while the ``n``-call loop blocks on a full queue wherever
+    the device takes longer than the host."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = time.perf_counter() - t0
+    end.record()
+    end.synchronize()
+    windows = []
+    for _ in range(n // window):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(window):
+            fn()
+        windows.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return (1e6 * host / n, 1e3 * start.elapsed_time(end) / n,
+            1e6 * statistics.median(windows) / window)
+
+
+def probe_custom_op():
+    """A ``torch.library.custom_op`` twin of the stage-mask op over the same
+    launcher, in a namespace of its own: the host cost of that route, beside
+    the ``Library`` one the port registers (never on a path of the port)."""
+    from multimodal_context_reasoning_torch.ops.spec_attention import fused_attention_spec
+
+    @torch.library.custom_op("modcr_probe::spec_attention", mutates_args=())
+    def probe(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: torch.Tensor,
+              gi: torch.Tensor, rowfull: torch.Tensor, stage: str,
+              text_len: int) -> torch.Tensor:
+        return fused_attention_spec.launch(q, k, v, valid, gi, rowfull, stage=stage,
+                                           text_len=text_len)
+
+    return probe
+
+
+def ops_phase(rng) -> dict:
+    """Phase 21a: each op bit-equal to its direct launcher at the phase-3
+    micro-batch-8 shapes and the phase-7 training shapes in bf16 (and the
+    stage-mask op's gradients to the direct backward launch on the stage
+    bias); ``torch.library.opcheck`` on CUDA at a small shape, fp32 and
+    bf16; host µs per call, direct launcher against the op (and against a
+    ``custom_op`` twin) at the micro-batch-8 shapes, 1,000 calls each."""
+    from multimodal_context_reasoning_torch.ops.flash import FLASH_BWD, flash_attention_bwd
+    from multimodal_context_reasoning_torch.ops.fused_attention import (
+        DENSE_ATTENTION,
+        fused_attention,
+    )
+    from multimodal_context_reasoning_torch.ops.masks import padding_bias
+    from multimodal_context_reasoning_torch.ops.spec_attention import (
+        SPEC_ATTENTION,
+        fused_attention_spec,
+        spec_bias,
+    )
+
+    out = dict(bit_equal={}, opcheck={}, host=[])
+    probe = probe_custom_op()
+    with uncounted():
+        for case, n_fwd in shapes(rng, 8):
+            args = cuda_args(case, torch.bfloat16)
+            kw = dict(stage=case["stage"], text_len=case["text_len"])
+            same = torch.equal(fused_attention_spec(*args, **kw),
+                               fused_attention_spec.launch(*args, **kw))
+            out["bit_equal"][f"spec {case['name']}"] = same
+            check(same, f"21a: the stage-mask op differs from its launcher at {case['name']}")
+            direct = lambda: fused_attention_spec.launch(*args, **kw)
+            op = lambda: fused_attention_spec(*args, **kw)
+            custom = lambda: probe(*args, case["stage"], case["text_len"])
+            row = dict(shape=case["name"], launches_per_forward=n_fwd)
+            for name, fn in (("direct", direct), ("op", op), ("custom_op", custom),
+                             ("op", op), ("direct", direct)):
+                h, d, w = host_us_per_call(fn)
+                row.setdefault(f"{name}_host_us_1000", []).append(h)
+                row.setdefault(f"{name}_device_us", []).append(d)
+                row.setdefault(f"{name}_host_us", []).append(w)
+            out["host"].append(row)
+            r2 = lambda xs: [round(x, 2) for x in xs]
+            print(f"[21a ops] {case['name']:33s} host µs per call (windows of 100, in turns): "
+                  f"direct {r2(row['direct_host_us'])} | op {r2(row['op_host_us'])} | "
+                  f"custom_op {r2(row['custom_op_host_us'])}; 1000 calls in one loop: host "
+                  f"direct {r2(row['direct_host_us_1000'])} op {r2(row['op_host_us_1000'])}, "
+                  f"device direct {r2(row['direct_device_us'])} op {r2(row['op_device_us'])}")
+            del args
+        # the training shapes: the dense forward and the backward (with the
+        # dbias plane), row bias at RoBERTa's, the chunk plane at 190 keys
+        case = dense_case(rng, **TRAIN_SHAPE)
+        q, k, v, d_out = (case[n].to("cuda", torch.bfloat16) for n in ("q", "k", "v", "d_out"))
+        chunk = attention_case(rng, "chunk L=190", 32, 140, 50, 12, "chunk")
+        cq, ck, cv, *cvec = cuda_args(chunk, torch.bfloat16)
+        cbias = spec_bias(*cvec, stage="chunk", text_len=chunk["text_len"], lq=cq.shape[1])
+        c_dout = torch.randn(cq.shape, device="cuda", dtype=torch.bfloat16,
+                             generator=torch.Generator("cuda").manual_seed(SEED + 21))
+        for name, (a, b, c, bias, g) in (
+                ("(128, 128, 138, 16, 64) row bias", (q, k, v, padding_bias(
+                    case["valid"].cuda()), d_out)),
+                ("(32, 190, 190, 12, 64) chunk plane", (cq, ck, cv, cbias, c_dout))):
+            same = torch.equal(fused_attention(a, b, c, bias), fused_attention.launch(a, b, c, bias))
+            got = flash_attention_bwd(a, b, c, bias, g, want_dbias=False)
+            want = flash_attention_bwd.launch(a, b, c, bias, g, want_dbias=False)
+            same_bwd = all(torch.equal(x, y) for x, y in zip(got[:3], want[:3]))
+            out["bit_equal"][f"dense {name}"] = same
+            out["bit_equal"][f"backward {name}"] = same_bwd
+            check(same and same_bwd, f"21a: dense {same} / backward {same_bwd} op differs "
+                                     f"from its launcher at {name}")
+            # with the dbias plane: its head sum is taken with atomics, so
+            # two launches of the kernel itself may differ in its last bits
+            got = flash_attention_bwd(a, b, c, bias, g, want_dbias=True)
+            want = flash_attention_bwd.launch(a, b, c, bias, g, want_dbias=True)
+            again = flash_attention_bwd.launch(a, b, c, bias, g, want_dbias=True)
+            same_grads = all(torch.equal(x, y) for x, y in zip(got[:3], want[:3]))
+            _, rel = errors(got[3], want[3])
+            out["bit_equal"][f"backward with dbias {name}"] = dict(
+                dq_dk_dv=same_grads, dbias=torch.equal(got[3], want[3]),
+                dbias_two_launches=torch.equal(want[3], again[3]), dbias_rel=rel)
+            check(same_grads and rel <= BWD_TOL[torch.bfloat16],
+                  f"21a: backward with dbias at {name}: dq/dk/dv equal {same_grads}, dbias "
+                  f"{rel} of max |dbias| from the launcher's")
+        # host µs per call of the two training kernels at a small batch of
+        # RoBERTa's shape (4 rows), where the device takes less than the host
+        sq, sk, sv, sd = (t[:4] for t in (q, k, v, d_out))
+        sb = padding_bias(case["valid"][:4].cuda())
+        for name, direct, op in (
+                ("fused_attention", lambda: fused_attention.launch(sq, sk, sv, sb),
+                 lambda: fused_attention(sq, sk, sv, sb)),
+                ("flash_bwd", lambda: flash_attention_bwd.launch(sq, sk, sv, sb, sd,
+                                                                 want_dbias=False),
+                 lambda: flash_attention_bwd(sq, sk, sv, sb, sd, want_dbias=False))):
+            row = dict(kernel=name, shape="(4, 128, 138, 16, 64)")
+            for turn, fn in (("direct", direct), ("op", op), ("op", op), ("direct", direct)):
+                h, d, w = host_us_per_call(fn)
+                row.setdefault(f"{turn}_host_us_1000", []).append(h)
+                row.setdefault(f"{turn}_device_us", []).append(d)
+                row.setdefault(f"{turn}_host_us", []).append(w)
+            out[f"{name}_host"] = row
+            print(f"[21a ops] {name} (4, 128, 138, 16, 64) host µs per call: direct "
+                  f"{row['direct_host_us']} | op {row['op_host_us']} | device µs direct "
+                  f"{row['direct_device_us']} op {row['op_device_us']}")
+        # the stage-mask op's gradient: the backward launch on the stage bias
+        leaves = [t.detach().clone().requires_grad_() for t in (cq, ck, cv)]
+        fused_attention_spec(*leaves, *cvec, stage="chunk",
+                             text_len=chunk["text_len"]).backward(c_dout)
+        want = flash_attention_bwd.launch(cq, ck, cv, cbias, c_dout, want_dbias=False)
+        same = all(torch.equal(x.grad, y) for x, y in zip(leaves, want[:3]))
+        out["bit_equal"]["spec gradient (32, 190, 190, 12, 64) chunk"] = same
+        check(same, "21a: the stage-mask op's gradients differ from the direct backward")
+        del leaves, want, got, again
+        # opcheck on the card at a small shape, fp32 (FP32 pipes) and bf16
+        small = attention_case(rng, "small", 2, 12, 12, 2, "chunk")
+        for dtype in (torch.float32, torch.bfloat16):
+            sq, sk, sv, *svec = cuda_args(small, dtype)
+            sbias = spec_bias(*svec, stage="chunk", text_len=small["text_len"], lq=sq.shape[1])
+            s_dout = torch.randn(sq.shape, device="cuda", dtype=dtype,
+                                 generator=torch.Generator("cuda").manual_seed(SEED))
+            for name, op, args in (
+                    ("spec_attention", SPEC_ATTENTION,
+                     (sq.requires_grad_(), sk, sv, *svec, "chunk", small["text_len"])),
+                    ("dense_attention", DENSE_ATTENTION, (sq, sk, sv, sbias)),
+                    ("flash_bwd", FLASH_BWD, (sq.detach(), sk, sv, sbias, s_dout, True))):
+                res = torch.library.opcheck(op, args)
+                ok = all(v == "SUCCESS" for v in res.values())
+                out["opcheck"][f"{name} {str(dtype)[6:]}"] = ok
+                check(ok, f"21a: opcheck {name} {dtype}: {res}")
+    print(f"[21a ops] bit-equal to the direct launchers: {out['bit_equal']}")
+    print(f"[21a ops] opcheck on the card (2, 24, 24, 2, 64): {out['opcheck']}")
+    med = lambda key: statistics.median(x for r in out["host"] for x in r[key])
+    out["op_host_us"] = dict(direct=med("direct_host_us"), op=med("op_host_us"),
+                             custom_op=med("custom_op_host_us"))
+    print(f"[21a ops] host µs per call, median over the 5 shapes and both turns: "
+          f"{out['op_host_us']}")
+    return out
+
+
+def batch_nbytes(batch) -> int:
+    """Bytes a batch copies from the host: its numpy arrays (a device
+    table's tensors are already on the card)."""
+    return sum(v.nbytes for v in batch.values() if isinstance(v, np.ndarray))
+
+
+def device_table_phase(rng) -> dict:
+    """Phase 21b: the full-width bf16 scorer (alignment off, 60 stage-mask
+    launches a forward) with the device table against the host path on one
+    set of weights, logits bit-equal, collate + copy ms and bytes per
+    micro-batch of 8; then one training forward and backward at phase 10's
+    geometry on one model, host, table, host: the loss bit-equal, the
+    gradients within phase 7's fp32 backward bound (1e-4 of max |g|) of
+    host mode's, beside host mode against its own second run (the backward
+    is not bit-reproducible on the card), 36 / 48 / 24 launches in table
+    mode, bytes per step."""
+    from multimodal_context_reasoning_torch.core.config import (
+        ModCRConfig,
+        pmr_training_config,
+    )
+    from multimodal_context_reasoning_torch.data.device_table import DeviceFeatureTable
+    from multimodal_context_reasoning_torch.models.modcr import ModCRModel
+    from multimodal_context_reasoning_torch.serving.scorer import ModCRScorer, build_host_batch
+    from multimodal_context_reasoning_torch.serving.synthetic import (
+        hash_tokenizers,
+        synthetic_dataset,
+        synthetic_requests,
+    )
+    from multimodal_context_reasoning_torch.train.step import model_inputs
+
+    out = {}
+    cfg = dataclasses.replace(ModCRConfig(), compute_alignment=False).with_dtype("bfloat16")
+    sd = ModCRModel(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(
+        SEED + 21)).state_dict()
+    feats, reqs = synthetic_requests(rng, 8 * 5, cfg, first=210_000)
+    scorers = {mode: ModCRScorer(cfg, sd, *hash_tokenizers(cfg), feats, micro_batch=8,
+                                 device="cuda", use_device_table=(mode == "table"))
+               for mode in ("host", "table")}
+    del sd
+    rows, copy_ms, nbytes = {}, {}, {}
+    for mode, sc in scorers.items():
+        sc.score(reqs[:8])                     # warm
+        reset_counts()
+        rows[mode] = sc.score(reqs[8:])
+        torch.cuda.synchronize()
+        launches = read_counts()
+        check(launches["spec_attention"] == LAUNCHES_PER_FORWARD * 4,
+              f"21b {mode}: {launches} over 4 forwards")
+        featd = [sc.featurize(ex) for ex in reqs[8:16]]
+        nbytes[mode] = batch_nbytes(build_host_batch(featd, sc._ds.spec, cfg.num_labels,
+                                                     table_mode=mode == "table"))
+        times = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sc.device_batch(featd)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        copy_ms[mode] = statistics.median(times)
+        out[f"{mode}_launches"] = launches
+    same = all(a["logits"] == b["logits"] for a, b in zip(rows["host"], rows["table"]))
+    err = max(np.abs(np.subtract(a["logits"], b["logits"])).max()
+              for a, b in zip(rows["host"], rows["table"]))
+    table_bytes = scorers["table"].table.nbytes
+    out["scorer"] = dict(logits_bit_equal=same, max_abs_diff=float(err),
+                         collate_copy_ms=copy_ms, bytes_per_micro_batch=nbytes,
+                         table_bytes=table_bytes, table_images=len(scorers["table"].table.row))
+    print(f"[21b table] full-width bf16 scorer, micro-batch 8, 4 forwards each: logits "
+          f"bit-equal host/table {same} (max |diff| {err:.3e}) | launches table mode "
+          f"{out['table_launches']} | collate + copy per micro-batch {copy_ms} ms | bytes "
+          f"copied per micro-batch {nbytes} | table {table_bytes} B once "
+          f"({out['scorer']['table_images']} images)")
+    check(same, f"21b: table-mode logits differ from host mode by {err}")
+    del scorers
+    torch.cuda.empty_cache()
+
+    # one training step's forward and backward at phase 10's geometry, each
+    # mode on one model, host mode twice: its own spread is the yardstick
+    tcfg = pmr_training_config()
+    ds = synthetic_dataset(rng, TRAIN_EXAMPLES, tcfg, first=220_000)
+    host_batch = ds.batch(np.arange(TRAIN_EXAMPLES))
+    table = DeviceFeatureTable.for_config(ds.image_features, tcfg, device="cuda")
+    ds.use_device_table(table)
+    table_batch = ds.batch(np.arange(TRAIN_EXAMPLES))
+    model = ModCRModel(tcfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(
+        SEED + 22)).train()
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    step = {}
+    for run, (mode, batch) in enumerate((("host", host_batch), ("table", table_batch),
+                                         ("host", host_batch))):
+        dev = {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(v).cuda()
+               for k, v in batch.items()}
+        reset_counts()
+        loss = model(model_inputs(dev)).loss
+        grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+        torch.cuda.synchronize()
+        step[f"{mode}{run}"] = dict(loss=loss.item(), launches=read_counts(),
+                                    bytes=batch_nbytes(batch),
+                                    grads=[None if g is None else g.float() for g in grads])
+        del dev, loss, grads
+
+    def grad_gap(a, b):
+        """Worst |Δ| of any gradient over its max |g|, whether all are
+        equal, and the parameters whose gradients differ."""
+        pairs = [(n, x, y) for (n, _), x, y in zip(named, step[a]["grads"], step[b]["grads"])
+                 if x is not None]
+        differ = [n for n, x, y in pairs if not torch.equal(x, y)]
+        return (max(((x - y).abs().max() / x.abs().max().clamp_min(1e-30)).item()
+                    for _, x, y in pairs), not differ, differ)
+    table_gap, table_equal, table_differ = grad_gap("host0", "table1")
+    host_gap, host_equal, host_differ = grad_gap("host0", "host2")
+    check(step["table1"]["launches"] == STEP_LAUNCHES,
+          f"21b: table-mode step launches {step['table1']['launches']}")
+    out["train_step"] = dict(
+        loss={k: r["loss"] for k, r in step.items()},
+        launches=step["table1"]["launches"],
+        bytes={"host": step["host0"]["bytes"], "table": step["table1"]["bytes"]},
+        grads_bit_equal_table=table_equal, grads_bit_equal_host_twice=host_equal,
+        grads_differ_table=table_differ, grads_differ_host_twice=host_differ,
+        grad_rel_gap_table=table_gap, grad_rel_gap_host_twice=host_gap,
+        table_bytes=table.nbytes)
+    same_loss = step["host0"]["loss"] == step["table1"]["loss"] == step["host2"]["loss"]
+    print(f"[21b table] one training forward and backward, {TRAIN_EXAMPLES} examples: loss "
+          f"host {step['host0']['loss']} table {step['table1']['loss']} host again "
+          f"{step['host2']['loss']} | gradients table vs host bit-equal {table_equal} (worst "
+          f"{table_gap:.3e} of max |g|; differing {table_differ}), host vs host bit-equal "
+          f"{host_equal} ({host_gap:.3e}; differing {host_differ}) | "
+          f"launches table mode {step['table1']['launches']} | bytes copied per step host "
+          f"{step['host0']['bytes']} table {step['table1']['bytes']}")
+    # the backward's atomics make host mode differ from itself in the last
+    # bits; the table's gradients are held to phase 7's fp32 backward bound
+    check(same_loss and table_gap <= BWD_TOL[torch.float32],
+          f"21b: table mode's step differs from host mode's (loss equal {same_loss}, "
+          f"gradients {table_gap} of max |g|, host against itself {host_gap})")
+    out["launches"] = step["table1"]["launches"]
+    del model, step, table, named
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_command(tmp: str, name: str, argv: list, timeout: float = 600) -> tuple:
+    """A ``cli.serve`` run to its end (the save flags exit after the export):
+    (wall seconds, its log)."""
+    log_path = os.path.join(tmp, f"{name}.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.run(
+            [sys.executable, "-m", "multimodal_context_reasoning_torch.cli.serve",
+             "--compute_dtype", "bfloat16", *argv], cwd=ROOT, stdout=log,
+            stderr=subprocess.STDOUT, timeout=timeout)
+    text = open(log_path).read()
+    check(proc.returncode == 0, f"{name} exited {proc.returncode}: {text[-2000:]}")
+    return time.perf_counter() - t0, text
+
+
+def exported_seconds(log: str) -> float:
+    m = re.search(r"\(export ([0-9.]+) s\)", log)
+    check(m is not None, f"no export time in {log[-500:]}")
+    return float(m.group(1))
+
+
+def aot_scorer_phase(rng, live_startup_s: float) -> dict:
+    """Phase 21c: ``serve --save_artifact`` then ``serve --artifact`` as
+    processes at full width, bf16, micro-batch 8 (the serve command's
+    seed-0 weights, alignment on), the artifact command under phase 14's
+    clients with replies held against the live scorer; the artifact loaded
+    in-process scores bit-equal to the live scorer with the counts set to 0
+    before and read after (57 launches a forward); ms per micro-batch of
+    both, standup seconds against the live command's (phase 14)."""
+    from multimodal_context_reasoning_torch.core.config import ModCRConfig
+    from multimodal_context_reasoning_torch.data.feature_store import write_pack
+    from multimodal_context_reasoning_torch.models.modcr import ModCRModel
+    from multimodal_context_reasoning_torch.serving.aot import PROGRAM_FILE, AOTScorer
+    from multimodal_context_reasoning_torch.serving.scorer import ModCRScorer
+    from multimodal_context_reasoning_torch.serving.synthetic import (
+        hash_tokenizers,
+        synthetic_requests,
+    )
+
+    cfg = ModCRConfig().with_dtype("bfloat16")
+    sizes = rng.integers(SERVE_EXAMPLES[0], SERVE_EXAMPLES[1] + 1,
+                         (SERVE_CLIENTS, SERVE_REQUESTS))
+    feats, examples = synthetic_requests(rng, int(sizes.sum()) + SERVE_CLIENTS, cfg,
+                                         first=230_000)
+    warm_plan = [[{"examples": [as_json(ex)]}] for ex in examples[:SERVE_CLIENTS]]
+    it = iter(examples[SERVE_CLIENTS:])
+    plan = [[{"examples": [as_json(next(it)) for _ in range(n)]} for n in row] for row in sizes]
+    measured = examples[SERVE_CLIENTS:]
+    tmp = tempfile.mkdtemp(prefix="modcr_aot_")
+    art = os.path.join(tmp, "scorer")
+    out = {}
+    try:
+        pack = os.path.join(tmp, "feats.mcrpack")
+        write_pack({k: v.features for k, v in feats.items()}, pack)
+        save_s, log = run_command(tmp, "save", ["--img_feat_file", pack, "--micro_batch",
+                                                str(SERVE_MICRO_BATCH), "--save_artifact", art])
+        out.update(save_command_s=save_s, export_s=exported_seconds(log),
+                   program_bytes=os.path.getsize(os.path.join(art, PROGRAM_FILE)),
+                   params_bytes=os.path.getsize(os.path.join(art, "params.pt")))
+        proc, port, log_path, startup = start_serve_command(tmp, pack, "--artifact", art)
+        try:
+            http_load(port, warm_plan)
+            replies, wall = http_load(port, plan)
+            stats = http(port, "/stats")[1]
+        finally:
+            exited = stop_serve_command(proc)
+        check(exited, "the serve --artifact command did not exit on SIGTERM")
+        started = [ln for ln in open(log_path).read().splitlines() if "serving AOT" in ln]
+
+        model = ModCRModel(cfg, device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(0))
+        live = ModCRScorer(cfg, model, *hash_tokenizers(cfg), feats,
+                           micro_batch=SERVE_MICRO_BATCH, device="cuda")
+        live.warm_up()
+        t0 = time.perf_counter()
+        loaded = AOTScorer(art, *hash_tokenizers(cfg), feats)
+        load_s = time.perf_counter() - t0
+        timed = {}
+        for name, sc in (("live", live), ("aot", loaded), ("aot", loaded), ("live", live)):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            res = sc.score(measured)
+            torch.cuda.synchronize()
+            timed.setdefault(name, []).append(dict(
+                rows=res, seconds=time.perf_counter() - t0, launches=read_counts()))
+        direct = {r["example_id"]: np.asarray(r["logits"]) for r in timed["live"][0]["rows"]}
+        forwards = -(-len(measured) // SERVE_MICRO_BATCH)
+        per_forward = spec_launches_per_eval_forward(cfg)
+        same = all(a == b for r in timed["aot"] for a, b in zip(r["rows"],
+                                                                   timed["live"][0]["rows"]))
+        check(same, "21c: the loaded artifact's scores differ from the live scorer's")
+        check(all(r["launches"]["spec_attention"] == per_forward * forwards
+                  for r in timed["aot"]), f"21c: AOT launches {timed['aot'][0]['launches']}")
+        http_r = load_summary(replies, wall, direct, "serve --artifact command")
+        exact = sum(np.array_equal(np.asarray(r["logits"]), direct[r["example_id"]])
+                    for row in replies for _, o, _ in row for r in o["results"])
+        ms = {k: [1e3 * r["seconds"] / forwards for r in v] for k, v in timed.items()}
+        out.update(startup_s=startup, live_startup_s=live_startup_s, load_in_process_s=load_s,
+                   http=http_r, http_exactly_equal=int(exact),
+                   forwards=stats["routes"]["score"]["device_dispatches"],
+                   ms_per_micro_batch=ms, launches_per_forward=per_forward,
+                   launches=timed["aot"][0]["launches"], bit_equal_in_process=same)
+        print(f"[21c aot scorer] save command {save_s:.2f} s beside 21d's export (export "
+              f"{out['export_s']:.2f} s), "
+              f"program {out['program_bytes']} B, params {out['params_bytes']} B | "
+              f"{started} after {startup:.2f} s to /healthz (live command, phase 14: "
+              f"{live_startup_s:.2f} s) | in-process load {load_s:.2f} s")
+        print(f"[21c aot scorer] the artifact command under {SERVE_CLIENTS} clients: "
+              f"{http_r['examples_per_s']:.2f} ex/s, p50 {http_r['p50_ms']:.2f} ms, p99 "
+              f"{http_r['p99_ms']:.2f} ms | max |http - live| {http_r['max_abs_diff']:.3e} "
+              f"(tol {http_r['tol']:.3e}), {exact}/{http_r['examples']} replies bit-equal")
+        print(f"[21c aot scorer] in-process, {len(measured)} examples in {forwards} "
+              f"micro-batches of 8, in turns: ms per micro-batch {ms} | bit-equal {same} | "
+              f"launches {out['launches']} = {per_forward} x {forwards}")
+        del loaded, live, model
+    finally:
+        shutil.rmtree(tmp)
+    torch.cuda.empty_cache()
+    return out
+
+
+def start_generator_export(rng) -> dict:
+    """Phase 21d, first half: the questions, their feature pack, and ``serve
+    --generate --save_gen_artifact`` started as a process (phase 16's
+    geometry: bf16 encoders, fp32 GPT-2, 4 questions a forward, 32 greedy
+    steps, the command's seed-0 weights).  It exports while phases 21b and
+    21c run; :func:`aot_generator_phase` waits for it."""
+    from multimodal_context_reasoning_torch.core.config import ModCRConfig
+    from multimodal_context_reasoning_torch.data.feature_store import write_pack
+    from multimodal_context_reasoning_torch.serving.synthetic import synthetic_requests
+
+    cfg = ModCRConfig().with_dtype("bfloat16")
+    sizes = rng.integers(GEN_QUESTIONS[0], GEN_QUESTIONS[1] + 1, (GEN_CLIENTS, GEN_REQUESTS))
+    feats, qs = synthetic_requests(rng, int(sizes.sum()) + GEN_CLIENTS, cfg, first=240_000)
+    tmp = tempfile.mkdtemp(prefix="modcr_aot_gen_")
+    pack = os.path.join(tmp, "feats.mcrpack")
+    write_pack({k: v.features for k, v in feats.items()}, pack)
+    flags = ["--micro_batch", str(SERVE_MICRO_BATCH), "--gen_micro_batch",
+             str(GEN_MICRO_BATCH), "--max_rationale_len", str(GEN_MAX_LEN)]
+    art = os.path.join(tmp, "generator")
+    log_path = os.path.join(tmp, "save_gen.log")
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "multimodal_context_reasoning_torch.cli.serve",
+             "--compute_dtype", "bfloat16", "--img_feat_file", pack, *flags, "--generate",
+             "--save_gen_artifact", art], cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    return dict(cfg=cfg, sizes=sizes, feats=feats, qs=qs, tmp=tmp, pack=pack, flags=flags,
+                art=art, log_path=log_path, proc=proc, t0=time.perf_counter())
+
+
+def aot_generator_phase(started: dict) -> dict:
+    """Phase 21d: wait for the ``--save_gen_artifact`` process; start
+    ``serve --gen_artifact`` as a process and, beside its standup, load the
+    artifact in-process; the command's /generate replies held against live
+    generation under phase 16's clients; then in turns live and loaded
+    generation of the same questions: tokens equal, 24 launches per classify
+    forward with the counts set to 0 before and read after, ms per
+    micro-batch; export seconds and program bytes."""
+    from multimodal_context_reasoning_torch.core.config import (
+        ChunkAlignConfig,
+        EncoderConfig,
+        GPT2Config,
+    )
+    from multimodal_context_reasoning_torch.data.collate import BatchSpec
+    from multimodal_context_reasoning_torch.data.tokenization import HashTokenizer
+    from multimodal_context_reasoning_torch.models.rationale import RationaleModel
+    from multimodal_context_reasoning_torch.serving.aot import GEN_PROGRAM_FILE, AOTGenerator
+    from multimodal_context_reasoning_torch.serving.generator import RationaleGenerator
+    from multimodal_context_reasoning_torch.serving.synthetic import hash_tokenizers
+
+    cfg, feats, qs, tmp, art = (started[k] for k in ("cfg", "feats", "qs", "tmp", "art"))
+    spec = BatchSpec(text_len=cfg.text_len, img_len=cfg.img_len, roberta_len=cfg.roberta_len,
+                     img_feature_dim=cfg.global_encoder.img_feature_dim)
+    enc, sched, gpt = EncoderConfig(dtype="bfloat16"), ChunkAlignConfig(), GPT2Config()
+    bert, _ = hash_tokenizers(cfg)
+    gpt_tok = HashTokenizer(vocab_size=gpt.vocab_size)
+    warm_plan = [[{"examples": [as_json(q)]}] for q in qs[:GEN_CLIENTS]]
+    it = iter(qs[GEN_CLIENTS:])
+    plan = [[{"examples": [as_json(next(it)) for _ in range(n)]} for n in row]
+            for row in started["sizes"]]
+    measured = qs[GEN_CLIENTS:]
+    out = {}
+    try:
+        try:
+            code = started["proc"].wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            started["proc"].kill()
+            raise
+        log = open(started["log_path"]).read()
+        check(code == 0, f"the --save_gen_artifact command exited {code}: {log[-2000:]}")
+        out.update(save_command_s=time.perf_counter() - started["t0"],
+                   export_s=exported_seconds(log),
+                   program_bytes=os.path.getsize(os.path.join(art, GEN_PROGRAM_FILE)),
+                   params_bytes=os.path.getsize(os.path.join(art, "params.pt")))
+        proc, port, log_path = start_serve_command_nowait(tmp, started["pack"],
+                                                          *started["flags"], "--gen_artifact",
+                                                          art)
+        try:
+            t0 = time.perf_counter()
+            loaded = AOTGenerator(art, bert, gpt_tok, feats)
+            load_s = time.perf_counter() - t0
+            startup = wait_healthz(proc, port, log_path, started_at=t0)
+            http_load(port, warm_plan, "/generate")
+            replies, wall = http_load(port, plan, "/generate")
+        finally:
+            exited = stop_serve_command(proc)
+        check(exited, "the serve --gen_artifact command did not exit on SIGTERM")
+        model = RationaleModel(enc, sched, gpt, device="cuda",
+                               generator=torch.Generator(device="cuda").manual_seed(0))
+        live = RationaleGenerator(enc, sched, gpt, model, bert, gpt_tok, feats, spec=spec,
+                                  micro_batch=GEN_MICRO_BATCH, max_rationale_len=GEN_MAX_LEN,
+                                  device="cuda")
+        timed = {}
+        for name, g in (("live", live), ("aot", loaded), ("aot", loaded), ("live", live)):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            res = g.generate(measured)
+            torch.cuda.synchronize()
+            timed.setdefault(name, []).append(dict(
+                rows=res, seconds=time.perf_counter() - t0, launches=read_counts()))
+        forwards = -(-len(measured) // GEN_MICRO_BATCH)
+        per_forward = generate_launches_per_forward(enc)
+        want = timed["live"][0]["rows"]
+        same_tokens = all([r["rationale_ids"] for r in v["rows"]] == [r["rationale_ids"]
+                                                                       for r in want]
+                          for v in timed["aot"])
+        same = all(v["rows"] == want for v in timed["aot"])
+        check(same_tokens, "21d: the loaded generator's tokens differ from live generation")
+        check(all(v["launches"]["spec_attention"] == per_forward * forwards
+                  for v in timed["aot"]), f"21d: AOT launches {timed['aot'][0]['launches']}")
+        http_r = generation_summary(replies, wall, {r["example_id"]: r for r in want},
+                                    "serve --gen_artifact command")
+        ms = {k: [1e3 * r["seconds"] / forwards for r in v] for k, v in timed.items()}
+        out.update(load_in_process_s=load_s, startup_s=startup, http=http_r,
+                   tokens_equal=same_tokens, replies_equal=same, ms_per_micro_batch=ms,
+                   launches_per_forward=per_forward, launches=timed["aot"][0]["launches"])
+        print(f"[21d aot generator] save command {out['save_command_s']:.2f} s beside 21b "
+              f"and 21c (export {out['export_s']:.2f} s), program {out['program_bytes']} B, "
+              f"params {out['params_bytes']} B | in-process load {load_s:.2f} s beside the "
+              f"--gen_artifact command's standup, {startup:.2f} s to /healthz")
+        print(f"[21d aot generator] in-process, {len(measured)} questions in {forwards} "
+              f"micro-batches of {GEN_MICRO_BATCH}, {GEN_MAX_LEN} steps, in turns: ms per "
+              f"micro-batch {ms} | tokens equal {same_tokens}, replies equal {same} | launches "
+              f"{out['launches']} = {per_forward} x {forwards} | the command under "
+              f"{GEN_CLIENTS} clients: {http_r['questions_per_s']:.2f} questions/s, p50 "
+              f"{http_r['p50_ms']:.2f} ms, replies = live")
+        del live, model, loaded
+    finally:
+        if started["proc"].poll() is None:
+            started["proc"].kill()
+            started["proc"].wait()
+        shutil.rmtree(tmp)
+    torch.cuda.empty_cache()
+    return out
+
+
+def trace_kernel_counts(path: str) -> dict:
+    """Device kernels of a Chrome trace, counted by the port's three kernel
+    name prefixes."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    count = lambda prefix: sum(re.search(rf"\b{prefix}\w*_kernel", n) is not None
+                               for n in names)
+    return {"spec_attention": count("spec_attention"),
+            "fused_attention": count("dense_attention"),
+            "flash_bwd": count("flash_bwd"), "kernels": len(names)}
+
+
+def profiled_fit_phase(rng) -> dict:
+    """Phase 21e: ``Trainer.fit`` at phase 10's geometry with the device
+    table, ``profile_dir`` (micro-steps 2 and 3 captured) and
+    ``tensorboard_dir``: the trace's device kernels named spec_attention*,
+    dense_attention* and flash_bwd* number 36 / 48 / 24 a profiled step,
+    and the scalars are written (which writer branch ran)."""
+    from multimodal_context_reasoning_torch.core.config import TrainConfig, pmr_training_config
+    from multimodal_context_reasoning_torch.data.device_table import DeviceFeatureTable
+    from multimodal_context_reasoning_torch.data.loader import DataLoader
+    from multimodal_context_reasoning_torch.models.modcr import ModCRModel
+    from multimodal_context_reasoning_torch.serving.synthetic import synthetic_dataset
+    from multimodal_context_reasoning_torch.train.trainer import Trainer
+
+    steps, start, captured = 5, 2, 2
+    cfg = pmr_training_config()
+    ds = synthetic_dataset(rng, TRAIN_EXAMPLES * steps, cfg, first=250_000)
+    table = DeviceFeatureTable.for_config(ds.image_features, cfg, device="cuda")
+    ds.use_device_table(table)
+    model = ModCRModel(cfg, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(SEED + 25))
+    tmp = tempfile.mkdtemp(prefix="modcr_prof_")
+    try:
+        trainer = Trainer(model, TrainConfig(per_device_batch_size=TRAIN_EXAMPLES,
+                                             max_steps=steps, valid_steps=steps, seed=SEED),
+                          DataLoader(ds, TRAIN_EXAMPLES, shuffle=True, seed=SEED),
+                          profile_dir=os.path.join(tmp, "prof"), profile_start=start,
+                          profile_steps=captured, tensorboard_dir=os.path.join(tmp, "tb"))
+        writer = trainer.tb.writer
+        reset_counts()
+        t0 = time.perf_counter()
+        state = trainer.fit()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        counts = trace_kernel_counts(trainer.trace_path)
+        trace_bytes = os.path.getsize(trainer.trace_path)
+        written = sorted(os.path.relpath(os.path.join(d, f), os.path.join(tmp, "tb"))
+                         for d, _, fs in os.walk(os.path.join(tmp, "tb")) for f in fs)
+    finally:
+        shutil.rmtree(tmp)
+    check(state.step == steps, f"21e: {state.step} steps")
+    want = {k: captured * v for k, v in STEP_LAUNCHES.items()}
+    got = {k: counts[k] for k in want}
+    check(got == want, f"21e: the trace's kernels {got}, {want} expected")
+    check(launches == {k: steps * v for k, v in STEP_LAUNCHES.items()},
+          f"21e: fit launches {launches}")
+    check(bool(written), "21e: no scalars written")
+    print(f"[21e profile] Trainer.fit, {steps} steps of {TRAIN_EXAMPLES} examples with the "
+          f"table, micro-steps {start}-{start + captured - 1} captured: trace kernels {counts} "
+          f"({trace_bytes} B) = {captured} x {STEP_LAUNCHES} | fit {wall:.2f} s, launches "
+          f"{launches} | TensorBoard writer: {writer}, files {written}")
+    del model, state, trainer, table
+    torch.cuda.empty_cache()
+    return dict(trace_counts=counts, captured_steps=captured, launches=launches,
+                writer=writer, files=written, trace_bytes=trace_bytes, fit_s=wall)
+
+
+def phase21(rng, live_startup_s: float) -> dict:
+    """Phase 21a-e; returns the summary and each kernel's additions to the
+    kernels line (``aot_launches``: the AOT scorer's and generator's
+    in-process runs; ``device_table_launches``: 21b's table-mode train step;
+    ``op_host_us``: 21a)."""
+    t21 = time.perf_counter()
+    ops = ops_phase(rng)
+    torch.cuda.empty_cache()
+    # the generator's export runs as a process beside 21b and 21c
+    gen_export = start_generator_export(rng)
+    try:
+        table = device_table_phase(rng)
+        aot_scorer = aot_scorer_phase(rng, live_startup_s)
+    except BaseException:
+        gen_export["proc"].kill()
+        gen_export["proc"].wait()
+        shutil.rmtree(gen_export["tmp"])
+        raise
+    aot_generator = aot_generator_phase(gen_export)
+    profiled = profiled_fit_phase(rng)
+    seconds = time.perf_counter() - t21
+    print(f"[21] phases 21a-21e took {seconds:.1f} s")
+    aot = {k: aot_scorer["launches"][k] + aot_generator["launches"][k] for k in KERNELS}
+    med = lambda row, key: statistics.median(row[key])
+    host = {"spec_attention": ops["op_host_us"]}
+    for k in ("fused_attention", "flash_bwd"):
+        row = ops[f"{k}_host"]
+        host[k] = dict(direct=med(row, "direct_host_us"), op=med(row, "op_host_us"),
+                       shape=row["shape"])
+    kernels = {k: dict(aot_launches=aot[k], device_table_launches=table["launches"][k],
+                       op_host_us=host[k])
+               for k in KERNELS}
+    strip = lambda d: {k: v for k, v in d.items() if k not in ("launches", "rows")}
+    return dict(kernels=kernels, summary=dict(
+        ops={k: v for k, v in ops.items() if k != "host"}, ops_host=ops["host"],
+        device_table={k: v for k, v in table.items() if k != "launches"},
+        aot_scorer=strip(aot_scorer), aot_generator=strip(aot_generator),
+        profiled_fit=profiled, phase_seconds=seconds))
+
+
 # ---------------------------------------------------------------- main
 
-def main() -> int:
+def main(argv=None) -> int:
+    """All phases; ``--only 21`` (a development aid) runs the device and
+    build phases and phase 21 alone, and prints no result line."""
+    argv = sys.argv[1:] if argv is None else argv
+    only = argv[1] if argv[:1] == ["--only"] else None
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
@@ -3586,6 +4329,10 @@ def main() -> int:
                 ptxas.append(f"{regs.group(1)} regs;")
         print(f"[2 build] {name}.cu: nvcc {build_s:.2f} s | " + " ".join(ptxas))
     print(f"[2 build] all {len(KERNELS)} built and loaded in {time.perf_counter() - t0:.2f} s")
+    if only == "21":
+        phase21(np.random.default_rng(SEED + 21), float("nan"))
+        print(card)
+        return 0
 
     # 3. kernel vs plain, at the shapes of both served micro-batches
     rng = np.random.default_rng(SEED)
@@ -3794,6 +4541,10 @@ def main() -> int:
     ensembles.update(parity=ensemble_parity_r, phase_seconds=time.perf_counter() - t20)
     print(f"[20] phases 20a-20e took {ensembles['phase_seconds']:.1f} s")
 
+    # 21. the kernels as ops, the device table, the AOT artifacts, the
+    # profiled and logged trainer
+    standalone = phase21(rng, served["http_command"]["startup_s"])
+
     # 11. kernels line, then the result line
     print(card)
     print(json.dumps({"serving": serving, "e2e_fp32_max_abs_diff": e2e_err,
@@ -3808,7 +4559,8 @@ def main() -> int:
                                           if k != "launches"},
                       "two_stage": {k: v for k, v in two_stage.items() if k != "launches"},
                       "ensembles": {k: v for k, v in ensembles.items() if k != "launches"},
-                      "clip": clip}))
+                      "clip": clip,
+                      "standalone": standalone["summary"]}))
     main_path = train["launches"]
     shape = "bf16 (128, 128, 138, 16, 64), one launch, as one RoBERTa layer of the slice"
 
@@ -3831,6 +4583,7 @@ def main() -> int:
         "stage1_launches": two_stage["stage1_launches"]["spec_attention"],
         "two_stage_launches": two_stage["launches"]["spec_attention"],
         "ensemble_launches": ensembles["launches"]["spec_attention"],
+        **standalone["kernels"]["spec_attention"],
         "max_abs_err": max(max_err, train_err["spec_attention"],
                            long_keys["max_abs_err"]["spec_attention"],
                            *(r["max_abs_err"] for r in stage1_kernels["forward"]
@@ -3860,6 +4613,7 @@ def main() -> int:
         "stage1_launches": two_stage["stage1_launches"]["fused_attention"],
         "two_stage_launches": two_stage["launches"]["fused_attention"],
         "ensemble_launches": ensembles["launches"]["fused_attention"],
+        **standalone["kernels"]["fused_attention"],
         "max_abs_err": max(train_err["fused_attention"],
                            long_keys["max_abs_err"]["fused_attention"],
                            *(r["max_abs_err"] for r in no_prefix["dense"])),
@@ -3879,6 +4633,7 @@ def main() -> int:
         "stage1_launches": two_stage["stage1_launches"]["flash_bwd"],
         "two_stage_launches": two_stage["launches"]["flash_bwd"],
         "ensemble_launches": ensembles["launches"]["flash_bwd"],
+        **standalone["kernels"]["flash_bwd"],
         "max_abs_err": max(train_err["flash_bwd"], long_keys["max_abs_err"]["flash_bwd"],
                            *(r["max_abs_err"] for r in encoder_bwd + stage1_kernels["backward"]
                              + no_prefix["backward"])),

@@ -6,8 +6,11 @@ reference's names where it has them, run_PMR_ModCR.py:452-681), plus
 ``--device``: the commands run on the GPU unless it says ``cpu``.  Flags the
 port does not honour yet are refused before any data is read, each with the
 ROADMAP item that ports it: a data or model mesh over more than one
-device, ``--multihost``, ``--device_features``, ``--profile_dir``,
-``--tensorboard_dir`` and the HuggingFace tokenizer directories.
+device and ``--multihost`` (item 9, its scale-out half), and the
+HuggingFace tokenizer directories (item 11).  ``--device_features`` keeps
+the image-feature set on the card (data/device_table.py), ``--profile_dir``
+writes a ``torch.profiler`` trace of a few train steps and
+``--tensorboard_dir`` the training scalars (train/trainer.py).
 ``--quantize int8`` is inference-only and refused under ``--do_train``, with
 the JAX CLI's wording.
 """
@@ -134,11 +137,15 @@ def build_arg_parser(task: str) -> argparse.ArgumentParser:
                    help="W8A8 int8 inference (ops/quant.py); refused under "
                         "--do_train")
     p.add_argument("--tensorboard_dir", type=str, default="",
-                   help="refused (ROADMAP Queue 1 item 9)")
+                   help="write the training scalars here (SummaryWriter, or "
+                        "metrics.jsonl without the tensorboard package)")
     p.add_argument("--profile_dir", type=str, default="",
-                   help="refused (ROADMAP Queue 1 item 9)")
+                   help="write a torch.profiler Chrome trace of a few train "
+                        "steps here (from micro-step 10; 2 with --tiny)")
     p.add_argument("--device_features", action="store_true",
-                   help="refused (ROADMAP Queue 1 item 9)")
+                   help="keep the image-feature set resident on the device; "
+                        "batches ship int32 row ids instead of [I, F] floats "
+                        "(data/device_table.py)")
     p.add_argument("--multihost", action="store_true",
                    help="refused (ROADMAP Queue 1 item 9)")
     p.add_argument("--device", type=str, default="cuda",
@@ -162,9 +169,6 @@ def refuse_unported(args) -> None:
         ("--mesh_data > 1", args.mesh_data > 1, 9),
         ("--mesh_model > 1", args.mesh_model > 1, 9),
         ("--multihost", args.multihost, 9),
-        ("--device_features", args.device_features, 9),
-        ("--profile_dir", bool(args.profile_dir), 9),
-        ("--tensorboard_dir", bool(args.tensorboard_dir), 9),
         ("--bert_tokenizer_dir", bool(args.bert_tokenizer_dir), 11),
         ("--roberta_tokenizer_dir", bool(args.roberta_tokenizer_dir), 11),
     ])

@@ -18,7 +18,9 @@ writes ``config.json`` and best-accuracy checkpoints under
 ``--eval_model_dir`` (with its ``config.json``) and writes
 ``result_test_ModICR_<task>.json``.  ``--quantize int8`` runs the test
 forwards through the W8A8 route; it holds for a config restored from
-``config.json`` too, which the JAX CLI's restore drops.
+``config.json`` too, which the JAX CLI's restore drops.  ``--device_features``
+keeps the image-feature set on the device (data/device_table.py) for every
+split; ``--profile_dir`` and ``--tensorboard_dir`` go to the trainer.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from multimodal_context_reasoning_torch.cli.common import (
 )
 from multimodal_context_reasoning_torch.core.config import ModCRConfig
 from multimodal_context_reasoning_torch.core.device import resolve_device
+from multimodal_context_reasoning_torch.data.device_table import DeviceFeatureTable
 from multimodal_context_reasoning_torch.data.loader import DataLoader
 from multimodal_context_reasoning_torch.data.pmr import PMRDataset, load_pmr_jsonl
 from multimodal_context_reasoning_torch.interop.assemble import assemble_from_files
@@ -79,9 +82,19 @@ def main(argv=None, *, task="pmr", dataset_cls=PMRDataset, load_fn=load_pmr_json
     feats = load_image_features(args.img_feat_file, cfg.global_encoder.img_feature_dim)
     bert, rob = load_tokenizers(args, cfg)
 
+    device_table = None
+    if args.device_features:
+        # from a dict or the FeatureStore (keys() and __getitem__)
+        device_table = DeviceFeatureTable.for_config(feats, cfg, device=device)
+        logger.info("device feature table resident: %d images, %.1f MB on %s",
+                    len(device_table.row), device_table.nbytes / 1e6, device)
+
     def make_dataset(path):
-        return dataset_cls(load_fn(path, limit=args.limit or None), feats, bert, rob,
-                           spec=batch_spec(cfg), max_chunks=cfg.max_chunks)
+        ds = dataset_cls(load_fn(path, limit=args.limit or None), feats, bert, rob,
+                         spec=batch_spec(cfg), max_chunks=cfg.max_chunks)
+        if device_table is not None:
+            ds.use_device_table(device_table)
+        return ds
 
     model = ModCRModel(cfg, device=device,
                        generator=torch.Generator(device=device).manual_seed(args.seed))
@@ -119,6 +132,9 @@ def main(argv=None, *, task="pmr", dataset_cls=PMRDataset, load_fn=load_pmr_json
             logger=logger,
             freeze_roberta_body=(task == "vcr"),  # run_vcr_ModCR.py:783-787
             device=device,
+            profile_dir=args.profile_dir or None,
+            profile_start=2 if args.tiny else 10,
+            tensorboard_dir=args.tensorboard_dir or None,
         )
         save_config(args.output_dir, "config.json", cfg)
         state = trainer.init_state()
@@ -138,7 +154,8 @@ def main(argv=None, *, task="pmr", dataset_cls=PMRDataset, load_fn=load_pmr_json
     all_logits = []
     correct = count = 0.0
     for batch in test_dl:
-        out = eval_step(model, {k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+        out = eval_step(model, {k: v if isinstance(v, torch.Tensor)
+                                else torch.from_numpy(v).to(device) for k, v in batch.items()})
         keep = batch["example_mask"] > 0
         all_logits.append(out["logits"].float().cpu().numpy()[keep])
         correct += float(out["correct"])

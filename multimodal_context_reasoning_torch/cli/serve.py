@@ -16,7 +16,17 @@ seed or a reference ``ChunkAlign_CLS_dec5_4`` checkpoint
 (``--rationale_ckpt``, its GPT-2 vocabulary sized to the checkpoint), and a
 hash GPT tokenizer of that vocabulary.  The scorer and the generator are
 built and warmed (the first forward builds the kernels on the card) before
-the "serving on" line is printed.
+the "serving on" line is printed.  ``--device_features`` keeps the image
+features on the device (data/device_table.py).
+
+AOT artifacts (serving/aot.py): ``--save_artifact D`` exports the warmed
+scorer to ``D`` and exits; ``--artifact D`` serves from ``D`` with no model
+construction, taking the config, the micro-batch and the device from its
+``artifact.json`` (so ``--eval_model_dir``, ``--params_dtype``,
+``--quantize`` and ``--micro_batch`` do not apply; a ``--device`` of another
+kind is refused).  ``--generate --save_gen_artifact G`` exports the warmed
+greedy generator; ``--gen_artifact G`` serves ``POST /generate`` from it,
+with hash tokenizers of the artifact's recorded vocabularies.
 Flags the port does not honour yet are refused before any data is read,
 each with the ROADMAP item that ports it.
 """
@@ -24,7 +34,9 @@ each with the ROADMAP item that ports it.
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import time
 
 import torch
 
@@ -54,7 +66,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="dynamic W8A8 int8 matmuls (ops/quant.py)")
     p.add_argument("--compute_dtype", default="bfloat16", choices=("float32", "bfloat16"))
     p.add_argument("--device_features", action="store_true",
-                   help="refused (ROADMAP Queue 1 item 9)")
+                   help="keep the image-feature set resident on the device; "
+                        "requests ship int32 row ids instead of [I, F] floats "
+                        "(data/device_table.py)")
     p.add_argument("--generate", action="store_true",
                    help="also serve the rationale-generation family at "
                         "POST /generate (classify + KV-cached decode)")
@@ -66,11 +80,19 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_rationale_len", type=int, default=32)
     p.add_argument("--gen_micro_batch", type=int, default=4,
                    help="questions per /generate forward")
-    p.add_argument("--artifact", default="", help="refused (ROADMAP Queue 1 item 9)")
-    p.add_argument("--save_artifact", default="", help="refused (ROADMAP Queue 1 item 9)")
-    p.add_argument("--gen_artifact", default="", help="refused (ROADMAP Queue 1 item 9)")
+    p.add_argument("--artifact", default="",
+                   help="serve from an AOT artifact directory (serving/aot.py): "
+                        "no model construction; its artifact.json gives the "
+                        "config, micro-batch and device")
+    p.add_argument("--save_artifact", default="",
+                   help="after warming the scorer, export it as an AOT "
+                        "artifact to this directory and exit")
+    p.add_argument("--gen_artifact", default="",
+                   help="serve POST /generate from an AOT generator artifact "
+                        "directory (the greedy fused program)")
     p.add_argument("--save_gen_artifact", default="",
-                   help="refused (ROADMAP Queue 1 item 9)")
+                   help="with --generate: export the warmed generator as an "
+                        "AOT artifact to this directory and exit")
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--max_queue_batches", type=int, default=8,
                    help="back-pressure: shed (HTTP 429) beyond this many "
@@ -99,16 +121,29 @@ def main(argv=None):
     from multimodal_context_reasoning_torch.train.checkpoint import CheckpointManager
 
     refuse([
-        ("--gen_artifact", bool(args.gen_artifact), 9),
-        ("--save_gen_artifact", bool(args.save_gen_artifact), 9),
-        ("--artifact", bool(args.artifact), 9),
-        ("--save_artifact", bool(args.save_artifact), 9),
-        ("--device_features", args.device_features, 9),
         ("--bert_tokenizer_dir", bool(args.bert_tokenizer_dir), 11),
         ("--roberta_tokenizer_dir", bool(args.roberta_tokenizer_dir), 11),
         ("--gpt_tokenizer_dir", bool(args.gpt_tokenizer_dir), 11),
     ])
     device = resolve_device(args.device)
+    if args.artifact:
+        # the AOT path: config, micro-batch and device from the artifact;
+        # no model code runs
+        from multimodal_context_reasoning_torch.serving.aot import AOTScorer
+
+        meta = read_artifact_meta(args.artifact, device)
+        cfg = ModCRConfig.from_json(json.dumps(meta["config"]))
+        feats = load_image_features(args.img_feat_file, cfg.global_encoder.img_feature_dim)
+        bert, rob = load_tokenizers(args, cfg)
+        scorer = AOTScorer(args.artifact, bert, rob, feats)
+        generator = load_gen_artifact(args, feats, device)
+        print(f"serving AOT artifact {args.artifact} on http://{args.host}:{args.port} "
+              f"(micro_batch={scorer.micro_batch}, {scorer.device}"
+              f"{', /generate on' if generator else ''})", flush=True)
+        serve(scorer, args.host, args.port, generator=generator,
+              max_queue_batches=args.max_queue_batches, default_deadline_ms=args.deadline_ms)
+        return
+
     cfg = ModCRConfig.tiny() if args.tiny else ModCRConfig().with_dtype(args.compute_dtype)
     cfg_path = os.path.join(args.eval_model_dir, "config.json")
     if args.eval_model_dir and os.path.exists(cfg_path):
@@ -137,15 +172,61 @@ def main(argv=None):
                     t.copy_(t.to(dt))
 
     scorer = ModCRScorer(cfg, weights, bert, rob, feats, micro_batch=args.micro_batch,
-                         device=device)
+                         device=device, use_device_table=args.device_features)
     scorer.warm_up()
-    generator = build_generator(args, cfg, bert, feats, device) if args.generate else None
+    if args.save_artifact:
+        from multimodal_context_reasoning_torch.serving.aot import save_scorer_artifact
+
+        t0 = time.perf_counter()
+        save_scorer_artifact(args.save_artifact, scorer)
+        print(f"wrote AOT artifact to {args.save_artifact} "
+              f"(export {time.perf_counter() - t0:.2f} s)", flush=True)
+        return
+    generator = load_gen_artifact(args, feats, device)
+    if generator is None and args.generate:
+        generator = build_generator(args, cfg, bert, feats, device)
+        if args.save_gen_artifact:
+            from multimodal_context_reasoning_torch.serving.aot import save_generator_artifact
+
+            t0 = time.perf_counter()
+            save_generator_artifact(args.save_gen_artifact, generator)
+            print(f"wrote AOT generator artifact to {args.save_gen_artifact} "
+                  f"(export {time.perf_counter() - t0:.2f} s)", flush=True)
+            return
     print(f"serving on http://{args.host}:{args.port} (micro_batch={args.micro_batch}, "
           f"{device}, {cfg.global_encoder.dtype}"
           f"{', int8' if args.quantize != 'none' else ''}"
           f"{', /generate on' if generator else ''})", flush=True)
     serve(scorer, args.host, args.port, generator=generator,
           max_queue_batches=args.max_queue_batches, default_deadline_ms=args.deadline_ms)
+
+
+def read_artifact_meta(directory: str, device) -> dict:
+    """An artifact's ``artifact.json``; SystemExit when it was exported for
+    another kind of device than ``--device`` names."""
+    with open(os.path.join(directory, "artifact.json")) as f:
+        meta = json.load(f)
+    if meta["device"] != device.type:
+        raise SystemExit(f"{directory} was exported on {meta['device']}; "
+                         f"--device {device.type} cannot serve it")
+    return meta
+
+
+def load_gen_artifact(args, feats, device):
+    """/generate from the AOT generator artifact of ``--gen_artifact``, or
+    None without one.  The tokenizers are hash tokenizers of the artifact's
+    recorded vocabularies (the two families' vocabularies differ, and an id
+    past a vocabulary fails on the card); the loader checks that the GPT
+    tokenizer maps the rationale markers to the artifact's ids."""
+    if not args.gen_artifact:
+        return None
+    from multimodal_context_reasoning_torch.data.tokenization import HashTokenizer
+    from multimodal_context_reasoning_torch.serving.aot import AOTGenerator
+
+    meta = read_artifact_meta(args.gen_artifact, device)
+    return AOTGenerator(args.gen_artifact,
+                        HashTokenizer(vocab_size=int(meta["bert_vocab_size"])),
+                        HashTokenizer(vocab_size=int(meta["gpt_vocab_size"])), feats)
 
 
 def build_generator(args, cfg, bert, feats, device):

@@ -22,10 +22,11 @@ Both stages share the featurized datasets; image features are synthesized
 per image id (``serving/synthetic.py::synthetic_features``, the JAX script's
 arrays).  The flags and defaults are the JAX script's, plus ``--device``
 (default ``cuda``; without a card the command raises, ``--device cpu`` asks
-for the CPU).  ``--no_device_features`` is accepted: the port has no device
-feature table (ROADMAP Queue 1, item 9), so features always come through
-the host loader, which changes where they live, not the numbers.
-``main(argv)`` writes ``<out>/curve.json``, prints one JSON line and returns
+for the CPU).  The image features stay on the device in a resident table
+(data/device_table.py) unless ``--no_device_features`` sends them through
+the host loader, which changes where they live, not the numbers: the table
+is fp32 when either stage computes in fp32, bf16 otherwise, and the forward
+casts the features to its compute dtype either way.  ``main(argv)`` writes ``<out>/curve.json``, prints one JSON line and returns
 the curve.
 
     python -m multimodal_context_reasoning_torch.cli.train_two_stage \\
@@ -54,6 +55,7 @@ import torch
 from multimodal_context_reasoning_torch.core.config import ModCRConfig, TrainConfig
 from multimodal_context_reasoning_torch.core.device import resolve_device
 from multimodal_context_reasoning_torch.data.collate import BatchSpec
+from multimodal_context_reasoning_torch.data.device_table import DeviceFeatureTable
 from multimodal_context_reasoning_torch.data.loader import DataLoader
 from multimodal_context_reasoning_torch.data.mixed import MixedDataset
 from multimodal_context_reasoning_torch.data.pmr import PMRDataset, load_pmr_jsonl
@@ -161,12 +163,24 @@ def main(argv=None) -> dict:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s",
                         stream=sys.stderr, force=True)
     logger = logging.getLogger("two-stage")
-    if args.device_features:
-        logger.info("image features come through the host loader: the port has no "
-                    "device feature table")
 
     cfg2 = composite_config(args)
     enc_cfg = cfg2.seq_encoder
+    # an fp32 stage keeps an fp32 table (a bf16 one would round its
+    # features); under bf16 compute the forward's cast rounds fp32 rows
+    # exactly as a bf16 table would
+    s1_dtype = args.stage1_compute or ("float32" if args.tiny else "bfloat16")
+    table_dtype = ("float32" if "float32" in (s1_dtype, cfg2.global_encoder.dtype)
+                   else "bfloat16")
+
+    def make_table(f):
+        if not args.device_features:
+            return None
+        table = DeviceFeatureTable(f, img_len=cfg2.img_len, dtype=table_dtype,
+                                   device=device)
+        logger.info("device feature table resident: %d images, %.1f MB (%s)",
+                    len(table.row), table.nbytes / 1e6, table_dtype)
+        return table
 
     # ---- shared data (both stages featurize identically)
     load_fn, dataset_cls = LOADERS[args.task]
@@ -219,10 +233,15 @@ def main(argv=None) -> dict:
                      roberta_len=cfg2.roberta_len, num_labels=cfg2.num_labels,
                      img_feature_dim=enc_cfg.img_feature_dim)
 
-    def mk_ds(ds_cls, f, exs):
-        return ds_cls(exs, f, bert, rob_tok, spec=spec, max_chunks=cfg2.max_chunks)
+    def mk_ds(ds_cls, f, table, exs):
+        ds = ds_cls(exs, f, bert, rob_tok, spec=spec, max_chunks=cfg2.max_chunks)
+        if table is not None:
+            ds.use_device_table(table)
+        return ds
 
-    train_ds, val_ds = mk_ds(dataset_cls, feats, train_ex), mk_ds(dataset_cls, feats, val_ex)
+    table = make_table(feats)
+    train_ds, val_ds = (mk_ds(dataset_cls, feats, table, train_ex),
+                        mk_ds(dataset_cls, feats, table, val_ex))
     val_dl = DataLoader(val_ds, args.eval_batch)
 
     # ---- stage-1 data: the stage-2 split unless another task's (or a
@@ -242,14 +261,15 @@ def main(argv=None) -> dict:
                                                                 limit=args.limit or None))
         feats1 = synthetic_features({ex.img_id for exs in groups.values() for ex in exs},
                                     enc_cfg.img_feature_dim, max_regions=max_regions)
+        table1 = make_table(feats1)
         train_parts, val_parts = [], []
         for task in sorted(groups):
             exs = groups[task]
             order1 = np.random.default_rng(args.seed).permutation(len(exs))
             n1 = int(len(exs) * args.train_frac)
             cls1 = LOADERS[task][1]
-            train_parts.append(mk_ds(cls1, feats1, [exs[i] for i in order1[:n1]]))
-            val_parts.append(mk_ds(cls1, feats1, [exs[i] for i in order1[n1:]]))
+            train_parts.append(mk_ds(cls1, feats1, table1, [exs[i] for i in order1[:n1]]))
+            val_parts.append(mk_ds(cls1, feats1, table1, [exs[i] for i in order1[n1:]]))
         if len(train_parts) == 1:
             train_ds1, val_ds1 = train_parts[0], val_parts[0]
         else:
@@ -271,7 +291,6 @@ def main(argv=None) -> dict:
         s1 = None
         s1_wall = 0.0
     else:
-        s1_dtype = args.stage1_compute or ("float32" if args.tiny else "bfloat16")
         enc1_cfg = dataclasses.replace(enc_cfg, dtype=s1_dtype)
         if args.stage1_dropout is not None:
             enc1_cfg = dataclasses.replace(enc1_cfg, hidden_dropout_prob=args.stage1_dropout,

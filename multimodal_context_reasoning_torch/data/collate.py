@@ -9,7 +9,7 @@ reference's unzip-concat flattening, Data/VCRChunkAlign.py:692-693).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
@@ -39,10 +39,13 @@ def pad_to(x: np.ndarray, length: int, value=0) -> np.ndarray:
 
 def collate_candidates(
     candidates: Sequence[Sequence[CandidateFeatures]],  # [B][num_labels]
-    images: Sequence[ImageFeatures],                    # [B]
+    images: Optional[Sequence[ImageFeatures]],          # [B], or None
     spec: BatchSpec,
 ) -> Dict[str, np.ndarray]:
-    """[B] examples × num_labels candidates → flat [B·num_labels] batch."""
+    """[B] examples × num_labels candidates → flat [B·num_labels] batch.
+
+    ``images=None`` (device-table mode, data/device_table.py) leaves out
+    ``img_feat`` / ``img_mask``: the caller adds the rows' table ids."""
     B = len(candidates)
     K = spec.num_labels
     N = B * K
@@ -63,11 +66,16 @@ def collate_candidates(
         "label": np.zeros((N,), np.float32),
     }
 
+    if images is None:
+        del out["img_feat"], out["img_mask"]
+        images = [None] * B
+
     for b, (cands, img) in enumerate(zip(candidates, images)):
         if len(cands) != K:
             raise ValueError(f"expected {K} candidates, got {len(cands)}")
-        n_reg = min(img.num_regions, I)
-        feats = img.features[:n_reg].astype(np.float32)
+        if img is not None:
+            n_reg = min(img.num_regions, I)
+            feats = img.features[:n_reg].astype(np.float32)
         for k, c in enumerate(cands):
             n = b * K + k
             t = min(len(c.input_ids), T)
@@ -83,8 +91,15 @@ def collate_candidates(
             )
             out["r_token_type_ids"][n] = pad_to(np.asarray(c.r_token_type_ids, np.int32), R)
             out["r_attention_mask"][n, :r] = 1.0
-            out["img_feat"][n, :n_reg] = feats
-            out["img_mask"][n, :n_reg] = 1.0
+            if img is not None:
+                out["img_feat"][n, :n_reg] = feats
+                out["img_mask"][n, :n_reg] = 1.0
             out["label"][n] = np.float32(c.target)
 
     return out
+
+
+def table_rows(table, img_ids: Sequence[str], num_labels: int) -> np.ndarray:
+    """[B·num_labels] int32 table row of each candidate row (device-table
+    mode): each example's row, repeated for its candidates."""
+    return np.repeat(np.asarray([table.row_for(i) for i in img_ids], np.int32), num_labels)

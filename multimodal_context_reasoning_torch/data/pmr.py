@@ -18,7 +18,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from multimodal_context_reasoning_torch.data.chunker import HeuristicChunker
-from multimodal_context_reasoning_torch.data.collate import BatchSpec, collate_candidates
+from multimodal_context_reasoning_torch.data.collate import BatchSpec, collate_candidates, table_rows
 from multimodal_context_reasoning_torch.data.schemas import (
     CandidateFeatures,
     ImageFeatures,
@@ -98,6 +98,7 @@ class PMRDataset:
         self.feat_cache_size = feat_cache_size
         self._feat_cache: "OrderedDict[int, List[CandidateFeatures]]" = OrderedDict()
         self._feat_cache_lock = threading.Lock()
+        self.device_table = None   # use_device_table
 
     def __len__(self) -> int:
         return len(self.examples)
@@ -206,8 +207,24 @@ class PMRDataset:
                 self._feat_cache.popitem(last=False)
         return cached
 
-    def batch(self, indices: Sequence[int]) -> Dict[str, np.ndarray]:
-        """Collate the examples at ``indices`` into one candidate batch."""
+    def use_device_table(self, table) -> None:
+        """Switch batches to device-table mode (data/device_table.py): the
+        features are gathered on the device from the resident table, and
+        each batch ships only per-row int32 ids."""
+        self.device_table = table
+
+    def batch(self, indices: Sequence[int]) -> Dict:
+        """Collate the examples at ``indices`` into one candidate batch; in
+        device-table mode ``img_row`` and the table's resident tensors take
+        the place of ``img_feat`` / ``img_mask``."""
         cands = [self._featurize_cached(int(i)) for i in indices]
-        imgs = [self.get_image(self.examples[int(i)]) for i in indices]
-        return collate_candidates(cands, imgs, self.spec)
+        exs = [self.examples[int(i)] for i in indices]
+        table = self.device_table
+        if table is None:
+            return collate_candidates(cands, [self.get_image(ex) for ex in exs], self.spec)
+        out = collate_candidates(cands, None, self.spec)
+        out["img_row"] = table_rows(table, [ex.img_id for ex in exs], self.spec.num_labels)
+        # the same device tensors every batch: nothing is copied again
+        out["feat_table"] = table.table
+        out["feat_mask_table"] = table.mask
+        return out

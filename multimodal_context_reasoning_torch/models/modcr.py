@@ -152,9 +152,13 @@ class ModCRModel(nn.Module):
             dedup = c.dedup_vision_prefix and not stochastic and N % K == 0 and N > K
             rows = slice(None, None, K) if dedup else slice(None)
             vis_mask = torch.cat([text_mask[rows, :1], img_mask[rows]], dim=-1)
+            # contiguous: a bf16 feature table's rows would otherwise reach
+            # the image projection as a strided view, which cuBLAS sums in
+            # another order than the contiguous copy the fp32 path's cast
+            # makes (the table and host paths then differ in the last bits)
+            vis_feat = img_feat[rows].contiguous()
             with frozen:
-                vis_cls = global_enc(input_ids[rows, :1], img_feat[rows], vis_mask
-                                     ).sequence[:, 0]
+                vis_cls = global_enc(input_ids[rows, :1], vis_feat, vis_mask).sequence[:, 0]
             if dedup and self.training:
                 # repeat before the mapping network: its dropout stays per row
                 vis_cls = vis_cls.repeat_interleave(K, dim=0)

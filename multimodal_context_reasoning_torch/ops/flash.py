@@ -7,22 +7,27 @@ CUDA backward kernel's wrapper (port of the JAX package's ``ops/flash.py``).
   taken before the scale, dQ = dS·K/√Dh and dK = dSᵀ·Q/√Dh, with P and dS
   rounded to the operand dtype before their products.  It is what a CPU
   tensor gets, and the oracle the kernel is held against.
-- :data:`flash_attention_bwd` is the wrapper.  On a CUDA tensor it launches
-  ``csrc/flash_bwd.cu`` (built at first use, ops/build.py) or raises; it
-  never falls back to the plain version there.  bf16 goes to the source's
-  tensor-core kernels (K and V resident up to 192 keys; above, a key loop
-  whose dK and dV sums pass between 128-row query tiles through an fp32
-  buffer this wrapper allocates), which take head dim 64 and rows that start
-  on 16 bytes (checked here before launch); fp32 to its FP32-pipe kernels
-  (K and V staged in shared memory while they fit, read from device memory
-  above), which take head dims up to 128.  Both take any key count; batch
-  and head count are at most 65535 (the grid).  Its ``launches`` counter
-  grows by one per kernel launch.
-- :func:`mem_efficient_attention` is a ``torch.autograd.Function`` that
-  saves only (q, k, v, bias): its forward is the dense-bias attention
-  (ops/fused_attention.py), its backward the function above.  No
-  [B, H, Lq, Lk] tensor outlives the call.  It takes no dropout: the model
-  sends attention under dropout to the plain ``dot_product_attention``.
+- :data:`flash_attention_bwd` is the wrapper.  It calls the dispatcher op
+  ``torch.ops.modcr_torch.flash_bwd`` (:data:`FLASH_BWD`), whose CUDA
+  implementation launches ``csrc/flash_bwd.cu`` (built at first use,
+  ops/build.py) or raises, and whose CPU implementation is the plain
+  version; the tensors' device picks one.  The op returns four tensors, a
+  schema having no optional output: the dbias plane is an empty fp32 tensor
+  when ``want_dbias`` is false, and the wrapper gives ``None``. bf16 goes to
+  the source's tensor-core kernels (K and V resident up to 192 keys; above,
+  a key loop whose dK and dV sums pass between 128-row query tiles through
+  an fp32 buffer this wrapper allocates), which take head dim 64 and rows
+  that start on 16 bytes (checked here before launch); fp32 to its FP32-pipe
+  kernels (K and V staged in shared memory while they fit, read from device
+  memory above), which take head dims up to 128. Both take any key count;
+  batch and head count are at most 65535 (the grid). Its ``launches``
+  counter grows by one per kernel launch.
+- :func:`mem_efficient_attention` is the dense-bias attention op
+  (ops/fused_attention.py), whose gradient, registered here with
+  ``torch.library.register_autograd``, saves only (q, k, v, bias) and runs
+  the backward op above.  No [B, H, Lq, Lk] tensor outlives the call.  It
+  takes no dropout: the model sends attention under dropout to the plain
+  ``dot_product_attention``.
 """
 
 from __future__ import annotations
@@ -33,11 +38,17 @@ from typing import Optional, Tuple
 import torch
 
 from multimodal_context_reasoning_torch.ops.fused_attention import (
+    LIBRARY,
     bias_strides,
+    call_op,
     check_bf16_limits,
     check_qkv,
     fused_attention,
 )
+
+_lib = torch.library.Library(LIBRARY, "FRAGMENT")
+_lib.define("flash_bwd(Tensor q, Tensor k, Tensor v, Tensor? bias, Tensor d_out, "
+            "bool want_dbias) -> (Tensor, Tensor, Tensor, Tensor)")
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
 
@@ -90,12 +101,8 @@ class FlashAttentionBwd:
 
     def __call__(self, q, k, v, bias, d_out, *, want_dbias: bool = True) -> Grads:
         """(dq, dk, dv, dbias plane or None when ``want_dbias`` is False)."""
-        if q.device.type == "cpu":
-            dq, dk, dv, dbias = flash_attention_bwd_plain(q, k, v, bias, d_out)
-            return dq, dk, dv, (dbias if want_dbias else None)
-        if q.device.type != "cuda":
-            raise ValueError(f"flash_attention_bwd: no kernel for {q.device}")
-        return self.launch(q, k, v, bias, d_out, want_dbias=want_dbias)
+        dq, dk, dv, dbias = call_op(FLASH_BWD, (), q, k, v, bias, d_out, want_dbias)
+        return dq, dk, dv, (dbias if want_dbias else None)
 
     def launch(self, q, k, v, bias, d_out, *, want_dbias: bool = True) -> Grads:
         """Launch the CUDA kernel; raises on anything it does not take
@@ -145,20 +152,51 @@ def reduce_to_bias(d4: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     return out.to(bias.dtype)
 
 
-class _MemEfficientAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, bias):
-        ctx.save_for_backward(q, k, v, bias)   # O(L·D) residuals only
-        return fused_attention(q, k, v, bias)
+FLASH_BWD = torch.ops.modcr_torch.flash_bwd.default
 
-    @staticmethod
-    def backward(ctx, d_out):
-        q, k, v, bias = ctx.saved_tensors
-        want_dbias = bias is not None and ctx.needs_input_grad[3]
-        dq, dk, dv, plane = flash_attention_bwd(q, k, v, bias, d_out.contiguous(),
-                                                want_dbias=want_dbias)
-        d_bias = reduce_to_bias(plane[:, None], bias) if want_dbias else None
-        return dq, dk, dv, d_bias
+
+def _bwd_cpu(q, k, v, bias, d_out, want_dbias):
+    dq, dk, dv, dbias = flash_attention_bwd_plain(q, k, v, bias, d_out)
+    if not want_dbias:
+        dbias = q.new_empty((0,), dtype=torch.float32)
+    return dq.contiguous(), dk.contiguous(), dv.contiguous(), dbias
+
+
+def _bwd_cuda(q, k, v, bias, d_out, want_dbias):
+    dq, dk, dv, dbias = flash_attention_bwd.launch(q, k, v, bias, d_out,
+                                                   want_dbias=want_dbias)
+    if dbias is None:
+        dbias = q.new_empty((0,), dtype=torch.float32)
+    return dq, dk, dv, dbias
+
+
+def _bwd_fake(q, k, v, bias, d_out, want_dbias):
+    B, lq, lk = q.shape[0], q.shape[1], k.shape[1]
+    return (q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(k.shape),
+            q.new_empty((B, lq, lk) if want_dbias else (0,), dtype=torch.float32))
+
+
+_lib.impl("flash_bwd", _bwd_cpu, "CPU")
+_lib.impl("flash_bwd", _bwd_cuda, "CUDA")
+torch.library.register_fake(f"{LIBRARY}::flash_bwd", _bwd_fake, lib=_lib)
+
+
+def _dense_setup(ctx, inputs, output):
+    q, k, v, bias = inputs
+    ctx.save_for_backward(q, k, v, bias)   # O(L·D) residuals only
+    ctx.has_bias = bias is not None
+
+
+def _dense_backward(ctx, d_out):
+    q, k, v, bias = ctx.saved_tensors
+    want_dbias = ctx.has_bias and ctx.needs_input_grad[3]
+    dq, dk, dv, plane = FLASH_BWD(q, k, v, bias, d_out.contiguous(), want_dbias)
+    d_bias = reduce_to_bias(plane[:, None], bias) if want_dbias else None
+    return dq, dk, dv, d_bias
+
+
+torch.library.register_autograd(f"{LIBRARY}::dense_attention", _dense_backward,
+                                setup_context=_dense_setup, lib=_lib)
 
 
 def mem_efficient_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -166,4 +204,4 @@ def mem_efficient_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q kᵀ/√Dh + bias) v, differentiable in q, k, v and bias, saving
     only its inputs for the backward: on CUDA tensors the dense-bias kernel
     forward and the backward kernel, on CPU tensors their plain versions."""
-    return _MemEfficientAttention.apply(q, k, v, bias)
+    return fused_attention(q, k, v, bias)

@@ -12,16 +12,24 @@ v's dtype before PV.
 
 - :func:`fused_attention_plain` computes it step by step in PyTorch.  It is
   what a CPU tensor gets, and the oracle the kernel is held against.
-- :data:`fused_attention` is the wrapper.  On a CUDA tensor it launches
-  ``csrc/fused_attention.cu`` (built at first use, ops/build.py) or raises;
-  it never falls back to the plain version there.  bf16 goes to the source's
+- :data:`fused_attention` is the wrapper.  It calls the dispatcher op
+  ``torch.ops.modcr_torch.dense_attention`` (:data:`DENSE_ATTENTION`), whose
+  CUDA implementation launches ``csrc/fused_attention.cu`` (built at first
+  use, ops/build.py) or raises, and whose CPU implementation is the plain
+  version: the tensors' device picks one, and a CUDA tensor never gets the
+  plain version.  The op's fake implementation gives ``torch.export`` and
+  fake tensors the output's shape, dtype and strides; its gradient
+  (ops/flash.py) is the backward kernel's op.  bf16 goes to the source's
   tensor-core kernels (K and V resident up to 192 keys, a key loop above),
   which take head dim 64 and rows that start on 16 bytes (checked here
   before launch); fp32 to its FP32-pipe kernels (K and V staged in shared
   memory while they fit, read from device memory above), which take head
-  dims up to 128.  Both take any key count; batch and head count are at
-  most 65535 (the grid).  Its ``launches`` counter grows by one per kernel
-  launch.
+  dims up to 128. Both take any key count; batch and head count are at most
+  65535 (the grid). Its ``launches`` counter grows by one per kernel launch.
+
+When no input needs a gradient, the wrapper calls the op below the
+autograd key, so serving and the frozen encoders add no autograd
+bookkeeping to a launch.
 
 The helpers :func:`check_qkv`, :func:`check_bf16_limits` and
 :func:`bias_strides` are shared with the backward kernel's wrapper
@@ -35,6 +43,11 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+
+# One namespace for the three kernels' ops; each module defines its own.
+LIBRARY = "modcr_torch"
+_lib = torch.library.Library(LIBRARY, "FRAGMENT")
+_lib.define("dense_attention(Tensor q, Tensor k, Tensor v, Tensor? bias) -> Tensor")
 
 MAX_DH = 128   # kMaxDh, csrc/common.cuh
 # The bf16 tensor-core kernels' head dim (kMmaDh in csrc/attention_mma.cuh,
@@ -152,11 +165,7 @@ class DenseBiasAttention:
         return self._lib
 
     def __call__(self, q, k, v, bias) -> torch.Tensor:
-        if q.device.type == "cpu":
-            return fused_attention_plain(q, k, v, bias)
-        if q.device.type != "cuda":
-            raise ValueError(f"fused_attention: no kernel for {q.device}")
-        return self.launch(q, k, v, bias)
+        return call_op(DENSE_ATTENTION, (q, k, v, bias), q, k, v, bias)
 
     def launch(self, q, k, v, bias) -> torch.Tensor:
         """Launch the CUDA kernel; raises on anything it does not take
@@ -184,4 +193,34 @@ class DenseBiasAttention:
         return out
 
 
+def call_op(op, diff_inputs, *args):
+    """``op(*args)``; below the autograd key unless one of ``diff_inputs``
+    needs a gradient, so a call with nothing to differentiate records no
+    autograd node and skips the op's Python autograd kernel."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in diff_inputs):
+        return op(*args)
+    with torch._C._AutoDispatchBelowAutograd():
+        return op(*args)
+
+
 fused_attention = DenseBiasAttention()
+DENSE_ATTENTION = torch.ops.modcr_torch.dense_attention.default
+
+
+def _dense_cpu(q, k, v, bias):
+    # contiguous, as the kernel's output and the fake one are
+    return fused_attention_plain(q, k, v, bias).contiguous()
+
+
+def _dense_cuda(q, k, v, bias):
+    return fused_attention.launch(q, k, v, bias)
+
+
+def _dense_fake(q, k, v, bias):
+    return q.new_empty(q.shape)
+
+
+_lib.impl("dense_attention", _dense_cpu, "CPU")
+_lib.impl("dense_attention", _dense_cuda, "CUDA")
+torch.library.register_fake(f"{LIBRARY}::dense_attention", _dense_fake, lib=_lib)

@@ -14,9 +14,14 @@ and a uniform row where every key is masked.
 
 - :func:`spec_attention_plain` computes it step by step in PyTorch.  It is
   what a CPU tensor gets, and the oracle the kernel is held against.
-- :data:`fused_attention_spec` is the wrapper.  On a CUDA tensor it launches
-  ``csrc/spec_attention.cu`` (built at first use, ops/build.py) or raises;
-  it never falls back to the plain version there.  Two routes, by dtype:
+- :data:`fused_attention_spec` is the wrapper.  It calls the dispatcher op
+  ``torch.ops.modcr_torch.spec_attention`` (:data:`SPEC_ATTENTION`; ``stage``
+  a string, ``text_len`` an int), whose CUDA implementation launches
+  ``csrc/spec_attention.cu`` (built at first use, ops/build.py) or raises,
+  and whose CPU implementation is the plain version: the tensors' device
+  picks one, and a CUDA tensor never gets the plain version.  A fake
+  implementation gives ``torch.export`` the output's shape.  Two routes, by
+  dtype:
   bf16 (the serving path and the training step's frozen encoders) goes to
   ``spec_attention_mma_kernel`` on the tensor cores, the dense-bias
   forward's tile (``csrc/attention_mma.cuh``) with the stage mask as its
@@ -34,12 +39,12 @@ and a uniform row where every key is masked.
   rebuild the mask from O(Lk) vectors per block, so no mask or score plane
   reaches device memory; the bf16 route keeps each warp's score tile in
   registers and moves the products onto the tensor cores.
-- When q, k or v needs a gradient, the wrapper runs as a
-  ``torch.autograd.Function`` that saves only its inputs (otherwise it
-  calls the forward alone).  Its backward rebuilds the mask as the bias
-  plane ``-1e9 * (1 - vis)`` (:func:`spec_bias`) and runs the attention
-  backward of ops/flash.py: the backward kernel on the card, its plain
-  version on the CPU.  The JAX package's spec kernel has
+- The op's gradient (``torch.library.register_autograd``) saves only its
+  inputs, rebuilds the mask as the bias plane ``-1e9 * (1 - vis)``
+  (:func:`spec_bias`) and runs the backward op of ops/flash.py: the
+  backward kernel on the card, its plain version on the CPU.  When none of
+  q, k, v needs a gradient the wrapper calls the op below the autograd key,
+  so no autograd node is recorded.  The JAX package's spec kernel has
   no VJP; its oracle for these gradients is autodiff of the dense path.
 """
 
@@ -49,11 +54,17 @@ import ctypes
 
 import torch
 
-from multimodal_context_reasoning_torch.ops.flash import flash_attention_bwd
+from multimodal_context_reasoning_torch.ops.flash import FLASH_BWD
 from multimodal_context_reasoning_torch.ops.fused_attention import (
+    LIBRARY,
+    call_op,
     check_bf16_limits,
     check_qkv,
 )
+
+_lib = torch.library.Library(LIBRARY, "FRAGMENT")
+_lib.define("spec_attention(Tensor q, Tensor k, Tensor v, Tensor valid, Tensor gi, "
+            "Tensor rowfull, str stage, int text_len) -> Tensor")
 
 STAGES = {"full": 0, "chunk": 1, "cross": 2}
 MASK_PENALTY = 1e9
@@ -115,24 +126,6 @@ def spec_bias(valid: torch.Tensor, gi: torch.Tensor, rowfull: torch.Tensor, *,
     return -((1.0 - vis) * MASK_PENALTY)
 
 
-class _SpecAttentionFn(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, valid, gi, rowfull, stage, text_len, wrapper):
-        ctx.save_for_backward(q, k, v, valid, gi, rowfull)   # O(L·D) only
-        ctx.stage, ctx.text_len = stage, text_len
-        return wrapper.forward(q, k, v, valid, gi, rowfull, stage=stage,
-                               text_len=text_len)
-
-    @staticmethod
-    def backward(ctx, d_out):
-        q, k, v, valid, gi, rowfull = ctx.saved_tensors
-        bias = spec_bias(valid, gi, rowfull, stage=ctx.stage, text_len=ctx.text_len,
-                         lq=q.shape[1])
-        dq, dk, dv, _ = flash_attention_bwd(q, k, v, bias, d_out.contiguous(),
-                                            want_dbias=False)
-        return dq, dk, dv, None, None, None, None, None, None
-
-
 class SpecAttention:
     """Wrapper of ``csrc/spec_attention.cu``; see the module docstring."""
 
@@ -157,25 +150,8 @@ class SpecAttention:
 
     def __call__(self, q, k, v, valid, gi, rowfull, *, stage: str,
                  text_len: int) -> torch.Tensor:
-        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                        or v.requires_grad):
-            return _SpecAttentionFn.apply(q, k, v, valid, gi, rowfull, stage,
-                                          text_len, self)
-        # nothing to differentiate (serving, the frozen encoders): the
-        # Function's bookkeeping would only add host time to every launch
-        return self.forward(q, k, v, valid, gi, rowfull, stage=stage, text_len=text_len)
-
-    def forward(self, q, k, v, valid, gi, rowfull, *, stage: str,
-                text_len: int) -> torch.Tensor:
-        """The forward alone: the plain version on a CPU tensor, the kernel
-        on a CUDA tensor."""
-        if q.device.type == "cpu":
-            return spec_attention_plain(q, k, v, valid, gi, rowfull,
-                                        stage=stage, text_len=text_len)
-        if q.device.type != "cuda":
-            raise ValueError(f"fused_attention_spec: no kernel for {q.device}")
-        return self.launch(q, k, v, valid, gi, rowfull, stage=stage,
-                           text_len=text_len)
+        return call_op(SPEC_ATTENTION, (q, k, v), q, k, v, valid, gi, rowfull, stage,
+                       text_len)
 
     def launch(self, q, k, v, valid, gi, rowfull, *, stage: str,
                text_len: int) -> torch.Tensor:
@@ -221,3 +197,40 @@ class SpecAttention:
 
 
 fused_attention_spec = SpecAttention()
+SPEC_ATTENTION = torch.ops.modcr_torch.spec_attention.default
+
+
+def _spec_cpu(q, k, v, valid, gi, rowfull, stage, text_len):
+    # contiguous, as the kernel's output and the fake one are
+    return spec_attention_plain(q, k, v, valid, gi, rowfull, stage=stage,
+                                text_len=text_len).contiguous()
+
+
+def _spec_cuda(q, k, v, valid, gi, rowfull, stage, text_len):
+    return fused_attention_spec.launch(q, k, v, valid, gi, rowfull, stage=stage,
+                                       text_len=text_len)
+
+
+def _spec_fake(q, k, v, valid, gi, rowfull, stage, text_len):
+    return q.new_empty(q.shape)
+
+
+def _spec_setup(ctx, inputs, output):
+    q, k, v, valid, gi, rowfull, stage, text_len = inputs
+    ctx.save_for_backward(q, k, v, valid, gi, rowfull)   # O(L·D) only
+    ctx.stage, ctx.text_len = stage, text_len
+
+
+def _spec_backward(ctx, d_out):
+    q, k, v, valid, gi, rowfull = ctx.saved_tensors
+    bias = spec_bias(valid, gi, rowfull, stage=ctx.stage, text_len=ctx.text_len,
+                     lq=q.shape[1])
+    dq, dk, dv, _ = FLASH_BWD(q, k, v, bias, d_out.contiguous(), False)
+    return dq, dk, dv, None, None, None, None, None
+
+
+_lib.impl("spec_attention", _spec_cpu, "CPU")
+_lib.impl("spec_attention", _spec_cuda, "CUDA")
+torch.library.register_fake(f"{LIBRARY}::spec_attention", _spec_fake, lib=_lib)
+torch.library.register_autograd(f"{LIBRARY}::spec_attention", _spec_backward,
+                                setup_context=_spec_setup, lib=_lib)

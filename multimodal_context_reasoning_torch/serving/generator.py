@@ -45,8 +45,22 @@ from multimodal_context_reasoning_torch.models.rationale import RationaleModel
 from multimodal_context_reasoning_torch.serving.scorer import pad_by_repetition, run_chunked
 
 # the collated arrays the classify forward reads
-_MODEL_KEYS = ("input_ids", "token_type_ids", "text_mask", "gather_index", "img_feat",
-               "img_mask")
+MODEL_KEYS = ("input_ids", "token_type_ids", "text_mask", "gather_index", "img_feat",
+              "img_mask")
+
+
+def classify_batch(feats: Sequence, spec: BatchSpec,
+                   device: torch.device) -> Dict[str, torch.Tensor]:
+    """Collate a full micro-batch of ``featurize`` outputs and move the
+    arrays the classify forward reads to ``device``."""
+    batch = collate_candidates([f[0] for f in feats], [f[1] for f in feats], spec)
+    return {k: torch.from_numpy(batch[k]).to(device) for k in MODEL_KEYS}
+
+
+def greedy_prompt(b_rtnl: int, questions: int, device: torch.device):
+    """(prompt [Q, 1] of ``<|b_rtnl|>``, prompt lengths [Q] of 1)."""
+    return (torch.full((questions, 1), b_rtnl, dtype=torch.long, device=device),
+            torch.ones(questions, dtype=torch.long, device=device))
 
 
 def decode_ids(tokenizer, ids: Sequence[int]) -> Optional[str]:
@@ -189,15 +203,13 @@ class RationaleGenerator:
     def device_batch(self, feats: Sequence) -> Dict[str, torch.Tensor]:
         """Collate a full micro-batch of :meth:`featurize` outputs and move
         the arrays the classify forward reads to the generator's device."""
-        batch = collate_candidates([f[0] for f in feats], [f[1] for f in feats], self.spec)
-        return {k: torch.from_numpy(batch[k]).to(self.device) for k in _MODEL_KEYS}
+        return classify_batch(feats, self.spec, self.device)
 
     def decode(self, out, *, generator: Optional[torch.Generator] = None):
         """(tokens, lengths) of the generator's mode over a classify
         forward's decoder memory, prompted with ``<|b_rtnl|>``."""
-        Q = out.decoder_memory.shape[0]
-        prompt = torch.full((Q, 1), self.b_rtnl, dtype=torch.long, device=self.device)
-        prompt_len = torch.ones(Q, dtype=torch.long, device=self.device)
+        prompt, prompt_len = greedy_prompt(self.b_rtnl, out.decoder_memory.shape[0],
+                                           self.device)
         return generate(
             self.model.dec, prompt, prompt_len, mode=self.mode,
             memory=out.decoder_memory.float(), memory_mask=out.decoder_memory_mask,

@@ -1,11 +1,14 @@
 """Online PMR scorer (port of the JAX package's ``serving/scorer.py``
-without its mesh and device-table options).
+without its mesh option).
 
 Requests are featurized on the host (numpy), padded by repetition to a
 fixed micro-batch of examples, collated to ``micro_batch × num_labels``
 candidate rows, and scored by one deterministic ``ModCRModel`` forward under
-``torch.inference_mode()``.  Under an int8 config (``with_quantize``) the
-weights are quantized once, after the cast to the compute dtype.  The
+``torch.inference_mode()``.  With ``use_device_table=True`` the whole
+image-feature set stays on the device (data/device_table.py) and a request
+ships one int32 row id per candidate row instead of its [I, F] features.
+Under an int8 config (``with_quantize``) the weights are quantized once,
+after the cast to the compute dtype.  The
 scorer runs on the GPU unless the caller passes ``device="cpu"``; asking
 for CUDA where there is none raises.  A CUDA
 device is held with its index (the current device at construction), so a
@@ -15,7 +18,7 @@ thread other than the constructing one, such as the batcher's dispatcher
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Sequence, Union
+from typing import Dict, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -24,10 +27,40 @@ import torch.nn as nn
 from multimodal_context_reasoning_torch.core.config import ModCRConfig
 from multimodal_context_reasoning_torch.core.device import resolve_device
 from multimodal_context_reasoning_torch.data.collate import BatchSpec, collate_candidates
+from multimodal_context_reasoning_torch.data.device_table import DeviceFeatureTable
 from multimodal_context_reasoning_torch.data.pmr import PMRDataset
 from multimodal_context_reasoning_torch.data.schemas import ImageFeatures, RawExample
 from multimodal_context_reasoning_torch.models.layers import freeze_int8
 from multimodal_context_reasoning_torch.models.modcr import ModCRModel
+from multimodal_context_reasoning_torch.train.step import model_inputs
+
+
+def build_host_batch(feats: Sequence, spec: BatchSpec, num_labels: int,
+                     *, table_mode: bool) -> Dict[str, np.ndarray]:
+    """The collated numpy batch (label dropped) of a padded micro-batch of
+    ``featurize`` outputs.  In table mode each output's image leg is its
+    table row, and the batch carries ``img_row`` [B·K] int32 in place of
+    ``img_feat`` / ``img_mask``.  The live scorer, the AOT scorer and the
+    artifact's export share it, so their batch layouts cannot drift."""
+    if table_mode:
+        batch = collate_candidates([f[0] for f in feats], None, spec)
+        batch["img_row"] = np.repeat(np.asarray([f[1] for f in feats], np.int32),
+                                     num_labels)
+    else:
+        batch = collate_candidates([f[0] for f in feats], [f[1] for f in feats], spec)
+    batch.pop("label", None)
+    return batch
+
+
+def device_batch(batch: Dict[str, np.ndarray], device: torch.device,
+                 table: Optional[DeviceFeatureTable] = None) -> Dict[str, torch.Tensor]:
+    """A host batch copied to ``device``, with the table's resident tensors
+    added in table mode (the same tensors every call: nothing re-copies)."""
+    out = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    if table is not None:
+        out["feat_table"] = table.table
+        out["feat_mask_table"] = table.mask
+    return out
 
 
 def pad_by_repetition(feats: Sequence, micro_batch: int):
@@ -105,6 +138,7 @@ class ModCRScorer:
         *,
         micro_batch: int = 8,
         device: Union[str, torch.device] = "cuda",
+        use_device_table: bool = False,
     ):
         self.config = config
         self.device = resolve_device(device)
@@ -129,6 +163,8 @@ class ModCRScorer:
             spec=spec, max_chunks=config.max_chunks,
         )
         self.features = image_features
+        self.table = (DeviceFeatureTable.for_config(image_features, config, device=self.device)
+                      if use_device_table else None)
 
     def warm_up(self) -> None:
         """Score one example of the first image (the JAX scorer's
@@ -141,16 +177,19 @@ class ModCRScorer:
         )])
 
     def featurize(self, ex: RawExample):
-        """Host-side featurization of one example (numpy only)."""
+        """Host-side featurization of one example (numpy only); in
+        device-table mode the image leg is its table row."""
+        if self.table is not None:
+            return self._ds.featurize(ex), self.table.row_for(ex.img_id)
         return self._ds.featurize(ex), self._ds.get_image(ex)
 
     def device_batch(self, feats: Sequence) -> Dict[str, torch.Tensor]:
         """Collate a full micro-batch of :meth:`featurize` outputs and move
-        it to the scorer's device (labels dropped)."""
-        batch = collate_candidates([f[0] for f in feats], [f[1] for f in feats],
-                                   self._ds.spec)
-        batch.pop("label")
-        return {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
+        it to the scorer's device (labels dropped; the table's tensors
+        added in table mode)."""
+        batch = build_host_batch(feats, self._ds.spec, self.config.num_labels,
+                                 table_mode=self.table is not None)
+        return device_batch(batch, self.device, self.table)
 
     def score_featurized(self, feats: Sequence, example_ids: Sequence[str]) -> List[Dict]:
         """One forward over up to micro_batch featurized examples."""
@@ -158,7 +197,7 @@ class ModCRScorer:
             return []
         real, feats = pad_by_repetition(feats, self.micro_batch)
         with torch.inference_mode():
-            logits = self.model(self.device_batch(feats)).logits
+            logits = self.model(model_inputs(self.device_batch(feats))).logits
         return format_score_results(logits.float().cpu().numpy()[:real], example_ids)
 
     def score(self, examples: Sequence[RawExample]) -> List[Dict]:

@@ -24,7 +24,17 @@ Batch = Dict[str, torch.Tensor]
 
 
 def model_inputs(batch: Batch) -> Batch:
-    return {k: v for k, v in batch.items() if k != "example_mask"}
+    """The model's inputs: ``example_mask`` dropped and, in device-table
+    mode (data/device_table.py), the batch's image features gathered on the
+    device from the resident table by ``img_row``."""
+    batch = {k: v for k, v in batch.items() if k != "example_mask"}
+    if "img_row" in batch:
+        table = batch.pop("feat_table")
+        tmask = batch.pop("feat_mask_table")
+        rows = batch.pop("img_row")
+        batch["img_feat"] = table[rows]
+        batch["img_mask"] = tmask[rows]
+    return batch
 
 
 def _metrics(out, batch: Batch) -> Dict[str, torch.Tensor]:

@@ -1,5 +1,5 @@
 """Host-side training loop (port of the JAX package's ``train/trainer.py``
-without its mesh, multi-host, profiler and TensorBoard options).
+without its mesh and multi-host options).
 
 Rebuilds the reference trainer (run_PMR_ModCR.py:115-241): an epoch loop
 over a seeded per-epoch shuffle, mid-epoch validation gated by
@@ -9,6 +9,12 @@ accumulation lives in the train state (:class:`MaskedMultiSteps`).  Per-step
 metrics are summed on the device and read only at validation points and
 epoch ends, so the micro-step path has no host synchronization.  The model
 runs on the GPU unless the caller passes ``device="cpu"``.
+
+``profile_dir`` captures micro-steps ``[profile_start, profile_start +
+profile_steps)`` with ``torch.profiler`` (utils/profiling.py) into a Chrome
+trace there; ``tensorboard_dir`` writes the meters at the same
+synchronization points the meter drains at (utils/tensorboard.py), so
+neither adds a host read to the micro-step path outside the capture.
 """
 
 from __future__ import annotations
@@ -16,7 +22,6 @@ from __future__ import annotations
 import logging
 from typing import Dict, Optional, Union
 
-import numpy as np
 import torch
 import torch.nn as nn
 
@@ -26,6 +31,7 @@ from multimodal_context_reasoning_torch.train.checkpoint import CheckpointManage
 from multimodal_context_reasoning_torch.train.state import TrainState
 from multimodal_context_reasoning_torch.train.step import eval_step, train_step
 from multimodal_context_reasoning_torch.utils.metrics import MetricLogger
+from multimodal_context_reasoning_torch.utils.profiling import start_trace, stop_trace
 
 
 class Trainer:
@@ -41,8 +47,24 @@ class Trainer:
         freeze_roberta_body: bool = False,
         checkpoint_params_only: bool = False,
         device: Union[str, torch.device] = "cuda",
+        profile_dir: Optional[str] = None,
+        profile_start: int = 10,
+        profile_steps: int = 3,
+        tensorboard_dir: Optional[str] = None,
     ):
         self.device = resolve_device(device)
+        # the default start skips the first steps (kernel builds, warm-up)
+        self.profile_dir = profile_dir
+        self.profile_start = profile_start
+        self.profile_steps = profile_steps
+        self.trace_path: Optional[str] = None   # the last capture's file
+        self.tb = None
+        if tensorboard_dir is not None:
+            from multimodal_context_reasoning_torch.utils.tensorboard import (
+                TensorboardLogger,
+            )
+
+            self.tb = TensorboardLogger(tensorboard_dir)
         self.model = model.to(self.device)
         self.cfg = cfg
         self.train_loader = train_loader
@@ -82,8 +104,12 @@ class Trainer:
         self.logger.info("Resumed from step %d", state.step)
         return state
 
-    def to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(v).to(self.device, non_blocking=True)
+    def to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """Host arrays copied to the device; tensors (a device table's,
+        data/device_table.py) pass as they are, so the table is never
+        copied again."""
+        return {k: v if isinstance(v, torch.Tensor)
+                else torch.from_numpy(v).to(self.device, non_blocking=True)
                 for k, v in batch.items()}
 
     def evaluate(self, model: Optional[nn.Module] = None) -> float:
@@ -125,6 +151,21 @@ class Trainer:
             sums = None
             since_fetch = 0
 
+        prof = None
+
+        def maybe_profile(micro_done: int) -> None:
+            """Start or stop the capture around micro-steps [profile_start,
+            profile_start + profile_steps)."""
+            nonlocal prof
+            if self.profile_dir is None:
+                return
+            if prof is None and micro_done == self.profile_start:
+                prof = start_trace(self.device)
+            elif prof is not None and micro_done >= self.profile_start + self.profile_steps:
+                self.trace_path = stop_trace(prof, self.profile_dir, self.device)
+                prof = None
+                self.logger.info("profiler trace written to %s", self.trace_path)
+
         capped = False  # max_steps reached: stop BEFORE any further update
         for epoch in range(self.num_epochs):
             if capped:
@@ -132,8 +173,10 @@ class Trainer:
             if hasattr(self.train_loader, "set_epoch"):
                 self.train_loader.set_epoch(epoch)
             for batch in self.train_loader:
+                maybe_profile(micro)
                 metrics = self.train_step(state, self.to_device(batch))
                 micro += 1
+                maybe_profile(micro)
                 sums = metrics if sums is None else {k: sums[k] + metrics[k] for k in sums}
                 since_fetch += 1
                 if micro % accum != 0:
@@ -152,6 +195,9 @@ class Trainer:
                         "epoch": epoch + 1, "step": opt_step, "val_acc": acc,
                         "train_loss": last("loss"), "train_acc": last("acc"),
                     })
+                    if self.tb is not None:
+                        self.tb.log_meters(meter, opt_step)
+                        self.tb.log_scalar("val_acc", acc, opt_step)
                     if acc > self.best_acc:
                         self.best_acc = acc
                         if self.ckpt is not None:
@@ -161,4 +207,10 @@ class Trainer:
                     break          # epoch would train one extra group
             drain_sums()
             self.logger.info("epoch %d done: %s", epoch + 1, meter)
+            if self.tb is not None:
+                self.tb.log_meters(meter, micro // accum)
+        if prof is not None:   # training ended inside the capture window
+            self.trace_path = stop_trace(prof, self.profile_dir, self.device)
+        if self.tb is not None:
+            self.tb.close()
         return state

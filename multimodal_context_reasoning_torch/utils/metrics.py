@@ -1,5 +1,5 @@
 """Windowed training metrics (the part of the JAX package's
-``utils/metrics.py`` that the trainer uses).
+``utils/metrics.py`` that the trainer and utils/tensorboard.py use).
 
 Rebuilds ``utils/metric_logger.py``: SmoothedValue (window median and global
 average, :11-44) and MetricLogger (grouped meters with a delimiter-joined
@@ -37,8 +37,16 @@ class SmoothedValue:
         return d[mid] if n % 2 else 0.5 * (d[mid - 1] + d[mid])
 
     @property
+    def avg(self) -> float:
+        return sum(self.deque) / len(self.deque) if self.deque else 0.0
+
+    @property
     def global_avg(self) -> float:
         return self.total / self.count if self.count else 0.0
+
+    @property
+    def last(self) -> float:
+        return self.deque[-1] if self.deque else 0.0
 
 
 class MetricLogger:

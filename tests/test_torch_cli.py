@@ -435,9 +435,6 @@ REFUSED = [
     (["--mesh_data", "2"], "--mesh_data", 9),
     (["--mesh_model", "2"], "--mesh_model", 9),
     (["--multihost"], "--multihost", 9),
-    (["--device_features"], "--device_features", 9),
-    (["--profile_dir", "prof"], "--profile_dir", 9),
-    (["--tensorboard_dir", "tb"], "--tensorboard_dir", 9),
     (["--bert_tokenizer_dir", "bert"], "--bert_tokenizer_dir", 11),
     (["--roberta_tokenizer_dir", "rob"], "--roberta_tokenizer_dir", 11),
 ]

@@ -1,5 +1,5 @@
 """PyTorch port: the CUDA kernels against their plain versions, on the
-card: the stage-mask forward (both routes, and its autograd Function), the
+card: the stage-mask forward (both routes, and its op's gradient), the
 dense-bias forward and the attention backward; and the int8 product of
 ``ops/quant.py`` against its plain accumulator.  Every test here needs a CUDA card and
 skips without one; the file imports neither JAX nor the JAX package, so it
@@ -665,8 +665,8 @@ def test_4000_keys_are_taken(card, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("stage_idx", [0, 1, 2], ids=["chunk", "full", "cross"])
 def test_backward_at_the_encoder_shape_with_the_stage_plane(card, dtype, stage_idx):
-    """The backward as ``_SpecAttentionFn`` calls it when the encoders train:
-    (32, 190, 190, 12, 64) with the stage mask as ``spec_bias`` builds it (a
+    """The backward as the stage-mask op's gradient calls it when the
+    encoders train: (32, 190, 190, 12, 64) with the stage mask as ``spec_bias`` builds it (a
     [B, 1, Lq, Lk] plane in the chunk and cross stages, a [B, 1, 1, Lk] row
     in the full stage), ragged text, chunks and regions: dq, dk, dv and the
     dbias plane within the backward's tolerance of each output's max |plain|."""

@@ -141,9 +141,9 @@ def test_wrapper_takes_plain_version_on_cpu_without_counting(geometry):
 
 
 def test_wrapper_records_its_function_only_when_a_gradient_is_needed(geometry):
-    """q, k or v needing a gradient goes through the autograd Function (whose
-    backward is the backward kernel's); otherwise the forward alone runs, with
-    the same output."""
+    """q, k or v needing a gradient records the op's registered autograd node
+    (whose backward is the backward kernel's op); otherwise the op runs
+    below the autograd key, with the same output."""
     text_mask, img_mask, gi, q, k, v = geometry
     spec = tmasks.stage_mask_specs(_t(text_mask), _t(img_mask), _t(gi))[0]
     vec = (spec.valid, spec.gi, spec.rowfull)
@@ -154,7 +154,8 @@ def test_wrapper_records_its_function_only_when_a_gradient_is_needed(geometry):
     with torch.no_grad():
         assert fused_attention_spec(*leaves, *vec, **kw).grad_fn is None
     out = fused_attention_spec(*leaves, *vec, **kw)
-    assert type(out.grad_fn).__name__ == "_SpecAttentionFnBackward"
+    assert type(out.grad_fn).__name__ == (
+        "GeneratedBackwardFor_modcr_torch_spec_attention_defaultBackward")
     assert torch.equal(out.detach(), plain)
 
 
@@ -276,3 +277,161 @@ def test_rebuild_key_covers_every_header(tmp_path, monkeypatch):
         after = {n: tbuild.source_digest(csrc / f"{n}.cu") for n in names}
         assert all(after[n] != before[n] for n in names), header
         before = after
+
+
+# ------------------------------------------------- the kernels as dispatcher ops
+
+from multimodal_context_reasoning_torch.ops.flash import (  # noqa: E402
+    FLASH_BWD,
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
+    mem_efficient_attention,
+    reduce_to_bias,
+)
+from multimodal_context_reasoning_torch.ops.fused_attention import DENSE_ATTENTION  # noqa: E402
+from multimodal_context_reasoning_torch.ops.spec_attention import SPEC_ATTENTION  # noqa: E402
+
+
+class _SpecFunction(torch.autograd.Function):
+    """The autograd Function the stage-mask op's registration replaced
+    (forward: the plain version; backward: the stage bias through the
+    backward's plain version), kept here as the reference."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, valid, gi, rowfull, stage, text_len):
+        ctx.save_for_backward(q, k, v, valid, gi, rowfull)
+        ctx.stage, ctx.text_len = stage, text_len
+        return spec_attention_plain(q, k, v, valid, gi, rowfull, stage=stage,
+                                    text_len=text_len)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, valid, gi, rowfull = ctx.saved_tensors
+        bias = spec_bias(valid, gi, rowfull, stage=ctx.stage, text_len=ctx.text_len,
+                         lq=q.shape[1])
+        dq, dk, dv, _ = flash_attention_bwd_plain(q, k, v, bias, d_out.contiguous())
+        return dq, dk, dv, None, None, None, None, None
+
+
+class _DenseFunction(torch.autograd.Function):
+    """The replaced ``_MemEfficientAttention`` on the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        ctx.save_for_backward(q, k, v, bias)
+        return fused_attention_plain(q, k, v, bias)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, bias = ctx.saved_tensors
+        want = bias is not None and ctx.needs_input_grad[3]
+        dq, dk, dv, plane = flash_attention_bwd_plain(q, k, v, bias, d_out.contiguous())
+        return dq, dk, dv, reduce_to_bias(plane[:, None], bias) if want else None
+
+
+def _op_case():
+    """The three stages' mask specs, q, k, v and a dO at the tiny ragged
+    shape."""
+    specs, qkv = _tiny_ragged_case(torch.float32, seed=7)
+    return specs, qkv, torch.randn(qkv[0].shape, generator=torch.Generator().manual_seed(3))
+
+
+@pytest.mark.parametrize("stage_idx", [0, 1, 2], ids=["chunk", "full", "cross"])
+def test_spec_op_passes_opcheck(stage_idx):
+    """Schema, fake (meta) implementation, autograd registration and
+    aot_autograd tracing of the stage-mask op, at the tiny ragged shape."""
+    specs, (q, k, v), _ = _op_case()
+    spec = specs[stage_idx]
+    args = (q.requires_grad_(), k, v, spec.valid, spec.gi, spec.rowfull, spec.stage,
+            spec.text_len)
+    torch.library.opcheck(SPEC_ATTENTION, args)
+
+
+@pytest.mark.parametrize("bias_kind", ["row", "plane", "none"])
+def test_dense_and_backward_ops_pass_opcheck(bias_kind):
+    specs, (q, k, v), d_out = _op_case()
+    bias = {"row": spec_bias(specs[1].valid, specs[1].gi, specs[1].rowfull, stage="full",
+                             text_len=specs[1].text_len, lq=q.shape[1]),
+            "plane": spec_bias(specs[0].valid, specs[0].gi, specs[0].rowfull, stage="chunk",
+                               text_len=specs[0].text_len, lq=q.shape[1]),
+            "none": None}[bias_kind]
+    torch.library.opcheck(DENSE_ATTENTION, (q.requires_grad_(), k, v, bias))
+    for want_dbias in ((True, False) if bias is not None else (False,)):
+        torch.library.opcheck(FLASH_BWD, (q.detach(), k, v, bias, d_out, want_dbias))
+
+
+@pytest.mark.parametrize("stage_idx", [0, 1, 2], ids=["chunk", "full", "cross"])
+def test_spec_op_output_and_gradients_are_the_removed_functions(stage_idx):
+    """On the CPU the op's output is the plain version's and its gradients
+    are the replaced Function's, bit for bit; no launch is counted."""
+    specs, qkv, d_out = _op_case()
+    spec = specs[stage_idx]
+    vec = (spec.valid, spec.gi, spec.rowfull)
+    kw = dict(stage=spec.stage, text_len=spec.text_len)
+    before = (fused_attention_spec.launches, flash_attention_bwd.launches)
+    leaves = [t.clone().requires_grad_() for t in qkv]
+    out = fused_attention_spec(*leaves, *vec, **kw)
+    out.backward(d_out)
+    ref = [t.clone().requires_grad_() for t in qkv]
+    want = _SpecFunction.apply(*ref, *vec, spec.stage, spec.text_len)
+    want.backward(d_out)
+    assert torch.equal(out.detach(), want.detach())
+    assert torch.equal(out.detach(), spec_attention_plain(*qkv, *vec, **kw))
+    for a, b in zip(leaves, ref):
+        assert torch.equal(a.grad, b.grad)
+    assert (fused_attention_spec.launches, flash_attention_bwd.launches) == before
+
+
+@pytest.mark.parametrize("bias_kind", ["plane", "row"])
+def test_dense_op_output_and_gradients_are_the_removed_functions(bias_kind):
+    """mem_efficient_attention through the op: output, q/k/v gradients and
+    the bias gradient reduced to the bias's shape equal the replaced
+    Function's on the plain versions, bit for bit."""
+    specs, qkv, d_out = _op_case()
+    spec = specs[0] if bias_kind == "plane" else specs[1]
+    bias = spec_bias(spec.valid, spec.gi, spec.rowfull, stage=spec.stage,
+                     text_len=spec.text_len, lq=qkv[0].shape[1])
+    got_leaves = [t.clone().requires_grad_() for t in (*qkv, bias)]
+    out = mem_efficient_attention(*got_leaves)
+    out.backward(d_out)
+    ref_leaves = [t.clone().requires_grad_() for t in (*qkv, bias)]
+    want = _DenseFunction.apply(*ref_leaves)
+    want.backward(d_out)
+    assert torch.equal(out.detach(), want.detach())
+    for a, b in zip(got_leaves, ref_leaves):
+        assert a.grad.shape == a.shape and torch.equal(a.grad, b.grad)
+
+
+def test_backward_op_returns_an_empty_plane_without_dbias():
+    """The schema returns four tensors: the dbias plane is an empty fp32
+    tensor when it is not wanted, and the wrapper gives None."""
+    specs, (q, k, v), d_out = _op_case()
+    bias = spec_bias(specs[1].valid, specs[1].gi, specs[1].rowfull, stage="full",
+                     text_len=specs[1].text_len, lq=q.shape[1])
+    dq, dk, dv, plane = FLASH_BWD(q, k, v, bias, d_out, False)
+    assert plane.shape == (0,) and plane.dtype == torch.float32
+    want = flash_attention_bwd_plain(q, k, v, bias, d_out)
+    for g, w in zip((dq, dk, dv), want[:3]):
+        assert torch.equal(g, w)
+    assert flash_attention_bwd(q, k, v, bias, d_out, want_dbias=False)[3] is None
+    assert torch.equal(FLASH_BWD(q, k, v, bias, d_out, True)[3], want[3])
+
+
+def test_ops_trace_into_an_exported_program():
+    """torch.export sees each op through its fake implementation: the graph
+    calls the op itself, and the loaded program gives the eager bits."""
+    specs, (q, k, v), _ = _op_case()
+    spec = specs[0]
+
+    class Two(torch.nn.Module):
+        def forward(self, q, k, v, valid, gi, rowfull):
+            x = fused_attention_spec(q, k, v, valid, gi, rowfull, stage="chunk",
+                                     text_len=spec.text_len)
+            return mem_efficient_attention(x, k, v, None)
+
+    args = (q, k, v, spec.valid, spec.gi, spec.rowfull)
+    ep = torch.export.export(Two(), args)
+    targets = {str(n.target) for n in ep.graph.nodes if n.op == "call_function"}
+    assert {"modcr_torch.spec_attention.default",
+            "modcr_torch.dense_attention.default"} <= targets
+    assert torch.equal(ep.module()(*args), Two()(*args))

@@ -678,11 +678,6 @@ def test_serve_cli_generate_serves_a_seeded_random_init(cli_files, monkeypatch, 
 
 REFUSED = [
     (["--gpt_tokenizer_dir", "gpt"], "--gpt_tokenizer_dir", 11),
-    (["--gen_artifact", "a"], "--gen_artifact", 9),
-    (["--save_gen_artifact", "a"], "--save_gen_artifact", 9),
-    (["--artifact", "a"], "--artifact", 9),
-    (["--save_artifact", "a"], "--save_artifact", 9),
-    (["--device_features"], "--device_features", 9),
     (["--bert_tokenizer_dir", "b"], "--bert_tokenizer_dir", 11),
     (["--roberta_tokenizer_dir", "r"], "--roberta_tokenizer_dir", 11),
 ]
