@@ -9,7 +9,8 @@ the two-stage recipe (``cli/train_two_stage.py``), run the ensemble
 and CLIP ablations with the CLIP precompute command
 (``cli/precompute_clip.py``), and hold the kernels' dispatcher ops, the
 device-resident feature table, the AOT artifacts (``serving/aot.py``) and
-the profiled, logged trainer (phase 21).
+the profiled, logged trainer (phase 21), and scale the train step and the
+scorer out over ``torch.distributed`` (phase 22).
 
     python3 chip_smoke.py
 
@@ -77,8 +78,9 @@ the port is not beside this script, or when any phase fails.  Phases:
     stage-mask forward's from 19c, ``ensemble_launches`` of all three from
     phase 20b and each kernel's ``roberta_no_prefix`` rows from 20e,
     ``aot_launches``, ``device_table_launches`` and ``op_host_us`` from
-    phase 21), then the result line; the summary line before it carries
-    ``ensembles``, ``clip`` and ``standalone`` (phase 21);
+    phase 21, ``parallel_launches`` per mesh from phase 22b's rank 0), then
+    the result line; the summary line before it carries ``ensembles``,
+    ``clip``, ``standalone`` (phase 21) and ``parallel`` (phase 22);
 12. (run before 11) the two commands through ``main(argv)``, full-width
     bf16, on files written from the seed in a temporary directory (PMR
     JSONL of 64 / 32 / 32 examples, a VCR JSON of 64, 50 x 2054 region
@@ -252,7 +254,25 @@ the port is not beside this script, or when any phase fails.  Phases:
     10's geometry with the table, ``profile_dir`` (two steps captured) and
     ``tensorboard_dir``: the Chrome trace's spec_attention*,
     dense_attention* and flash_bwd* kernels are 36 / 48 / 24 a profiled
-    step, and the writer branch that ran is printed.
+    step, and the writer branch that ran is printed;
+22. (run before 11) scale-out (parallel/): 22a, world size 1 over NCCL at
+    mesh (1, 1): one PMR train step of PARALLEL_EXAMPLES examples at the
+    production training geometry (bf16, remat, dropout 0) and one scorer
+    micro-batch of 8, bit-equal to the same without a mesh (loss, gradient
+    norm, the PARALLEL_PARAMS after the step, logits); 22b, two processes
+    sharing the card over gloo (``--parallel-rank``), at meshes (2, 1) and
+    (1, 2), the same step (each rank its rows) and micro-batch held to
+    world size 1 (PARALLEL_*_TOL), with the kernel counts of each (36 / 48
+    / 24 a step, 36 / 24 / 0 a forward, at 6 local encoder heads and 8
+    local RoBERTa heads under (1, 2)) and every launch held against its
+    plain version (HeldSpec, HeldDense, HeldBackward); the seconds are of
+    two processes sharing one card over gloo, not a multi-GPU time; 22c,
+    the request features through an ``.mcrpack`` and the native reader
+    (``data/feature_store.py``, built from ``native/feature_store.cpp``
+    where the committed library does not load): logits equal to the
+    pickle's.  ``--only 22d`` (a development aid for a machine of four
+    cards, not part of the default run) holds mesh (2, 2) over NCCL, one
+    process per card, to world size 1 as 22b holds its processes.
 """
 
 from __future__ import annotations
@@ -340,6 +360,22 @@ TWO_STAGE_EXAMPLES = 96
 ENSEMBLE_QUESTIONS, CLIP_IMAGES = 8, 32
 CLIP_CMD_EXAMPLES, CLIP_CMD_IMAGES = 32, 16
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# phase 22: the global batch of the two-process step; its meshes; the bounds
+# of a two-process bf16 step and forward against world size 1 (|loss|, the
+# gradient norm relative, parameters after the step in learning rates: one
+# AdamW step moves each by about lr, so a flipped update differs by 2 lr;
+# logits over max |logit|), and the parameters read back after the step
+PARALLEL_EXAMPLES = 16
+PARALLEL_SEED = SEED + 22
+PARALLEL_MESHES = ((2, 1), (1, 2))
+PARALLEL_LOSS_TOL, PARALLEL_NORM_TOL = 2e-2, 5e-2
+PARALLEL_PARAM_TOL_LR, PARALLEL_LOGIT_TOL = 2.5, 5e-2
+PARALLEL_PARAMS = ("roberta.encoder.layer.0.attention.self.query.weight",
+                   "roberta.encoder.layer.0.attention.self.query.bias",
+                   "roberta.encoder.layer.23.output.dense.weight",
+                   "roberta.encoder.layer.23.output.dense.bias",
+                   "roberta.encoder.layer.23.output.LayerNorm.weight",
+                   "mapping_network_vision.1.weight", "abst_confidence_scorer.weight")
 
 
 def check(ok: bool, what: str) -> None:
@@ -4277,6 +4313,315 @@ def phase21(rng, live_startup_s: float) -> dict:
 
 # ---------------------------------------------------------------- main
 
+class HeldSpec:
+    """While active, every stage-mask forward launch is held against its
+    plain version on the same inputs: per (q shape, stage) the launches and
+    the worst |kernel - plain| (phase 3's tolerances)."""
+
+    def __init__(self):
+        self.seen = {}
+
+    def __enter__(self):
+        from multimodal_context_reasoning_torch.ops.spec_attention import (
+            fused_attention_spec,
+            spec_attention_plain,
+        )
+
+        launch = fused_attention_spec.launch
+
+        def held(q, k, v, valid, gi, rowfull, *, stage, text_len):
+            got = launch(q, k, v, valid, gi, rowfull, stage=stage, text_len=text_len)
+            want = spec_attention_plain(q, k, v, valid, gi, rowfull, stage=stage,
+                                        text_len=text_len)
+            key = (tuple(q.shape), stage, str(q.dtype))
+            n, worst = self.seen.get(key, (0, 0.0))
+            self.seen[key] = (n + 1, max(worst, errors(got, want)[0]))
+            return got
+
+        fused_attention_spec.launch = held
+        return self
+
+    def __exit__(self, *exc):
+        from multimodal_context_reasoning_torch.ops.spec_attention import fused_attention_spec
+
+        del fused_attention_spec.launch
+        return False
+
+
+def parallel_inputs():
+    """Phase 22's inputs, the same in every process: the production training
+    geometry (bf16, remat, dropout 0), a global batch of PARALLEL_EXAMPLES
+    examples, one micro-batch of requests and their features."""
+    from multimodal_context_reasoning_torch.core.config import pmr_training_config
+    from multimodal_context_reasoning_torch.serving.synthetic import (
+        hash_tokenizers,
+        synthetic_dataset,
+        synthetic_requests,
+    )
+
+    cfg = pmr_training_config()
+    rng = np.random.default_rng(PARALLEL_SEED)
+    batch = synthetic_dataset(rng, PARALLEL_EXAMPLES, cfg, first=40_000).batch(
+        np.arange(PARALLEL_EXAMPLES))
+    feats, reqs = synthetic_requests(rng, SERVE_MICRO_BATCH, cfg, first=41_000)
+    return cfg, batch, feats, reqs, hash_tokenizers(cfg)
+
+
+def parallel_model(cfg):
+    from multimodal_context_reasoning_torch.models.modcr import ModCRModel
+
+    return ModCRModel(cfg, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(PARALLEL_SEED))
+
+
+def parallel_run(mesh, *, hold: bool = False, mesh_less: bool = False) -> dict:
+    """One PMR train step of the global batch (this rank's rows) and one
+    scorer micro-batch, on ``mesh`` (``mesh_less``: no mesh at all), with
+    the kernel counts of each; with ``hold`` every kernel launch is held
+    against its plain version (phases 3 and 7's tolerances)."""
+    from multimodal_context_reasoning_torch.core.config import TrainConfig
+    from multimodal_context_reasoning_torch.parallel.partition import (
+        gather_tensor,
+        local_rows,
+        shard_module_,
+    )
+    from multimodal_context_reasoning_torch.serving.scorer import ModCRScorer
+    from multimodal_context_reasoning_torch.train.state import TrainState
+    from multimodal_context_reasoning_torch.train.step import train_step
+
+    cfg, batch, feats, reqs, (bert, rob) = parallel_inputs()
+    model = parallel_model(cfg)
+    if not mesh_less:
+        shard_module_(model, mesh)
+    tcfg = TrainConfig(seed=SEED)
+    state = TrainState.create(model, tcfg, 10)
+    local = local_rows({k: torch.from_numpy(v).cuda() for k, v in batch.items()},
+                       None if mesh_less else mesh)
+    spec, dense, bwd = HeldSpec(), HeldDense(), HeldBackward()
+    with contextlib.ExitStack() as held:
+        if hold:
+            for h in (spec, dense, bwd):
+                held.enter_context(h)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = {k: float(v) for k, v in train_step(state, local).items()}
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        train_counts = read_counts()
+    plan = getattr(model, "tp_plan", None) or {}
+    named = dict(model.named_parameters())
+    params = {n: (gather_tensor(named[n].detach(), plan[n], mesh) if n in plan
+                  else named[n].detach()).cpu() for n in PARALLEL_PARAMS}
+    del state, model, named
+    torch.cuda.empty_cache()
+
+    scorer = ModCRScorer(cfg, parallel_model(cfg), bert, rob, feats,
+                         micro_batch=SERVE_MICRO_BATCH, device="cuda",
+                         mesh=None if mesh_less else mesh)
+    with contextlib.ExitStack() as held:
+        if hold:
+            for h in (spec, dense):
+                held.enter_context(h)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = scorer.score(reqs)
+        torch.cuda.synchronize()
+        score_s = time.perf_counter() - t0
+        score_counts = read_counts()
+    del scorer
+    torch.cuda.empty_cache()
+    return dict(metrics=metrics, params=params, train_counts=train_counts,
+                logits=[r["logits"] for r in rows], score_counts=score_counts,
+                step_seconds=step_s, score_seconds=score_s,
+                held_spec={f"{k[0]} {k[1]}": v for k, v in spec.seen.items()},
+                held_dense={f"{k[0]} {k[1]} bias {k[3]}": v for k, v in dense.seen.items()},
+                held_backward=held_backward_rows(bwd))
+
+
+def parallel_rank(argv) -> int:
+    """A phase-22 child: ``--parallel-rank RANK PORT DATA MODEL OUT BACKEND``
+    joins a DATA x MODEL process group (gloo: every rank on card 0; nccl:
+    rank r on card r) and writes parallel_run's result to OUT/rank<RANK>.pt."""
+    import traceback
+
+    import torch.distributed as dist
+
+    from multimodal_context_reasoning_torch.parallel.mesh import make_mesh
+
+    rank, port, d, m, out, backend = (int(argv[0]), argv[1], int(argv[2]), int(argv[3]),
+                                      argv[4], argv[5])
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=d * m)
+    try:
+        result = parallel_run(make_mesh((d, m)), hold=True)
+    except Exception:
+        result = {"error": traceback.format_exc()}
+    torch.save(result, os.path.join(out, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def parallel_reference() -> dict:
+    """Phase 22a: world size 1 over NCCL at mesh (1, 1) against no mesh at
+    all (bit-equal); returns the mesh-less run, 22b's and 22d's reference."""
+    import torch.distributed as dist
+
+    from multimodal_context_reasoning_torch.parallel.mesh import make_mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1))
+        ref = parallel_run(None, mesh_less=True)
+        one = parallel_run(mesh)
+    finally:
+        dist.destroy_process_group()
+    same_train = (one["metrics"] == ref["metrics"]
+                  and all(torch.equal(one["params"][n], ref["params"][n])
+                          for n in PARALLEL_PARAMS))
+    same_score = one["logits"] == ref["logits"]
+    print(f"[22a ws1] NCCL world size 1, mesh (1, 1) against no mesh: train step bit-equal "
+          f"{same_train} (loss {ref['metrics']['loss']:.6f}, grad norm "
+          f"{ref['metrics']['grad_norm']:.6f}), scorer logits bit-equal {same_score} | "
+          f"launches train {one['train_counts']} score {one['score_counts']}")
+    check(same_train, "22a: the mesh (1, 1) train step differs from the mesh-less one")
+    check(same_score, "22a: the mesh (1, 1) scorer differs from the mesh-less one")
+    check(one["train_counts"] == STEP_LAUNCHES, f"22a: launches {one['train_counts']}")
+    torch.cuda.empty_cache()
+    return dict(ref, bit_equal=dict(train=same_train, score=same_score),
+                mesh_launches=one["train_counts"])
+
+
+def parallel_children(shape, backend: str, ref: dict) -> dict:
+    """Phases 22b and 22d: one process per rank of ``shape`` over
+    ``backend``, each its share of the step and the micro-batch with every
+    launch held (parallel_run), held to world size 1 (PARALLEL_*_TOL)."""
+    d, m = shape
+    out = tempfile.mkdtemp(prefix="modcr_parallel_")
+    port = str(free_port())
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-rank",
+                               str(r), port, str(d), str(m), out, backend], cwd=ROOT)
+             for r in range(d * m)]
+    codes = []
+    for p in procs:
+        try:
+            codes.append(p.wait(timeout=300))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            codes.append(None)
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(d * m):
+        path = os.path.join(out, f"rank{r}.pt")
+        ranks.append(torch.load(path, weights_only=False) if os.path.exists(path)
+                     else {"error": f"no result (exit {codes[r]})"})
+    shutil.rmtree(out)
+    tag = f"{d}x{m} {backend}"
+    for r, res in enumerate(ranks):
+        check("error" not in res, f"22 {tag} rank {r}: {res.get('error')}")
+    lr = 1e-5   # TrainConfig's default, the step's learning rate
+    loss_err = max(abs(res["metrics"]["loss"] - ref["metrics"]["loss"]) for res in ranks)
+    norm_err = max(abs(res["metrics"]["grad_norm"] / ref["metrics"]["grad_norm"] - 1)
+                   for res in ranks)
+    param_err = max((res["params"][n] - ref["params"][n]).abs().max().item()
+                    for res in ranks for n in PARALLEL_PARAMS)
+    want = np.asarray(ref["logits"])
+    logit_share = max(np.abs(np.asarray(res["logits"]) - want).max()
+                      for res in ranks) / np.abs(want).max()
+    spec_err = max((e for res in ranks for _, e in res["held_spec"].values()), default=0.0)
+    dense_err = max((e for res in ranks for _, e in res["held_dense"].values()), default=0.0)
+    bwd_ok = all(backward_held_ok(res["held_backward"]) for res in ranks)
+    counts = ranks[0]["train_counts"]
+    where = ("processes sharing one card over gloo" if backend == "gloo"
+             else "processes, one card each, over NCCL")
+    print(f"[22 {tag}] {d * m} {where}: loss "
+          f"{[round(res['metrics']['loss'], 6) for res in ranks]} vs ws1 "
+          f"{ref['metrics']['loss']:.6f} (|Δ| {loss_err:.3e}, bound {PARALLEL_LOSS_TOL}) | "
+          f"grad norm rel {norm_err:.3e} (bound {PARALLEL_NORM_TOL}) | params after the "
+          f"step max |Δ| {param_err:.3e} (bound {PARALLEL_PARAM_TOL_LR} x lr) | scorer "
+          f"logits max |Δ| {logit_share:.3e} of max |logit| (bound {PARALLEL_LOGIT_TOL})")
+    print(f"[22 {tag}] launches rank 0 train {counts} score {ranks[0]['score_counts']} | "
+          f"held: stage-mask {ranks[0]['held_spec']} dense {ranks[0]['held_dense']} | "
+          f"backward {json.dumps(ranks[0]['held_backward'])}")
+    print(f"[22 {tag}] seconds of {d * m} {where} (not a multi-GPU speed): step "
+          f"{[round(res['step_seconds'], 3) for res in ranks]} score "
+          f"{[round(res['score_seconds'], 3) for res in ranks]} | wall with start-up "
+          f"{wall:.1f} s")
+    check(loss_err <= PARALLEL_LOSS_TOL, f"22 {tag}: loss off by {loss_err}")
+    check(norm_err <= PARALLEL_NORM_TOL, f"22 {tag}: grad norm off by {norm_err}")
+    check(param_err <= PARALLEL_PARAM_TOL_LR * lr, f"22 {tag}: params off by {param_err}")
+    check(logit_share <= PARALLEL_LOGIT_TOL, f"22 {tag}: logits off by {logit_share}")
+    check(all(res["train_counts"] == STEP_LAUNCHES for res in ranks),
+          f"22 {tag}: train launches {[res['train_counts'] for res in ranks]}")
+    check(all(res["score_counts"] == ref["score_counts"] for res in ranks),
+          f"22 {tag}: score launches {[res['score_counts'] for res in ranks]}")
+    check(spec_err <= TOL[torch.bfloat16] and dense_err <= TOL[torch.bfloat16] and bwd_ok,
+          f"22 {tag}: held kernels spec {spec_err} dense {dense_err} backward {bwd_ok}")
+    return dict(loss_abs_err=loss_err, grad_norm_rel_err=norm_err, param_abs_err=param_err,
+                logit_share_err=logit_share, train_launches=counts,
+                score_launches=ranks[0]["score_counts"], held_spec_max_abs_err=spec_err,
+                held_dense_max_rel_err=dense_err, held_backward=ranks[0]["held_backward"],
+                step_seconds=[res["step_seconds"] for res in ranks],
+                seconds_are=f"{d * m} {where}", wall_seconds=wall)
+
+
+def phase22() -> dict:
+    """Phase 22: scale-out over torch.distributed; see the module docstring."""
+    from multimodal_context_reasoning_torch.cli.common import load_image_features
+    from multimodal_context_reasoning_torch.data.feature_store import native_library, write_pack
+    from multimodal_context_reasoning_torch.serving.scorer import ModCRScorer
+
+    t22 = time.perf_counter()
+    ref = parallel_reference()
+    # 22b: two processes sharing the card over gloo, meshes (2, 1) and (1, 2)
+    results = {f"{d}x{m}": parallel_children((d, m), "gloo", ref)
+               for d, m in PARALLEL_MESHES}
+
+    # 22c: the smoke's features through the native .mcrpack reader
+    cfg, _, feats, reqs, (bert, rob) = parallel_inputs()
+    tmp = tempfile.mkdtemp(prefix="modcr_pack_")
+    raw = {k: f.features for k, f in feats.items()}
+    with open(os.path.join(tmp, "feats.pkl"), "wb") as f:
+        pickle.dump({k: {"features": v} for k, v in raw.items()}, f)
+    write_pack(raw, os.path.join(tmp, "feats.mcrpack"))
+    dim = cfg.global_encoder.img_feature_dim
+    logits = {}
+    for name in ("feats.pkl", "feats.mcrpack"):
+        source = load_image_features(os.path.join(tmp, name), dim)
+        scorer = ModCRScorer(cfg, parallel_model(cfg), bert, rob, source,
+                             micro_batch=SERVE_MICRO_BATCH, device="cuda")
+        logits[name] = [r["logits"] for r in scorer.score(reqs)]
+        if name.endswith("mcrpack"):
+            native = source.native
+        del scorer
+    shutil.rmtree(tmp)
+    same_native = logits["feats.pkl"] == logits["feats.mcrpack"]
+    print(f"[22c native] .mcrpack through the native reader ({native}, "
+          f"{native_library()._name}): logits equal to the pickle's {same_native}")
+    check(native, "22c: the .mcrpack store did not load the native reader")
+    check(same_native, "22c: native-reader logits differ from the pickle's")
+    seconds = time.perf_counter() - t22
+    print(f"[22] phases 22a-22c took {seconds:.1f} s")
+    return dict(meshes=results, ws1_bit_equal=ref["bit_equal"],
+                native_reader_equal=same_native, ws1_launches=ref["mesh_launches"],
+                phase_seconds=seconds)
+
+
+def phase22d() -> dict:
+    """``--only 22d`` (a development aid, on a machine of 4 cards): world
+    size 1 as in 22a, then mesh (2, 2) over NCCL, one process per card, held
+    to it as 22b holds its processes."""
+    ref = parallel_reference()
+    return parallel_children((2, 2), "nccl", ref)
+
+
 def main(argv=None) -> int:
     """All phases; ``--only 21`` (a development aid) runs the device and
     build phases and phase 21 alone, and prints no result line."""
@@ -4285,6 +4630,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
+    if argv[:1] == ["--parallel-rank"]:
+        return parallel_rank(argv[1:])
     from multimodal_context_reasoning_torch.core.config import ModCRConfig
     from multimodal_context_reasoning_torch.models.modcr import ModCRModel
     from multimodal_context_reasoning_torch.ops.build import load_library
@@ -4331,6 +4678,10 @@ def main(argv=None) -> int:
     print(f"[2 build] all {len(KERNELS)} built and loaded in {time.perf_counter() - t0:.2f} s")
     if only == "21":
         phase21(np.random.default_rng(SEED + 21), float("nan"))
+        print(card)
+        return 0
+    if only in ("22", "22d"):
+        phase22() if only == "22" else phase22d()
         print(card)
         return 0
 
@@ -4545,6 +4896,10 @@ def main(argv=None) -> int:
     # profiled and logged trainer
     standalone = phase21(rng, served["http_command"]["startup_s"])
 
+    # 22. scale-out: world size 1 over NCCL, two processes on the card over
+    # gloo at meshes (2, 1) and (1, 2), the native .mcrpack reader
+    parallel = phase22()
+
     # 11. kernels line, then the result line
     print(card)
     print(json.dumps({"serving": serving, "e2e_fp32_max_abs_diff": e2e_err,
@@ -4560,7 +4915,10 @@ def main(argv=None) -> int:
                       "two_stage": {k: v for k, v in two_stage.items() if k != "launches"},
                       "ensembles": {k: v for k, v in ensembles.items() if k != "launches"},
                       "clip": clip,
-                      "standalone": standalone["summary"]}))
+                      "standalone": standalone["summary"],
+                      "parallel": parallel}))
+    parallel_launches = {k: {tag: r["train_launches"][k] for tag, r in parallel["meshes"].items()}
+                         for k in KERNELS}
     main_path = train["launches"]
     shape = "bf16 (128, 128, 138, 16, 64), one launch, as one RoBERTa layer of the slice"
 
@@ -4584,6 +4942,7 @@ def main(argv=None) -> int:
         "two_stage_launches": two_stage["launches"]["spec_attention"],
         "ensemble_launches": ensembles["launches"]["spec_attention"],
         **standalone["kernels"]["spec_attention"],
+        "parallel_launches": parallel_launches["spec_attention"],
         "max_abs_err": max(max_err, train_err["spec_attention"],
                            long_keys["max_abs_err"]["spec_attention"],
                            *(r["max_abs_err"] for r in stage1_kernels["forward"]
@@ -4614,6 +4973,7 @@ def main(argv=None) -> int:
         "two_stage_launches": two_stage["launches"]["fused_attention"],
         "ensemble_launches": ensembles["launches"]["fused_attention"],
         **standalone["kernels"]["fused_attention"],
+        "parallel_launches": parallel_launches["fused_attention"],
         "max_abs_err": max(train_err["fused_attention"],
                            long_keys["max_abs_err"]["fused_attention"],
                            *(r["max_abs_err"] for r in no_prefix["dense"])),
@@ -4634,6 +4994,7 @@ def main(argv=None) -> int:
         "two_stage_launches": two_stage["launches"]["flash_bwd"],
         "ensemble_launches": ensembles["launches"]["flash_bwd"],
         **standalone["kernels"]["flash_bwd"],
+        "parallel_launches": parallel_launches["flash_bwd"],
         "max_abs_err": max(train_err["flash_bwd"], long_keys["max_abs_err"]["flash_bwd"],
                            *(r["max_abs_err"] for r in encoder_bwd + stage1_kernels["backward"]
                              + no_prefix["backward"])),

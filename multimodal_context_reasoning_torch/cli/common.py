@@ -3,11 +3,15 @@ package's ``cli/common.py``).
 
 The flags are the JAX CLI's, with the same names and defaults (the
 reference's names where it has them, run_PMR_ModCR.py:452-681), plus
-``--device``: the commands run on the GPU unless it says ``cpu``.  Flags the
-port does not honour yet are refused before any data is read, each with the
-ROADMAP item that ports it: a data or model mesh over more than one
-device and ``--multihost`` (item 9, its scale-out half), and the
-HuggingFace tokenizer directories (item 11).  ``--device_features`` keeps
+``--device``: the commands run on the GPU unless it says ``cpu``.
+``--multihost`` joins the process group that ``torchrun`` describes in the
+environment (NCCL on the card, gloo on the CPU), and ``--mesh_data`` /
+``--mesh_model`` shape the ("data", "model") mesh over it
+(:func:`mesh_from_args`, parallel/); a mesh over more than one process
+without a process group is a ``SystemExit``, never one process.
+``--bert_tokenizer_dir`` / ``--roberta_tokenizer_dir`` load HuggingFace
+tokenizers from local directories (``transformers`` is imported only
+then).  ``--device_features`` keeps
 the image-feature set on the card (data/device_table.py), ``--profile_dir``
 writes a ``torch.profiler`` trace of a few train steps and
 ``--tensorboard_dir`` the training scalars (train/trainer.py).
@@ -20,10 +24,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import pickle
 from typing import Dict, Tuple
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from multimodal_context_reasoning_torch.core.config import ModCRConfig, TrainConfig
 from multimodal_context_reasoning_torch.data.collate import BatchSpec
@@ -31,7 +38,9 @@ from multimodal_context_reasoning_torch.data.schemas import ImageFeatures
 from multimodal_context_reasoning_torch.data.tokenization import (
     HashTokenizer,
     RobertaHashTokenizer,
+    hf_tokenizer_from_dir,
 )
+from multimodal_context_reasoning_torch.parallel.mesh import make_mesh, mesh_shape_for
 
 
 def build_arg_parser(task: str) -> argparse.ArgumentParser:
@@ -66,9 +75,11 @@ def build_arg_parser(task: str) -> argparse.ArgumentParser:
                    help="pickle: {img-id: {'features': [N,2054], ...}}, "
                         "or an .mcrpack (data/feature_store.py)")
     p.add_argument("--bert_tokenizer_dir", type=str, default="",
-                   help="refused: needs transformers (ROADMAP Queue 1 item 11)")
+                   help="HuggingFace tokenizer directory for the BERT towers "
+                        "(needs transformers)")
     p.add_argument("--roberta_tokenizer_dir", type=str, default="",
-                   help="refused: needs transformers (ROADMAP Queue 1 item 11)")
+                   help="HuggingFace tokenizer directory for RoBERTa "
+                        "(needs transformers)")
     # in-tree subword loaders (data/subword.py): the reference's file formats
     p.add_argument("--bert_vocab_file", type=str, default="",
                    help="WordPiece vocab.txt → in-tree WordPieceTokenizer")
@@ -102,12 +113,10 @@ def build_arg_parser(task: str) -> argparse.ArgumentParser:
                         "(run_PMR_ModCR.py:585,719,738; <0 = config "
                         "default 0.3)")
     p.add_argument("--mesh_data", type=int, default=0,
-                   help="data-parallel axis size (0 = all devices); the port "
-                        "runs on one device and refuses more (ROADMAP Queue 1 "
-                        "item 9)")
+                   help="data-parallel axis size (0 = every process of the "
+                        "group over --mesh_model)")
     p.add_argument("--mesh_model", type=int, default=1,
-                   help="model-parallel axis size; more than 1 is refused "
-                        "(ROADMAP Queue 1 item 9)")
+                   help="model-parallel (tensor-parallel) axis size")
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    choices=("float32", "bfloat16"))
     p.add_argument("--limit", type=int, default=0,
@@ -147,35 +156,60 @@ def build_arg_parser(task: str) -> argparse.ArgumentParser:
                         "batches ship int32 row ids instead of [I, F] floats "
                         "(data/device_table.py)")
     p.add_argument("--multihost", action="store_true",
-                   help="refused (ROADMAP Queue 1 item 9)")
+                   help="join the torch.distributed process group torchrun "
+                        "describes (env://): NCCL with a CUDA --device, gloo "
+                        "on the CPU; each process takes cuda:LOCAL_RANK")
     p.add_argument("--device", type=str, default="cuda",
                    help="where the model runs: a CUDA device (the default; "
                         "raises without a card) or 'cpu'")
     return p
 
 
-def refuse(refused) -> None:
-    """SystemExit for the first ``(flag, given, ROADMAP item)`` given."""
-    for flag, given, item in refused:
-        if given:
-            raise SystemExit(f"{flag}: the port does not honour it yet "
-                             f"(ROADMAP Queue 1 item {item})")
+def maybe_init_distributed(args) -> None:
+    """``--multihost``: join the process group ``torchrun`` sets up in the
+    environment (``env://``), NCCL for a CUDA ``--device`` and gloo for the
+    CPU; on the card each process takes ``cuda:LOCAL_RANK``."""
+    if not getattr(args, "multihost", False) or dist.is_initialized():
+        return
+    cuda = torch.device(args.device).type == "cuda"
+    if cuda:
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group("nccl" if cuda else "gloo", init_method="env://")
 
 
-def refuse_unported(args) -> None:
-    """SystemExit for each flag the port does not honour yet, naming the
-    ROADMAP item that ports it."""
-    refuse([
-        ("--mesh_data > 1", args.mesh_data > 1, 9),
-        ("--mesh_model > 1", args.mesh_model > 1, 9),
-        ("--multihost", args.multihost, 9),
-        ("--bert_tokenizer_dir", bool(args.bert_tokenizer_dir), 11),
-        ("--roberta_tokenizer_dir", bool(args.roberta_tokenizer_dir), 11),
-    ])
+def mesh_from_args(args):
+    """The ("data", "model") mesh of ``--mesh_data`` / ``--mesh_model`` over
+    the process group, or None for one process without one.  A mesh of more
+    than one process without a process group, or one that does not cover
+    the group, is a ``SystemExit``; so is a batch size that the data axis
+    does not divide (every batch axis splits over it)."""
+    n_model = max(args.mesh_model, 1)
+    if not dist.is_initialized():
+        n_data = args.mesh_data or 1
+        if n_data * n_model > 1:
+            raise SystemExit(
+                f"--mesh_data {n_data} --mesh_model {n_model}: a mesh over more than one "
+                "process needs a torch.distributed process group; launch with torchrun "
+                "and pass --multihost")
+        return None
+    try:
+        shape = ((args.mesh_data, n_model) if args.mesh_data
+                 else mesh_shape_for(dist.get_world_size(), n_model))
+        mesh = make_mesh(shape)
+    except ValueError as e:
+        raise SystemExit(str(e)) from e
+    n_data = shape[0]
+    for flag, val in (("per_gpu_train_batch_size", args.per_gpu_train_batch_size),
+                      ("per_gpu_eval_batch_size", args.per_gpu_eval_batch_size)):
+        if val % n_data:
+            raise SystemExit(
+                f"--{flag}={val} must be divisible by the data-mesh "
+                f"size {n_data} (pass --mesh_data to shrink the mesh)"
+            )
+    return mesh
 
 
 def configs_from_args(args) -> Tuple[ModCRConfig, TrainConfig]:
-    refuse_unported(args)
     if args.tiny:
         cfg = ModCRConfig.tiny()
     else:
@@ -253,15 +287,17 @@ def _is_json_vocab(path: str) -> bool:
 
 def load_tokenizers(args, cfg: ModCRConfig):
     """Tokenizer per tower: the in-tree subword loaders from vocab files
-    (data/subword.py, the reference's exact file formats), else the
-    hermetic hash tokenizers (the serve command has no vocab-file flags, as
-    in the JAX package).  A byte-BPE ``vocab.json`` given without
+    (data/subword.py, the reference's exact file formats), else a
+    HuggingFace tokenizer directory, else the hermetic hash tokenizers (the
+    serve command has no vocab-file flags, as in the JAX package).  A byte-BPE ``vocab.json`` given without
     ``--roberta_merges_file`` raises: read as a roberta-style WordPiece
     vocab, it would become a vocab of a few dozen ids without an error."""
     if getattr(args, "bert_vocab_file", ""):
         from multimodal_context_reasoning_torch.data.subword import WordPieceTokenizer
 
         bert = WordPieceTokenizer.from_vocab_file(args.bert_vocab_file)
+    elif args.bert_tokenizer_dir:
+        bert = hf_tokenizer_from_dir(args.bert_tokenizer_dir, "--bert_tokenizer_dir")
     else:
         bert = HashTokenizer(vocab_size=cfg.global_encoder.vocab_size)
     if getattr(args, "roberta_vocab_file", ""):
@@ -281,6 +317,8 @@ def load_tokenizers(args, cfg: ModCRConfig):
             # merges-less = a corpus-trained roberta-style WordPiece vocab
             rob = WordPieceTokenizer.from_roberta_style_vocab_file(
                 args.roberta_vocab_file)
+    elif args.roberta_tokenizer_dir:
+        rob = hf_tokenizer_from_dir(args.roberta_tokenizer_dir, "--roberta_tokenizer_dir")
     else:
         rob = RobertaHashTokenizer(vocab_size=cfg.roberta.vocab_size)
     for tok, limit, tower in (

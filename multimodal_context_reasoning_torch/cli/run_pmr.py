@@ -21,10 +21,23 @@ forwards through the W8A8 route; it holds for a config restored from
 ``config.json`` too, which the JAX CLI's restore drops.  ``--device_features``
 keeps the image-feature set on the device (data/device_table.py) for every
 split; ``--profile_dir`` and ``--tensorboard_dir`` go to the trainer.
+
+Over several GPUs, one process each::
+
+    torchrun --nproc_per_node 8 -m multimodal_context_reasoning_torch.cli.run_pmr \\
+        --multihost --mesh_model 2 --do_train ...
+
+``--multihost`` joins the process group; ``--mesh_data`` / ``--mesh_model``
+shape the ("data", "model") mesh (cli/common.py::mesh_from_args).  The batch
+sizes are global: each data index trains on its share of
+``--per_gpu_train_batch_size`` (the JAX loader's strided shard of the epoch
+order) and evaluates its block of each evaluation batch; rank 0 writes the
+config, the checkpoints and the prediction file.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -36,6 +49,8 @@ from multimodal_context_reasoning_torch.cli.common import (
     configs_from_args,
     load_image_features,
     load_tokenizers,
+    maybe_init_distributed,
+    mesh_from_args,
     write_test_predictions,
 )
 from multimodal_context_reasoning_torch.core.config import ModCRConfig
@@ -45,6 +60,8 @@ from multimodal_context_reasoning_torch.data.loader import DataLoader
 from multimodal_context_reasoning_torch.data.pmr import PMRDataset, load_pmr_jsonl
 from multimodal_context_reasoning_torch.interop.assemble import assemble_from_files
 from multimodal_context_reasoning_torch.models.modcr import ModCRModel
+from multimodal_context_reasoning_torch.parallel.mesh import axis_index, axis_size
+from multimodal_context_reasoning_torch.parallel.partition import local_rows, shard_module_
 from multimodal_context_reasoning_torch.train.checkpoint import (
     CheckpointManager,
     save_config,
@@ -60,6 +77,12 @@ def main(argv=None, *, task="pmr", dataset_cls=PMRDataset, load_fn=load_pmr_json
     ``--do_test`` (returns the test accuracy)."""
     args = build_arg_parser(task).parse_args(argv)
     cfg, tcfg = configs_from_args(args)
+    maybe_init_distributed(args)
+    mesh = mesh_from_args(args)
+    lead = mesh is None or torch.distributed.get_rank() == 0
+    n_data, data_index = axis_size(mesh, "data"), axis_index(mesh, "data")
+    if mesh is not None:
+        tcfg = dataclasses.replace(tcfg, mesh_shape=tuple(mesh.shape))
     # restore_training_settings analogue (run_PMR_ModCR.py:370-400): when
     # evaluating a saved run, its config.json overrides the geometry flags
     # so shapes match the checkpoint.
@@ -77,7 +100,7 @@ def main(argv=None, *, task="pmr", dataset_cls=PMRDataset, load_fn=load_pmr_json
     set_seed(args.seed)
     if restored:
         logger.info("restored model config from %s", cfg_path)
-    logger.info("device=%s", device)
+    logger.info("device=%s mesh=%s", device, None if mesh is None else tuple(mesh.shape))
 
     feats = load_image_features(args.img_feat_file, cfg.global_encoder.img_feature_dim)
     bert, rob = load_tokenizers(args, cfg)
@@ -95,6 +118,9 @@ def main(argv=None, *, task="pmr", dataset_cls=PMRDataset, load_fn=load_pmr_json
         if device_table is not None:
             ds.use_device_table(device_table)
         return ds
+
+    if device_table is not None and mesh is not None:
+        device_table.place(mesh)
 
     model = ModCRModel(cfg, device=device,
                        generator=torch.Generator(device=device).manual_seed(args.seed))
@@ -123,9 +149,14 @@ def main(argv=None, *, task="pmr", dataset_cls=PMRDataset, load_fn=load_pmr_json
     if args.do_train:
         train_ds = make_dataset(args.train_file)
         val_ds = make_dataset(args.val_file) if args.val_file else None
-        train_dl = DataLoader(train_ds, args.per_gpu_train_batch_size, shuffle=True,
-                              seed=args.seed, drop_last=True)
-        val_dl = DataLoader(val_ds, args.per_gpu_eval_batch_size) if val_ds else None
+        # each data index loads its strided shard, its share of the batch
+        shard = None if mesh is None else (data_index, n_data)
+        train_dl = DataLoader(train_ds, args.per_gpu_train_batch_size // n_data,
+                              shuffle=True, seed=args.seed, drop_last=True, shard=shard)
+        val_dl = (DataLoader(val_ds, args.per_gpu_eval_batch_size // n_data, shard=shard)
+                  if val_ds else None)
+        # before the trainer shards the model over the mesh
+        maybe_import_reference_weights()
         trainer = Trainer(
             model, tcfg, train_dl, val_dl,
             checkpoint_dir=os.path.join(args.output_dir, "ckpt"),
@@ -135,11 +166,11 @@ def main(argv=None, *, task="pmr", dataset_cls=PMRDataset, load_fn=load_pmr_json
             profile_dir=args.profile_dir or None,
             profile_start=2 if args.tiny else 10,
             tensorboard_dir=args.tensorboard_dir or None,
+            mesh=mesh,
         )
-        save_config(args.output_dir, "config.json", cfg)
-        state = trainer.init_state()
-        maybe_import_reference_weights()
-        state = trainer.fit(state)
+        if lead:
+            save_config(args.output_dir, "config.json", cfg)
+        state = trainer.fit(trainer.init_state())
         logger.info("training done: best val acc %.4f", trainer.best_acc)
         return state
 
@@ -151,11 +182,16 @@ def main(argv=None, *, task="pmr", dataset_cls=PMRDataset, load_fn=load_pmr_json
         # deploys the best-accuracy save)
         model.load_state_dict(CheckpointManager(
             os.path.join(args.eval_model_dir, "ckpt")).restore_params(best=True))
+    if mesh is not None:
+        # every rank reads the whole test set; each forwards its block of
+        # a batch and eval_step gathers the logits
+        shard_module_(model, mesh)
     all_logits = []
     correct = count = 0.0
     for batch in test_dl:
-        out = eval_step(model, {k: v if isinstance(v, torch.Tensor)
-                                else torch.from_numpy(v).to(device) for k, v in batch.items()})
+        out = eval_step(model, local_rows({k: v if isinstance(v, torch.Tensor)
+                                           else torch.from_numpy(v).to(device)
+                                           for k, v in batch.items()}, mesh))
         keep = batch["example_mask"] > 0
         all_logits.append(out["logits"].float().cpu().numpy()[keep])
         correct += float(out["correct"])
@@ -164,8 +200,9 @@ def main(argv=None, *, task="pmr", dataset_cls=PMRDataset, load_fn=load_pmr_json
     acc = correct / max(count, 1.0)
     logger.info("test accuracy: %.4f over %d examples", acc, int(count))
     out_path = os.path.join(args.output_dir, f"result_test_ModICR_{task}.json")
-    write_test_predictions(out_path, test_ds.examples, logits)
-    logger.info("wrote %s", out_path)
+    if lead:
+        write_test_predictions(out_path, test_ds.examples, logits)
+        logger.info("wrote %s", out_path)
     return acc
 
 

@@ -26,9 +26,10 @@ construction, taking the config, the micro-batch and the device from its
 ``--quantize`` and ``--micro_batch`` do not apply; a ``--device`` of another
 kind is refused).  ``--generate --save_gen_artifact G`` exports the warmed
 greedy generator; ``--gen_artifact G`` serves ``POST /generate`` from it,
-with hash tokenizers of the artifact's recorded vocabularies.
-Flags the port does not honour yet are refused before any data is read,
-each with the ROADMAP item that ports it.
+with hash tokenizers of the artifact's recorded vocabularies unless
+``--bert_tokenizer_dir`` / ``--gpt_tokenizer_dir`` name HuggingFace
+tokenizer directories (``transformers`` is imported only then; the GPT
+tokenizer gets no ``<|det#|>`` tokens and must hold the rationale markers).
 """
 
 from __future__ import annotations
@@ -50,9 +51,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="a run_pmr --do_train output directory: config.json and "
                         "the best checkpoint under ckpt/ (random init if unset)")
     p.add_argument("--bert_tokenizer_dir", default="",
-                   help="refused: needs transformers (ROADMAP Queue 1 item 11)")
+                   help="HuggingFace tokenizer directory (needs transformers)")
     p.add_argument("--roberta_tokenizer_dir", default="",
-                   help="refused: needs transformers (ROADMAP Queue 1 item 11)")
+                   help="HuggingFace tokenizer directory (needs transformers)")
     p.add_argument("--micro_batch", type=int, default=8)
     p.add_argument("--params_dtype", default=None,
                    choices=("float32", "float16", "bfloat16"),
@@ -76,7 +77,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="reference ChunkAlign_CLS_dec5_4 torch checkpoint for "
                         "/generate (interop/assemble.py); random init if unset")
     p.add_argument("--gpt_tokenizer_dir", default="",
-                   help="refused: needs transformers (ROADMAP Queue 1 item 11)")
+                   help="HF GPT-2 tokenizer dir for rationale decoding "
+                        "(hash fallback if unset; needs transformers)")
     p.add_argument("--max_rationale_len", type=int, default=32)
     p.add_argument("--gen_micro_batch", type=int, default=4,
                    help="questions per /generate forward")
@@ -111,7 +113,6 @@ def main(argv=None):
     from multimodal_context_reasoning_torch.cli.common import (
         load_image_features,
         load_tokenizers,
-        refuse,
     )
     from multimodal_context_reasoning_torch.core.config import ModCRConfig
     from multimodal_context_reasoning_torch.core.device import resolve_device
@@ -120,11 +121,6 @@ def main(argv=None):
     from multimodal_context_reasoning_torch.serving.server import serve
     from multimodal_context_reasoning_torch.train.checkpoint import CheckpointManager
 
-    refuse([
-        ("--bert_tokenizer_dir", bool(args.bert_tokenizer_dir), 11),
-        ("--roberta_tokenizer_dir", bool(args.roberta_tokenizer_dir), 11),
-        ("--gpt_tokenizer_dir", bool(args.gpt_tokenizer_dir), 11),
-    ])
     device = resolve_device(args.device)
     if args.artifact:
         # the AOT path: config, micro-batch and device from the artifact;
@@ -214,19 +210,41 @@ def read_artifact_meta(directory: str, device) -> dict:
 
 def load_gen_artifact(args, feats, device):
     """/generate from the AOT generator artifact of ``--gen_artifact``, or
-    None without one.  The tokenizers are hash tokenizers of the artifact's
-    recorded vocabularies (the two families' vocabularies differ, and an id
-    past a vocabulary fails on the card); the loader checks that the GPT
-    tokenizer maps the rationale markers to the artifact's ids."""
+    None without one.  The tokenizers are the directories' (as the JAX
+    command takes them) or hash tokenizers of the artifact's recorded
+    vocabularies (the two families' vocabularies differ, and an id past a
+    vocabulary fails on the card); the loader checks that the GPT tokenizer
+    maps the rationale markers to the artifact's ids."""
     if not args.gen_artifact:
         return None
-    from multimodal_context_reasoning_torch.data.tokenization import HashTokenizer
+    from multimodal_context_reasoning_torch.data.tokenization import (
+        HashTokenizer,
+        hf_tokenizer_from_dir,
+    )
     from multimodal_context_reasoning_torch.serving.aot import AOTGenerator
 
     meta = read_artifact_meta(args.gen_artifact, device)
-    return AOTGenerator(args.gen_artifact,
-                        HashTokenizer(vocab_size=int(meta["bert_vocab_size"])),
-                        HashTokenizer(vocab_size=int(meta["gpt_vocab_size"])), feats)
+    bert = (hf_tokenizer_from_dir(args.bert_tokenizer_dir, "--bert_tokenizer_dir")
+            if args.bert_tokenizer_dir
+            else HashTokenizer(vocab_size=int(meta["bert_vocab_size"])))
+    return AOTGenerator(args.gen_artifact, bert, gpt_tokenizer(
+        args, int(meta["gpt_vocab_size"])), feats)
+
+
+def gpt_tokenizer(args, vocab_size: int):
+    """``--gpt_tokenizer_dir``'s HuggingFace tokenizer (no ``<|det#|>``
+    tokens: they are BERT-stream vocabulary; the rationale markers must
+    already be in it, which the generator checks), else a hash tokenizer of
+    ``vocab_size``."""
+    from multimodal_context_reasoning_torch.data.tokenization import (
+        HashTokenizer,
+        hf_tokenizer_from_dir,
+    )
+
+    if args.gpt_tokenizer_dir:
+        return hf_tokenizer_from_dir(args.gpt_tokenizer_dir, "--gpt_tokenizer_dir",
+                                     add_det_tokens=False)
+    return HashTokenizer(vocab_size=vocab_size)
 
 
 def build_generator(args, cfg, bert, feats, device):
@@ -241,7 +259,6 @@ def build_generator(args, cfg, bert, feats, device):
         GPT2Config,
     )
     from multimodal_context_reasoning_torch.data.collate import BatchSpec
-    from multimodal_context_reasoning_torch.data.tokenization import HashTokenizer
     from multimodal_context_reasoning_torch.interop.assemble import load_rationale_checkpoint
     from multimodal_context_reasoning_torch.models.rationale import RationaleModel
     from multimodal_context_reasoning_torch.serving.generator import RationaleGenerator
@@ -278,7 +295,7 @@ def build_generator(args, cfg, bert, feats, device):
         model = RationaleModel(enc, sched, gpt, max_chunks=max_chunks, device=device,
                                generator=seeded)
     return RationaleGenerator(
-        enc, sched, gpt, model, bert, HashTokenizer(vocab_size=gpt.vocab_size), feats,
+        enc, sched, gpt, model, bert, gpt_tokenizer(args, gpt.vocab_size), feats,
         spec=spec, max_chunks=max_chunks, micro_batch=args.gen_micro_batch,
         max_rationale_len=args.max_rationale_len, device=device)
 

@@ -14,13 +14,16 @@ have no effect here:
   probabilities nor dropout, the stage-mask attention with a mask spec and
   the dense-bias attention without one, each with the backward kernel
   (models/layers.py);
-- ``TrainConfig.mesh_shape``: the port trains on one device so far;
 - ``GPT2Config.dtype``: the GPT-2 decoder computes in fp32 whatever it says,
   as the JAX package's does (its Dense, LayerNorm and Embed take no dtype).
 
 ``quantize="int8"`` (``ModCRConfig.with_quantize``) sends the projections and
 FFN products of a tower through the W8A8 int8 route of ``models/layers.py``
 (ops/quant.py); it is inference-only.
+
+``TrainConfig.mesh_shape`` is the (data, model) mesh that ``Trainer``
+builds over the process group when it is given none (parallel/mesh.py); the
+CLIs set it from ``--mesh_data`` / ``--mesh_model``.
 
 ``RobertaConfig.remat``, ``remat_policy`` and ``scan_layers`` choose the
 reasoner's branch as in the JAX package (models/roberta.py).
@@ -341,7 +344,7 @@ class TrainConfig:
     valid_steps: int = 400            # :672
     epoch_begin: int = 2              # :671
     compute_dtype: str = "bfloat16"   # matmul/activation dtype; params stay fp32
-    mesh_shape: Tuple[int, ...] = (1, 1)  # (data, model): no effect in the port yet
+    mesh_shape: Tuple[int, ...] = (1, 1)  # (data, model); Trainer's default mesh
     freeze_encoders: bool = True      # global + seq encoders run under no_grad
 
     def to_json(self) -> str:

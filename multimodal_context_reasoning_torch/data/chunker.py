@@ -1,5 +1,5 @@
 """Phrase-chunk assignment for the ChunkAlign mask schedule (a copy of the
-JAX package's ``data/chunker.py`` without its reference-mask function).
+JAX package's ``data/chunker.py``).
 
 The reference precomputes phrase chunks *offline* with a BERT + AdapterHub
 CoNLL-2000 chunking adapter (utils/GetChunk_v4_vcr.py:20-22) and pickles a
@@ -90,6 +90,39 @@ def chunks_from_bio(tags: Sequence[str]) -> List[List[int]]:
     if cur:
         chunks.append(cur)
     return chunks
+
+
+def reference_mask_and_offsets(tags: Sequence[str]):
+    """BIO tags over the INTERIOR positions (everything between CLS and the
+    final SEP) → the reference's pickled ``{mask, offsets}`` pair
+    (utils/GetChunk_v4_vcr.py:104-159):
+
+    - ``mask``: [L, L] float32, ``L = len(tags) + 2``; identity base, chunk
+      cliques, all-visible ROWS (never columns) for CLS (0) and the final
+      SEP (L-1);
+    - ``offsets``: every interior position exactly once, grouped by chunk
+      (singletons as ``[i]``), ordered by first member — rebuilt from the
+      mask rows exactly as the reference script's ``sort_chunk_offset`` loop
+      (:142-148), including its coverage assert.
+    """
+    L = len(tags) + 2
+    mask = np.eye(L, dtype=np.float32)
+    mask[0, :] = 1.0
+    for members in chunks_from_bio(tags):
+        for a in members:
+            for b in members:
+                mask[a + 1, b + 1] = 1.0
+    mask[L - 1, :] = 1.0
+
+    offsets: List[List[int]] = []
+    seen: set = set()
+    for i in range(1, L - 1):
+        members = np.nonzero(mask[i])[0].tolist()
+        if members[0] not in seen:
+            offsets.append(members)
+            seen.update(members)
+    assert len(seen) == L - 2, "every interior token must appear exactly once"
+    return mask, offsets
 
 
 class HeuristicChunker:

@@ -13,8 +13,9 @@ Wiring: :meth:`PMRDataset.use_device_table` switches a dataset's batches to
 ``img_row`` plus the resident ``feat_table`` / ``feat_mask_table`` tensors
 (the same tensors in every batch; the trainer's copy to the device leaves
 tensors already there as they are).  The table lives on one explicit
-device; placing it on a mesh waits for the port's scale-out slice (ROADMAP
-Queue 1 item 9b), so :class:`DeviceFeatureTable` has no ``place``.
+device.  On a mesh every rank holds its own whole copy, and
+:meth:`DeviceFeatureTable.place` checks that the copies agree
+(parallel/multihost.py).
 """
 
 from __future__ import annotations
@@ -95,6 +96,18 @@ class DeviceFeatureTable:
             return self.row[key]
         # the reference keys features as "img-<num>" (VCRChunkAlign.py:586)
         return self.row[f"img-{key.split('-')[-1]}"]
+
+    def place(self, mesh=None) -> "DeviceFeatureTable":
+        """Check that every rank of the process group holds the same table
+        (a CRC32 digest of each tensor's bytes and shape; ``ValueError`` on
+        every rank when they differ); returns the table.  Each rank keeps
+        its own copy, so ``mesh`` (the JAX signature's) places nothing: the
+        check spans the world."""
+        from multimodal_context_reasoning_torch.parallel.multihost import check_replicated
+
+        for name, t in zip(TABLE_KEYS, (self.table, self.mask)):
+            check_replicated(t, name)
+        return self
 
     @property
     def nbytes(self) -> int:

@@ -1,5 +1,5 @@
 """Static-shape batch iterator (a copy of the JAX package's
-``data/loader.py`` without its multi-host ``shard`` option).
+``data/loader.py``).
 
 Replaces the reference's ``torch.utils.data.DataLoader`` with
 ``num_workers=0`` and GPU-resident ``__getitem__`` (run_PMR_ModCR.py:40-48,
@@ -12,14 +12,17 @@ Data/VCRChunkAlign.py:596-597) with a host-side iterator that
   so eval can drop the duplicates), so every step sees one geometry;
 - overlaps host featurization with device compute via a one-batch
   lookahead thread (the reference forces synchronous loading because its
-  dataset owns CUDA tensors).
+  dataset owns CUDA tensors);
+- with ``shard=(index, count)`` yields one data index's rows of a mesh
+  (parallel/): the JAX loader's strided slice of the epoch's order, with
+  the same batch count on every index.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
@@ -39,27 +42,50 @@ class DataLoader:
         seed: int = 88,
         drop_last: bool = False,
         prefetch: bool = True,
+        shard: Optional[tuple] = None,   # (data index, data-axis size)
     ):
         if batch_size <= 0:
             raise ValueError("batch_size must be positive")
+        if shard is not None:
+            idx, count = shard
+            if not (0 <= idx < count):
+                raise ValueError(f"bad shard {shard}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
         self.prefetch = prefetch
+        self.shard = shard
         self.epoch = 0
 
     def _order(self) -> np.ndarray:
-        """Example order for this epoch: shuffled from ``seed + epoch``."""
+        """Example order for this epoch (shuffled from ``seed + epoch``),
+        sliced to this shard: every index shuffles with the same seed and
+        takes a strided slice, disjoint coverage with no coordination."""
         order = np.arange(len(self.dataset))
         if self.shuffle:
             rng = np.random.default_rng(self.seed + self.epoch)
             rng.shuffle(order)
+        if self.shard is not None:
+            idx, count = self.shard
+            order = order[idx::count]
         return order
 
     def __len__(self) -> int:
+        """Batch count, the same on every shard: the ranks' steps run
+        collectives, so they must agree on the number of batches.  Strided
+        shards differ by up to one example, so with ``drop_last`` every
+        shard emits the smallest shard's count of full batches, and without
+        it the largest shard's count, shorter shards padding with fully
+        masked batches (``example_mask`` 0 rows add nothing to the summed
+        metrics)."""
         n = len(self.dataset)
+        if self.shard is not None:
+            count = self.shard[1]
+            if self.drop_last:
+                return (n // count) // self.batch_size
+            n = (n + count - 1) // count
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -69,15 +95,25 @@ class DataLoader:
 
     def _index_batches(self):
         order = self._order()
-        stop = len(self) * self.batch_size if self.drop_last else len(order)
+        target = len(self)
+        stop = (len(order) // self.batch_size) * self.batch_size if self.drop_last else len(order)
+        emitted = 0
         for start in range(0, stop, self.batch_size):
+            if emitted >= target:
+                break                           # longer shard: drop extras
             yield order[start:start + self.batch_size]
+            emitted += 1
+        while emitted < target:                 # shorter shard: empty batches
+            yield order[:0]
+            emitted += 1
 
     def _make_batch(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
         real = len(idx)
         if real < self.batch_size:
             # pad the final batch by repeating indices; mark the real rows
-            pad = np.resize(idx, self.batch_size)
+            # (an empty batch of a short shard repeats example 0, all masked)
+            pad = (np.resize(idx, self.batch_size) if real
+                   else np.zeros((self.batch_size,), np.int64))
             batch = self.dataset.batch(pad)
             mask = np.zeros((self.batch_size,), np.float32)
             mask[:real] = 1.0

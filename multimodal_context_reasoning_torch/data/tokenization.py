@@ -1,9 +1,11 @@
-"""Tokenizers: a copy of the JAX package's ``data/tokenization.py`` without
-the HuggingFace adapter.
+"""Tokenizers: a copy of the JAX package's ``data/tokenization.py``.
 
 The reference uses HuggingFace ``BertTokenizerFast`` / ``RobertaTokenizer``
 with 45 ``<|det#|>`` region tokens appended as special tokens
-(run_PMR_ModCR.py:713-716, 775-777).  The hash tokenizers here are the
+(run_PMR_ModCR.py:713-716, 775-777).  :class:`HFTokenizer` adapts such a
+tokenizer, loaded by the caller from a local directory
+(:func:`hf_tokenizer_from_dir`; ``transformers`` is imported only there, so
+the package imports without it).  The hash tokenizers are the
 self-contained stand-ins for tests, dry runs and benchmarks; any object with
 the :class:`Tokenizer` protocol can replace them.
 """
@@ -41,6 +43,48 @@ class Tokenizer(Protocol):
 
     def tokenize(self, text: str) -> List[str]: ...
     def convert_tokens_to_ids(self, tokens: Sequence[str]) -> List[int]: ...
+
+
+class HFTokenizer:
+    """Adapter around a HuggingFace tokenizer instance (loaded by the caller
+    from a local path — no hub access is assumed)."""
+
+    def __init__(self, hf_tokenizer, add_det_tokens: bool = True):
+        self._tok = hf_tokenizer
+        if add_det_tokens:
+            self._tok.add_special_tokens({"additional_special_tokens": DET_TOKENS})
+        self.cls_token = getattr(hf_tokenizer, "cls_token", None) or hf_tokenizer.bos_token
+        self.sep_token = getattr(hf_tokenizer, "sep_token", None) or hf_tokenizer.eos_token
+        self.pad_id = hf_tokenizer.pad_token_id or 0
+
+    def __len__(self):
+        return len(self._tok)
+
+    def tokenize(self, text: str) -> List[str]:
+        return self._tok.tokenize(text)
+
+    def convert_tokens_to_ids(self, tokens: Sequence[str]) -> List[int]:
+        return self._tok.convert_tokens_to_ids(list(tokens))
+
+
+def import_transformers(flag: str):
+    """The ``transformers`` module; ``SystemExit`` naming it and ``flag``
+    when it is not installed (there is no fallback tokenizer for a flag that
+    names a directory)."""
+    try:
+        import transformers
+    except ImportError as e:
+        raise SystemExit(f"{flag} needs the 'transformers' package, which is not "
+                         f"installed ({e})") from e
+    return transformers
+
+
+def hf_tokenizer_from_dir(path: str, flag: str, *, add_det_tokens: bool = True) -> HFTokenizer:
+    """``AutoTokenizer.from_pretrained(path)`` (a local directory) as an
+    :class:`HFTokenizer`."""
+    transformers = import_transformers(flag)
+    return HFTokenizer(transformers.AutoTokenizer.from_pretrained(path),
+                       add_det_tokens=add_det_tokens)
 
 
 class HashTokenizer:

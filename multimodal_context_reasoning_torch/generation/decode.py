@@ -24,7 +24,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from multimodal_context_reasoning_torch.models.gpt2 import GPT2Decoder, KVCache
+from multimodal_context_reasoning_torch.models.gpt2 import GPT2Decoder
 
 
 def _decode(
@@ -42,7 +42,7 @@ def _decode(
     B, Lp = prompt_ids.shape
     dev = prompt_ids.device
     prompt_len = prompt_len.to(dev, torch.long)
-    cache = KVCache.zeros(decoder.config, B, Lp + max_len, dev)
+    cache = decoder.new_cache(B, Lp + max_len, dev)
     # readable cache slots: real prompt tokens and everything generated
     pos = torch.arange(Lp + max_len, device=dev)[None, :]
     cache_valid = ((pos < prompt_len[:, None]) | (pos >= Lp)).float()

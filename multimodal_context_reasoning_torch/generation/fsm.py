@@ -277,7 +277,7 @@ def fsm_decode_gpt2(
     cross = None
     if memory is not None and decoder.config.add_cross_attention:
         cross = decoder.cross_kv(memory)
-    cache = KVCache.zeros(decoder.config, N, L_total, dev)
+    cache = decoder.new_cache(N, L_total, dev)
     pos = torch.arange(L_total, device=dev)[None, :]
     cache_valid = ((pos < p_len[:, None]) | (pos >= Lp)).float()
     logits, cache = decoder(p_ids, memory_mask=memory_mask, cross_kv=cross, cache=cache,

@@ -54,13 +54,13 @@ class ClsLayerLyx(FeedForward):
         prior_score: Optional[torch.Tensor] = None,   # [B, 1, M] added to probs
     ) -> torch.Tensor:
         c = self.config
-        D = c.hidden_size
-        Dh = D // self.num_heads
+        Dh = c.hidden_size // self.num_heads
         B, M, _ = memory.shape
         att = self.cross_attention
-        q = att.q_proj(cls[:, None, :]).view(B, 1, self.num_heads, Dh)
-        k = att.k_proj(memory).view(B, M, self.num_heads, Dh)
-        v = att.v_proj(memory).view(B, M, self.num_heads, Dh)
+        # the local heads: all of them unless the projections are sharded
+        q = att.q_proj(cls[:, None, :]).view(B, 1, -1, Dh)
+        k = att.k_proj(memory).view(B, M, -1, Dh)
+        v = att.v_proj(memory).view(B, M, -1, Dh)
         drop = c.attention_probs_dropout_prob
         if self.tau != 1.0 or self.neg_type or prior_score is not None:
             scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / Dh ** 0.5
@@ -76,7 +76,7 @@ class ClsLayerLyx(FeedForward):
         else:
             out, _ = dot_product_attention(q, k, v, memory_bias, dropout_rate=drop,
                                            training=self.training)
-        out = self.dropout(att.out_proj(out.reshape(B, 1, D))[:, 0])
+        out = self.dropout(att.out_proj(out.reshape(B, 1, -1))[:, 0])
         h = self.LayerNorm(out + cls)
         return super().forward(h[:, None, :])[:, 0]
 

@@ -26,6 +26,13 @@ fewer rows than the call decodes: one memory for each group of consecutive
 rows (the beam and lattice decodes of generation/ keep one per question for
 its B·K or B·S·K rows, so the cross keys and values are not copied per row);
 ``memory_mask`` then has the memory's rows too.
+
+Under tensor parallelism (parallel/partition.py) each ``Conv1D`` holds a
+block of output features (``c_attn`` one of each of q, k and v, ``q_attn``,
+``mlp.c_fc``) or of input features (the ``c_proj`` products, summed over the
+group before the whole bias is added), and the attention modules take their
+local head count from the width they get: :meth:`GPT2Decoder.new_cache`
+sizes the cache to it.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from multimodal_context_reasoning_torch.core.config import GPT2Config
 from multimodal_context_reasoning_torch.models.layers import ACT
 from multimodal_context_reasoning_torch.ops.attention import dot_product_attention
 from multimodal_context_reasoning_torch.ops.masks import NEG_INF
+from multimodal_context_reasoning_torch.parallel.comm import copy_to_group, reduce_from_group
 
 CrossKV = List[Tuple[torch.Tensor, torch.Tensor]]   # per block: [B, M, H, Dh] each
 
@@ -52,14 +60,17 @@ class KVCache(NamedTuple):
 
     @classmethod
     def zeros(cls, cfg: GPT2Config, batch: int, max_len: int,
-              device: Union[str, torch.device]) -> "KVCache":
-        shape = (cfg.n_layer, batch, max_len, cfg.n_head, cfg.head_dim)
+              device: Union[str, torch.device], heads: Optional[int] = None) -> "KVCache":
+        shape = (cfg.n_layer, batch, max_len, heads or cfg.n_head, cfg.head_dim)
         return cls(torch.zeros(shape, device=device), torch.zeros(shape, device=device))
 
 
 class Conv1D(nn.Module):
     """The vendored GPT-2's Conv1D: ``x @ weight + bias`` with ``weight``
-    stored [in, out]."""
+    stored [in, out] (``tp_mode`` / ``tp_group``: the module docstring)."""
+
+    tp_mode: Optional[str] = None
+    tp_group = None
 
     def __init__(self, n_in: int, n_out: int):
         super().__init__()
@@ -67,12 +78,16 @@ class Conv1D(nn.Module):
         self.bias = nn.Parameter(torch.zeros(n_out))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp_mode == "col":
+            x = copy_to_group(x, self.tp_group)
+        elif self.tp_mode == "row":
+            return reduce_from_group(torch.matmul(x, self.weight), self.tp_group) + self.bias
         return torch.matmul(x, self.weight) + self.bias
 
 
-def _heads(x: torch.Tensor, H: int) -> torch.Tensor:
-    B, L, D = x.shape
-    return x.reshape(B, L, H, D // H)
+def _heads(x: torch.Tensor, head_dim: int) -> torch.Tensor:
+    B, L, _ = x.shape
+    return x.reshape(B, L, -1, head_dim)
 
 
 class GPT2Attention(nn.Module):
@@ -87,8 +102,9 @@ class GPT2Attention(nn.Module):
 
     def forward(self, h, bias, cache_kv, cache_index):
         c = self.config
-        B, L, D = h.shape
-        q, k, v = (_heads(t, c.n_head) for t in self.c_attn(h).split(D, dim=-1))
+        B, L, _ = h.shape
+        qkv = self.c_attn(h)
+        q, k, v = (_heads(t, c.head_dim) for t in qkv.split(qkv.shape[-1] // 3, dim=-1))
         if cache_kv is not None:
             ck, cv = cache_kv
             ck[:, cache_index:cache_index + L] = k
@@ -96,7 +112,7 @@ class GPT2Attention(nn.Module):
             k, v = ck, cv
         out, _ = dot_product_attention(q, k, v, bias, dropout_rate=c.attn_pdrop,
                                        training=self.training)
-        return self.resid_dropout(self.c_proj(out.reshape(B, L, D)))
+        return self.resid_dropout(self.c_proj(out.reshape(B, L, -1)))
 
 
 class GPT2CrossAttention(nn.Module):
@@ -112,19 +128,20 @@ class GPT2CrossAttention(nn.Module):
         self.resid_dropout = nn.Dropout(c.resid_pdrop)
 
     def kv(self, memory: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        k, v = self.c_attn(memory).split(self.config.n_embd, dim=-1)
-        return _heads(k, self.config.n_head), _heads(v, self.config.n_head)
+        kv = self.c_attn(memory)
+        k, v = kv.split(kv.shape[-1] // 2, dim=-1)
+        return _heads(k, self.config.head_dim), _heads(v, self.config.head_dim)
 
     def forward(self, h, kv, memory_bias):
-        B, L, D = h.shape
-        q = _heads(self.q_attn(h), self.config.n_head)
+        B, L, _ = h.shape
+        q = _heads(self.q_attn(h), self.config.head_dim)
         G = kv[0].shape[0]
         if G != B:
             # one memory per group of B // G consecutive rows: the group's
             # queries attend as one block, each query row on its own
             q = q.reshape(G, (B // G) * L, *q.shape[2:])
         out, _ = dot_product_attention(q, *kv, memory_bias)
-        return self.resid_dropout(self.c_proj(out.reshape(B, L, D)))
+        return self.resid_dropout(self.c_proj(out.reshape(B, L, -1)))
 
 
 class GPT2MLP(nn.Module):
@@ -202,6 +219,12 @@ class GPT2Decoder(nn.Module):
                 nn.init.zeros_(m.bias)
         if self._head is not None:
             nn.init.normal_(self._head[0].weight, 0.0, std, generator=generator)
+
+    def new_cache(self, batch: int, max_len: int,
+                  device: Union[str, torch.device]) -> KVCache:
+        """A zero cache for this decoder's (local) heads."""
+        heads = self.h[0].attn.c_attn.weight.shape[1] // (3 * self.config.head_dim)
+        return KVCache.zeros(self.config, batch, max_len, device, heads)
 
     def cross_kv(self, memory: torch.Tensor) -> CrossKV:
         """Every block's cross-attention keys and values of ``memory``."""

@@ -20,6 +20,14 @@ Numerics follow the JAX package, not the original PyTorch repo:
   the JAX package quantizes (``_dense``, layers.py:43-50: query, key, value,
   the attention output and the FFN's two) through the W8A8 route of
   ``ops/quant.py``; the parameters and the state dict do not change;
+- under tensor parallelism (parallel/partition.py::shard_module_) a
+  :class:`Linear` holds a block of output features (``tp_mode="col"``) or
+  of input features (``"row"``: its partial products are summed over
+  ``tp_group`` before the whole bias is added), and attention takes its
+  local head count from the local projection width, so the modules stay
+  mesh-agnostic.  A layer asked for its probabilities returns them summed
+  over all heads, [B, 1, L, Lk]: their one consumer, the alignment loss,
+  sums over heads;
 - attention takes the JAX package's dispatch (layers.py:136-188) with
   "use_pallas" read as "a CUDA tensor".  A call that needs neither
   probabilities nor dropout goes to ``fused_attention_spec`` when it has a
@@ -44,6 +52,7 @@ from multimodal_context_reasoning_torch.ops.flash import mem_efficient_attention
 from multimodal_context_reasoning_torch.ops.masks import MaskSpec
 from multimodal_context_reasoning_torch.ops.quant import int8_matmul, quantize_symmetric
 from multimodal_context_reasoning_torch.ops.spec_attention import fused_attention_spec
+from multimodal_context_reasoning_torch.parallel.comm import copy_to_group, reduce_from_group
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -66,7 +75,14 @@ class Linear(nn.Linear):
     scorer with ``params_dtype="bfloat16"``), and the output in
     ``compute_dtype``.  :meth:`freeze_int8` quantizes the weight once into
     non-persistent buffers, the same bits as quantizing per call, for
-    weights that no longer change."""
+    weights that no longer change.
+
+    ``tp_mode`` / ``tp_group`` are set by ``shard_module_`` (see the module
+    docstring); an int8 row-parallel product takes its scales' amax over
+    the group and sums the int32 accumulators, the JAX arithmetic."""
+
+    tp_mode: Optional[str] = None
+    tp_group = None
 
     def __init__(self, in_features: int, out_features: int,
                  compute_dtype: torch.dtype = torch.float32, quantize: bool = False):
@@ -76,15 +92,26 @@ class Linear(nn.Linear):
         self.register_buffer("int8_codes", None, persistent=False)
         self.register_buffer("int8_scale", None, persistent=False)
 
+    @property
+    def _row_group(self):
+        return self.tp_group if self.tp_mode == "row" else None
+
     @torch.no_grad()
     def freeze_int8(self) -> None:
-        self.int8_codes, self.int8_scale = quantize_symmetric(self.weight, dim=1)
+        self.int8_codes, self.int8_scale = quantize_symmetric(self.weight, dim=1,
+                                                              group=self._row_group)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        if self.tp_mode == "col":
+            x = copy_to_group(x, self.tp_group)
         if self.quantize:
             frozen = None if self.int8_codes is None else (self.int8_codes, self.int8_scale)
-            return int8_matmul(x, self.weight, self.bias, dt, weight_q=frozen)
+            return int8_matmul(x, self.weight, self.bias, dt, weight_q=frozen,
+                               group=self._row_group)
+        if self.tp_mode == "row":
+            y = reduce_from_group(F.linear(x.to(dt), self.weight.to(dt)), self.tp_group)
+            return y + self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
@@ -157,7 +184,10 @@ class BertEmbeddings(nn.Module):
 
 class SelfAttention(nn.Module):
     """Post-LN BERT self-attention with the prefix-KV and chunk-mean-query
-    hooks (``attention.self.*`` and ``attention.output.*``)."""
+    hooks (``attention.self.*`` and ``attention.output.*``).  ``head_group``
+    is the model group of a sharded layer (the probabilities' head sum)."""
+
+    head_group = None
 
     def __init__(self, c: EncoderConfig):
         super().__init__()
@@ -182,7 +212,7 @@ class SelfAttention(nn.Module):
         return_probs: bool = False,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         c = self.config
-        H, Dh = c.num_attention_heads, c.head_dim
+        Dh = c.head_dim
         q = self.self.query(hidden)
         kv_src = hidden
         if prefix_kv is not None:
@@ -196,9 +226,10 @@ class SelfAttention(nn.Module):
 
         B, L, _ = hidden.shape
         Lk = kv_src.shape[1]
-        q = q.view(B, L, H, Dh)
-        k = k.view(B, Lk, H, Dh)
-        v = v.view(B, Lk, H, Dh)
+        # the local heads (all of them unless the projections are sharded)
+        q = q.view(B, L, -1, Dh)
+        k = k.view(B, Lk, -1, Dh)
+        v = v.view(B, Lk, -1, Dh)
 
         needs_dropout = self.training and c.attention_probs_dropout_prob > 0.0
         probs = None
@@ -217,7 +248,9 @@ class SelfAttention(nn.Module):
                 dropout_rate=c.attention_probs_dropout_prob,
                 training=self.training, return_probs=return_probs,
             )
-        out = self.dropout(self.output.dense(out.reshape(B, L, c.hidden_size)))
+        if probs is not None and self.head_group is not None:
+            probs = reduce_from_group(probs.sum(1, keepdim=True), self.head_group)
+        out = self.dropout(self.output.dense(out.reshape(B, L, -1)))
         return self.output.LayerNorm(out + hidden), probs
 
 

@@ -26,19 +26,25 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
+
+from multimodal_context_reasoning_torch.parallel.comm import all_reduce_
 
 # float64 holds every integer below 2**53 exactly
 _F64_MAX_K = (2 ** 53) // (127 * 127)
 
 
-def quantize_symmetric(x: torch.Tensor, dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_symmetric(x: torch.Tensor, dim: int, *, group=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 quantization along ``dim`` (reduced away in the scale).
 
     Returns ``(q, scale)`` with ``x ≈ q.float() * scale``, ``q`` in
-    [-127, 127] and ``scale`` fp32 with ``dim`` kept as size 1.
+    [-127, 127] and ``scale`` fp32 with ``dim`` kept as size 1.  With a
+    process ``group`` ``x`` is this rank's block of ``dim`` and the amax is
+    taken over the whole of it (a MAX all-reduce).
     """
     xf = x.float()
-    amax = xf.abs().amax(dim=dim, keepdim=True)
+    amax = all_reduce_(xf.abs().amax(dim=dim, keepdim=True), group, dist.ReduceOp.MAX)
     scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -82,16 +88,21 @@ def int8_matmul(
     *,
     weight_q: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     plain: bool = False,
+    group=None,
 ) -> torch.Tensor:
     """``x @ weight.T (+ bias)`` with both sides dynamically quantized to
     int8.  ``weight_q`` is ``quantize_symmetric(weight, 1)`` computed
     beforehand (the same bits as quantizing here); ``plain`` takes
-    :func:`int8_mm_plain` on any device."""
+    :func:`int8_mm_plain` on any device.  With a process ``group`` the
+    product is row-parallel: ``x`` and ``weight`` hold this rank's block
+    of IN, both scales cover all of IN and the int32 accumulators are
+    summed over the group (exact), so every rank gets the whole result."""
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
-    xq, xs = quantize_symmetric(x2, dim=1)                          # [R, IN], [R, 1]
-    wq, ws = weight_q if weight_q is not None else quantize_symmetric(weight, dim=1)
-    acc = (int8_mm_plain if plain else int8_mm)(xq, wq)             # [R, OUT] int32
+    xq, xs = quantize_symmetric(x2, dim=1, group=group)             # [R, IN], [R, 1]
+    wq, ws = (weight_q if weight_q is not None
+              else quantize_symmetric(weight, dim=1, group=group))
+    acc = all_reduce_((int8_mm_plain if plain else int8_mm)(xq, wq), group)  # [R, OUT] int32
     y = acc.float() * xs * ws.view(1, -1)
     if bias is not None:
         y = y + bias.float()

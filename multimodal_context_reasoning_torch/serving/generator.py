@@ -1,6 +1,5 @@
 """Online rationale generation: classify the candidates, then decode an
-explanation (port of the JAX package's ``serving/generator.py`` without its
-mesh option).
+explanation (port of the JAX package's ``serving/generator.py``).
 
 It serves the rationale family (``ChunkAlign_CLS_dec5_4``) as
 :class:`ModCRScorer` serves the production classifier.  Each micro-batch of
@@ -19,6 +18,11 @@ results are read once at the end.  The generator runs on the GPU unless the
 caller passes ``device="cpu"``; asking for CUDA where there is none raises.
 Its encoders and heads hold their weights in the encoder config's compute
 dtype (cast once, as the scorer does), the decoder in fp32.
+
+``mesh`` runs it in SPMD style, as ``ModCRScorer(mesh=)``: every rank
+classifies and decodes its data index's questions of each micro-batch
+through its shard of the model and returns the whole result.  Sampling
+draws each rank's questions from the generator it is given.
 """
 
 from __future__ import annotations
@@ -42,7 +46,14 @@ from multimodal_context_reasoning_torch.data.schemas import RawExample
 from multimodal_context_reasoning_torch.data.vcr import VCRDataset
 from multimodal_context_reasoning_torch.generation.api import generate
 from multimodal_context_reasoning_torch.models.rationale import RationaleModel
-from multimodal_context_reasoning_torch.serving.scorer import pad_by_repetition, run_chunked
+from multimodal_context_reasoning_torch.parallel.comm import gather_rows
+from multimodal_context_reasoning_torch.parallel.mesh import axis_group, axis_index
+from multimodal_context_reasoning_torch.parallel.partition import local_rows
+from multimodal_context_reasoning_torch.serving.scorer import (
+    pad_by_repetition,
+    run_chunked,
+    shard_for_serving,
+)
 
 # the collated arrays the classify forward reads
 MODEL_KEYS = ("input_ids", "token_type_ids", "text_mask", "gather_index", "img_feat",
@@ -123,6 +134,7 @@ class RationaleGenerator:
         mode: str = "greedy",            # greedy | sample
         warm: bool = True,
         device: Union[str, torch.device] = "cuda",
+        mesh=None,
     ):
         b_id, e_id = gpt_tokenizer.convert_tokens_to_ids([B_RTNL, E_RTNL])
         self.b_rtnl, self.e_rtnl = int(b_id), int(e_id)
@@ -155,7 +167,13 @@ class RationaleGenerator:
                                    num_labels=num_labels, cls_layer_num=cls_layer_num,
                                    max_chunks=max_chunks, device=self.device)
             model.load_state_dict(weights, strict=True)
-        self.model = model.cast_classifier_().eval()
+        model = model.cast_classifier_()
+        if mesh is not None:
+            # decode arrays are per question, so the questions themselves
+            # split over the data axis
+            shard_for_serving(model, mesh, micro_batch, "questions")
+        self.mesh = mesh
+        self.model = model.eval()
         self.encoder_config = encoder_config
         self.micro_batch = micro_batch
         self.max_rationale_len = max_rationale_len
@@ -225,8 +243,11 @@ class RationaleGenerator:
         generator = self._seeded(generator)
         real, feats = pad_by_repetition(feats, self.micro_batch)
         with torch.inference_mode():
-            out = self.model(self.device_batch(feats))
+            out = self.model(local_rows(self.device_batch(feats), self.mesh))
             tokens, lengths = self.decode(out, generator=generator)
+            d, data = axis_index(self.mesh, "data"), axis_group(self.mesh, "data")
+            probs = gather_rows(out.mp_probs, d, data)
+            tokens, lengths = gather_rows(tokens, d, data), gather_rows(lengths, d, data)
         return format_generate_results(
-            out.mp_probs.cpu().numpy(), tokens.cpu().numpy(), lengths.cpu().numpy(), real,
+            probs.cpu().numpy(), tokens.cpu().numpy(), lengths.cpu().numpy(), real,
             example_ids, e_rtnl=self.e_rtnl, gpt_tokenizer=self.gpt_tokenizer)

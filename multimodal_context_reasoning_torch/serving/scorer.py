@@ -1,5 +1,4 @@
-"""Online PMR scorer (port of the JAX package's ``serving/scorer.py``
-without its mesh option).
+"""Online PMR scorer (port of the JAX package's ``serving/scorer.py``).
 
 Requests are featurized on the host (numpy), padded by repetition to a
 fixed micro-batch of examples, collated to ``micro_batch × num_labels``
@@ -14,6 +13,12 @@ for CUDA where there is none raises.  A CUDA
 device is held with its index (the current device at construction), so a
 thread other than the constructing one, such as the batcher's dispatcher
 (serving/batcher.py), scores on the same card.
+
+``mesh`` (parallel/mesh.py) scores in SPMD style: every rank calls
+:meth:`ModCRScorer.score` with the same examples, forwards its data index's
+block of each micro-batch through its shard of the model (the model axis
+splits heads and FFN neurons, parallel/partition.py), and returns the
+whole result, the blocks gathered over the data axis.
 """
 
 from __future__ import annotations
@@ -32,6 +37,9 @@ from multimodal_context_reasoning_torch.data.pmr import PMRDataset
 from multimodal_context_reasoning_torch.data.schemas import ImageFeatures, RawExample
 from multimodal_context_reasoning_torch.models.layers import freeze_int8
 from multimodal_context_reasoning_torch.models.modcr import ModCRModel
+from multimodal_context_reasoning_torch.parallel.comm import gather_rows
+from multimodal_context_reasoning_torch.parallel.mesh import axis_group, axis_index, axis_size
+from multimodal_context_reasoning_torch.parallel.partition import local_rows, shard_module_
 from multimodal_context_reasoning_torch.train.step import model_inputs
 
 
@@ -108,6 +116,31 @@ def run_chunked(endpoint, examples: Sequence[RawExample], **kwargs) -> List[Dict
     return out
 
 
+def shard_for_serving(model: nn.Module, mesh, micro_batch: int, unit: str,
+                      rows_per_example: Optional[int] = None) -> nn.Module:
+    """``model`` sharded over ``mesh``'s model axis (unless it is already),
+    after checking that the data axis divides the micro-batch's candidate
+    rows (the JAX scorer's check) and its ``unit``s: each rank forwards
+    whole examples."""
+    n_data = axis_size(mesh, "data")
+    rows = micro_batch * (rows_per_example or 1)
+    if rows_per_example and rows % n_data:
+        raise ValueError(
+            f"the mesh's data axis ({n_data}) must divide "
+            f"micro_batch×{rows_per_example}={rows} rows — "
+            f"raise micro_batch or shrink the data axis"
+        )
+    if micro_batch % n_data:
+        raise ValueError(
+            f"the mesh's data axis ({n_data}) must divide "
+            f"micro_batch={micro_batch} {unit} — raise "
+            f"micro_batch or shrink the data axis"
+        )
+    if getattr(model, "tp_mesh", None) is None:
+        shard_module_(model, mesh)
+    return model
+
+
 def cast_to_compute_dtypes(model: ModCRModel) -> ModCRModel:
     """Cast each tower's weights, once, to its config's compute dtype (the
     JAX scorer's ``params_dtype``): encoders, CALeC and the mapping
@@ -139,8 +172,10 @@ class ModCRScorer:
         micro_batch: int = 8,
         device: Union[str, torch.device] = "cuda",
         use_device_table: bool = False,
+        mesh=None,
     ):
         self.config = config
+        self.mesh = mesh
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -149,9 +184,12 @@ class ModCRScorer:
         else:
             model = ModCRModel(config, device=self.device)
             model.load_state_dict(weights, strict=True)
+        model = cast_to_compute_dtypes(model)
+        if mesh is not None:
+            shard_for_serving(model, mesh, micro_batch, "examples", config.num_labels)
         # an int8 config quantizes each weight once, from the compute dtype
         # the scorer holds it in (models/layers.py::Linear)
-        self.model = freeze_int8(cast_to_compute_dtypes(model)).eval()
+        self.model = freeze_int8(model).eval()
         self.micro_batch = micro_batch
         spec = BatchSpec(
             text_len=config.text_len, img_len=config.img_len,
@@ -165,6 +203,8 @@ class ModCRScorer:
         self.features = image_features
         self.table = (DeviceFeatureTable.for_config(image_features, config, device=self.device)
                       if use_device_table else None)
+        if self.table is not None and mesh is not None:
+            self.table.place(mesh)
 
     def warm_up(self) -> None:
         """Score one example of the first image (the JAX scorer's
@@ -197,7 +237,9 @@ class ModCRScorer:
             return []
         real, feats = pad_by_repetition(feats, self.micro_batch)
         with torch.inference_mode():
-            logits = self.model(model_inputs(self.device_batch(feats))).logits
+            batch = local_rows(self.device_batch(feats), self.mesh)
+            logits = gather_rows(self.model(model_inputs(batch)).logits,
+                                 axis_index(self.mesh, "data"), axis_group(self.mesh, "data"))
         return format_score_results(logits.float().cpu().numpy()[:real], example_ids)
 
     def score(self, examples: Sequence[RawExample]) -> List[Dict]:

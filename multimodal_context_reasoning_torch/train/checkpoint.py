@@ -10,6 +10,13 @@ into place, so a crash never leaves a half-written step behind.  The
 ``best_fn`` / ``best_mode="max"`` keeps them.  A ``params_only`` manager
 refuses :meth:`restore`: its checkpoints hold no optimizer state to resume
 from.
+
+On a mesh (``TrainState.mesh``) a checkpoint holds the whole model in the
+reference layout, whatever the mesh: :meth:`CheckpointManager.save` gathers
+the parameters and the optimizer's per-parameter state over the model
+group (parallel/partition.py), rank 0 writes, and every rank waits at a
+barrier; :meth:`CheckpointManager.restore` slices what it reads for the
+state's mesh, so a run resumes on another topology.
 """
 
 from __future__ import annotations
@@ -20,8 +27,28 @@ import shutil
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
+from multimodal_context_reasoning_torch.parallel.partition import gather_named, shard_state_dict
 from multimodal_context_reasoning_torch.train.state import TrainState
+
+# the optimizer and accumulator entries keyed by parameter name
+_NAMED = ("mu", "nu", "acc")
+
+
+def _map_named(tree, fn):
+    """``tree`` (an opt_state_dict) with ``fn`` applied to each
+    parameter-named dict of tensors; other tensors to the CPU."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: fn(v) if k in _NAMED else _map_named(v, fn) for k, v in tree.items()}
+    return tree
+
+
+def _distributed(state: TrainState) -> bool:
+    return (getattr(state, "mesh", None) is not None and dist.is_available()
+            and dist.is_initialized())
 
 
 class CheckpointManager:
@@ -44,13 +71,24 @@ class CheckpointManager:
             return float(json.load(f).get("accuracy", 0.0))
 
     def save(self, state: TrainState, metrics: Optional[dict] = None) -> None:
+        """Write step ``state.step``; on a mesh every rank calls it."""
         step = int(state.step)
+        model = state.model
         payload: Dict[str, Any] = {
-            "params": {k: v.detach().cpu() for k, v in state.model.state_dict().items()},
+            "params": gather_named(model.state_dict(), model),
             "step": step,
         }
         if not self.params_only:
-            payload["opt_state"] = _to_cpu(state.opt_state_dict())
+            payload["opt_state"] = _map_named(state.opt_state_dict(),
+                                              lambda d: gather_named(d, model))
+        if _distributed(state):
+            if dist.get_rank() == 0:
+                self._write(step, payload, metrics)
+            dist.barrier()
+        else:
+            self._write(step, payload, metrics)
+
+    def _write(self, step: int, payload: Dict[str, Any], metrics: Optional[dict]) -> None:
         tmp = self._path(step) + f".tmp{os.getpid()}"
         os.makedirs(tmp, exist_ok=True)
         torch.save(payload, os.path.join(tmp, "state.pt"))
@@ -91,8 +129,10 @@ class CheckpointManager:
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.directory}")
         payload = self._load(step)
-        state.model.load_state_dict(payload["params"], strict=True)
-        state.load_opt_state_dict(payload["opt_state"])
+        model = state.model
+        state.model.load_state_dict(shard_state_dict(payload["params"], model), strict=True)
+        state.load_opt_state_dict(_map_named(payload["opt_state"],
+                                             lambda d: shard_state_dict(d, model)))
         state.step = int(payload["step"])
         return state
 
@@ -108,14 +148,6 @@ class CheckpointManager:
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.directory}")
         return self._load(step)["params"]
-
-
-def _to_cpu(tree):
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu()
-    if isinstance(tree, dict):
-        return {k: _to_cpu(v) for k, v in tree.items()}
-    return tree
 
 
 def save_config(directory: str, name: str, payload: Any) -> None:

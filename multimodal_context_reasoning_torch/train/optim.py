@@ -20,6 +20,11 @@ The reference's recipe (run_PMR_ModCR.py:127-145), with optax's arithmetic:
 
 Updates run in place under ``torch.no_grad`` with ``torch._foreach_*`` ops,
 one launch per operation over a group's tensors.
+
+Under tensor parallelism (:meth:`AdamW.shard`) the clipping norm sums the
+squares of the split parameters' gradients over the model group and counts
+each replicated gradient once (:func:`sharded_global_norm`), so it is the
+norm of the whole model's gradient, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 import torch.nn as nn
 
 from multimodal_context_reasoning_torch.core.config import TrainConfig
+from multimodal_context_reasoning_torch.parallel.comm import all_reduce_, group_size
 
 Grads = Dict[str, Optional[torch.Tensor]]
 
@@ -94,6 +100,24 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     return torch.stack([t.square().sum() for t in tensors]).sum().sqrt()
 
 
+def sharded_global_norm(grads: Grads, sharded=(), group=None) -> torch.Tensor:
+    """:func:`global_norm` of every gradient in ``grads`` where the names in
+    ``sharded`` are this rank's blocks of tensors split over ``group``: their
+    squares are summed over the group, the others counted once."""
+    given = [g for g in grads.values() if g is not None]
+    if group_size(group) == 1:
+        return global_norm(given)
+    split = [g for n, g in grads.items() if g is not None and n in sharded]
+    whole = [g for n, g in grads.items() if g is not None and n not in sharded]
+    sq = torch.zeros((), device=given[0].device)
+    if split:
+        sq = global_norm(split).square()
+    sq = all_reduce_(sq, group)
+    if whole:
+        sq = sq + global_norm(whole).square()
+    return sq.sqrt()
+
+
 class AdamW:
     """``chain(clip_by_global_norm, multi_transform(adamw per group))`` over a
     model's named parameters; see the module docstring."""
@@ -114,6 +138,16 @@ class AdamW:
         self.params = {n: params[n] for g in self.groups for n in g["names"]}
         self.mu = {n: torch.zeros_like(p) for n, p in self.params.items()}
         self.nu = {n: torch.zeros_like(p) for n, p in self.params.items()}
+        self.sharded, self.group = frozenset(), None
+
+    def shard(self, sharded, group) -> None:
+        """The parameter names split over the model ``group``, for the
+        clipping norm (parallel/partition.py)."""
+        self.sharded, self.group = frozenset(sharded), group
+
+    def global_norm(self, grads: Grads) -> torch.Tensor:
+        """The whole model's gradient norm (:func:`sharded_global_norm`)."""
+        return sharded_global_norm(grads, self.sharded, self.group)
 
     @torch.no_grad()
     def update(self, grads: Grads) -> None:
@@ -122,11 +156,10 @@ class AdamW:
         every gradient given, frozen parameters' included, as optax takes it
         over the whole tree."""
         cfg = self.cfg
-        given = [g for g in grads.values() if g is not None]
         names = [n for n in self.params if grads.get(n) is not None]
         gs = [grads[n] for n in names]
         if gs:
-            norm = global_norm(given)
+            norm = self.global_norm(grads)
             keep = norm < cfg.max_grad_norm
             # optax: select(norm < max, g, (g / norm) * max), without a host sync
             torch._foreach_div_(gs, torch.where(keep, torch.ones_like(norm), norm))

@@ -2,7 +2,8 @@
 
 The JAX state is an immutable pytree carried through a jitted step; here it
 is the model, whose fp32 parameters the optimizer updates in place, the
-optimizer, the gradient accumulator and the micro-step count.
+optimizer, the gradient accumulator, the micro-step count and the mesh the
+model was sharded over (parallel/partition.py; ``None`` on one device).
 """
 
 from __future__ import annotations
@@ -27,13 +28,22 @@ class TrainState:
     optimizer: AdamW
     accumulator: Optional[MaskedMultiSteps] = None
     step: int = 0                     # micro-steps taken
+    mesh: Optional[object] = None     # the model's tp_mesh
 
     @classmethod
     def create(cls, model: nn.Module, cfg: TrainConfig, total_steps: int, *,
                freeze_roberta_body: bool = False) -> "TrainState":
+        """The state of ``model``, sharded or not: a model that
+        ``shard_module_`` split brings its mesh and the names of its split
+        parameters (the clipping norm's)."""
         optimizer, accumulator = make_optimizer(
             cfg, total_steps, model, freeze_roberta_body=freeze_roberta_body)
-        return cls(model=model, optimizer=optimizer, accumulator=accumulator)
+        mesh = getattr(model, "tp_mesh", None)
+        if mesh is not None:
+            from multimodal_context_reasoning_torch.parallel.mesh import axis_group
+
+            optimizer.shard(model.tp_plan, axis_group(mesh, "model"))
+        return cls(model=model, optimizer=optimizer, accumulator=accumulator, mesh=mesh)
 
     def apply_gradients(self, grads: Grads) -> None:
         """One micro-step: accumulate, and update when the window closes."""

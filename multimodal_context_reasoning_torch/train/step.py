@@ -9,6 +9,18 @@ label row, so a multi-label row credits only its first gold candidate, and
 rows are weighted by ``example_mask`` so a padded last batch counts only its
 real examples.  Metrics stay on the device: reading them is the caller's
 synchronization point.
+
+On a mesh (``TrainState.mesh``) each rank steps on its own block of the
+global batch's rows (parallel/partition.py::local_rows, or a sharded
+loader).  The gradients are averaged over the ``data`` group every
+micro-step, before the accumulator, as JAX's psum does: one all-reduce of a
+flat buffer per dtype.  The loss is an unweighted mean over rows, so with
+equal blocks the mean of the ranks' gradients is the global batch's.
+``DistributedDataParallel`` cannot do this: its reducer sees only gradients
+accumulated into ``.grad``, and the step takes them with
+``torch.autograd.grad``.  ``correct`` and ``count`` are summed over the
+group, ``loss`` and ``align_loss`` averaged; the gradient norm is the whole
+model's (train/optim.py::sharded_global_norm).
 """
 
 from __future__ import annotations
@@ -17,7 +29,9 @@ from typing import Dict
 
 import torch
 
-from multimodal_context_reasoning_torch.train.optim import global_norm
+from multimodal_context_reasoning_torch.parallel.comm import all_reduce_, gather_rows, group_size
+from multimodal_context_reasoning_torch.parallel.mesh import axis_group, axis_index
+from multimodal_context_reasoning_torch.train.optim import Grads
 from multimodal_context_reasoning_torch.train.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
@@ -52,25 +66,67 @@ def _metrics(out, batch: Batch) -> Dict[str, torch.Tensor]:
     }
 
 
+def average_gradients(grads: Grads, group) -> Grads:
+    """Mean of ``grads`` over ``group``: one all-reduce of one flat buffer
+    per dtype (a None gradient stays None: every rank runs the same graph)."""
+    n = group_size(group)
+    if n == 1:
+        return grads
+    out = dict(grads)
+    by_dtype: Dict[torch.dtype, list] = {}
+    for name, g in grads.items():
+        if g is not None:
+            by_dtype.setdefault(g.dtype, []).append(name)
+    for names in by_dtype.values():
+        flat = all_reduce_(torch.cat([grads[k].reshape(-1) for k in names]), group)
+        flat.div_(n)
+        offset = 0
+        for k in names:
+            size = grads[k].numel()
+            out[k] = flat[offset:offset + size].view_as(grads[k])
+            offset += size
+    return out
+
+
+def _reduce_metrics(metrics: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    """``correct`` / ``count`` summed over ``group``, the rest averaged."""
+    n = group_size(group)
+    if n == 1:
+        return metrics
+    keys = list(metrics)
+    vals = all_reduce_(torch.stack([metrics[k].float() for k in keys]), group)
+    return {k: v if k in ("correct", "count") else v / n for k, v in zip(keys, vals)}
+
+
 def train_step(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
     """Forward, backward and one micro-step of the optimizer (model in train
-    mode, so dropout is on where the config has it)."""
+    mode, so dropout is on where the config has it).  On a mesh ``batch``
+    is this rank's rows."""
     model = state.model.train()
     out = model(model_inputs(batch))
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     grads = torch.autograd.grad(out.loss, [p for _, p in named], allow_unused=True)
     grads = {n: g for (n, _), g in zip(named, grads)}
     metrics = _metrics(out, batch)
-    metrics["grad_norm"] = global_norm([g for g in grads.values() if g is not None])
+    data = axis_group(state.mesh, "data")
+    grads = average_gradients(grads, data)
+    metrics = _reduce_metrics(metrics, data)
+    metrics["grad_norm"] = state.optimizer.global_norm(grads)
     state.apply_gradients(grads)
     return metrics
 
 
 def eval_step(model: torch.nn.Module, batch: Batch) -> Dict[str, torch.Tensor]:
-    """Deterministic forward: logits, accuracy count and loss."""
+    """Deterministic forward: logits, accuracy count and loss.  On a mesh
+    (the model's ``tp_mesh``) ``batch`` is this rank's rows and the logits
+    of every data index come back stacked in rank order."""
     model.eval()
+    mesh = getattr(model, "tp_mesh", None)
     with torch.inference_mode():
         out = model(model_inputs(batch))
         m = _metrics(out, batch)
-    return {"logits": out.logits, "correct": m["correct"], "count": m["count"],
+        data = axis_group(mesh, "data")
+        logits = gather_rows(out.logits, axis_index(mesh, "data"), data)
+        m = _reduce_metrics({k: m[k] for k in ("correct", "count", "loss")}, data)
+    return {"logits": logits, "correct": m["correct"], "count": m["count"],
             "loss": m["loss"]}

@@ -1,5 +1,4 @@
-"""Host-side training loop (port of the JAX package's ``train/trainer.py``
-without its mesh and multi-host options).
+"""Host-side training loop (port of the JAX package's ``train/trainer.py``).
 
 Rebuilds the reference trainer (run_PMR_ModCR.py:115-241): an epoch loop
 over a seeded per-epoch shuffle, mid-epoch validation gated by
@@ -15,6 +14,18 @@ profile_steps)`` with ``torch.profiler`` (utils/profiling.py) into a Chrome
 trace there; ``tensorboard_dir`` writes the meters at the same
 synchronization points the meter drains at (utils/tensorboard.py), so
 neither adds a host read to the micro-step path outside the capture.
+
+``mesh`` (a ("data", "model") ``DeviceMesh``, parallel/mesh.py; by default
+the one ``TrainConfig.mesh_shape`` names when it is not (1, 1)) trains one
+process per device: the model is sharded over the model axis
+(``shard_module_``, unless the caller did it), each rank's loaders yield its
+data index's rows (``DataLoader(shard=...)``), the step averages the
+gradients over the data axis (train/step.py), and the global RNG is seeded
+from ``TrainConfig.seed`` plus the data index, so the ranks of one model
+group draw the same dropout masks on their replicated activations (and on
+their local heads' probabilities: rank r's heads share their masks with
+the other ranks' heads at the same local index).  Checkpoints hold the
+whole model (train/checkpoint.py).
 """
 
 from __future__ import annotations
@@ -27,6 +38,8 @@ import torch.nn as nn
 
 from multimodal_context_reasoning_torch.core.config import TrainConfig
 from multimodal_context_reasoning_torch.core.device import resolve_device
+from multimodal_context_reasoning_torch.parallel.mesh import axis_index, make_mesh
+from multimodal_context_reasoning_torch.parallel.partition import shard_module_
 from multimodal_context_reasoning_torch.train.checkpoint import CheckpointManager
 from multimodal_context_reasoning_torch.train.state import TrainState
 from multimodal_context_reasoning_torch.train.step import eval_step, train_step
@@ -51,8 +64,12 @@ class Trainer:
         profile_start: int = 10,
         profile_steps: int = 3,
         tensorboard_dir: Optional[str] = None,
+        mesh=None,
     ):
         self.device = resolve_device(device)
+        if mesh is None and tuple(cfg.mesh_shape) != (1, 1):
+            mesh = make_mesh(tuple(cfg.mesh_shape))
+        self.mesh = mesh
         # the default start skips the first steps (kernel builds, warm-up)
         self.profile_dir = profile_dir
         self.profile_start = profile_start
@@ -66,6 +83,10 @@ class Trainer:
 
             self.tb = TensorboardLogger(tensorboard_dir)
         self.model = model.to(self.device)
+        if mesh is not None:
+            if getattr(self.model, "tp_mesh", None) is None:
+                shard_module_(self.model, mesh)
+            torch.manual_seed(cfg.seed + axis_index(mesh, "data"))
         self.cfg = cfg
         self.train_loader = train_loader
         self.val_loader = val_loader

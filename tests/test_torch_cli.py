@@ -23,6 +23,7 @@ import dataclasses
 import json
 import os
 import pickle
+import sys
 import types
 
 import jax
@@ -431,23 +432,31 @@ def test_do_train_quantized_is_refused_as_the_jax_cli_refuses(data):
     assert not (data["dir"] / "port_train_q8").exists()
 
 
-REFUSED = [
-    (["--mesh_data", "2"], "--mesh_data", 9),
-    (["--mesh_model", "2"], "--mesh_model", 9),
-    (["--multihost"], "--multihost", 9),
-    (["--bert_tokenizer_dir", "bert"], "--bert_tokenizer_dir", 11),
-    (["--roberta_tokenizer_dir", "rob"], "--roberta_tokenizer_dir", 11),
-]
+MESHES_WITHOUT_A_GROUP = [["--mesh_data", "2"], ["--mesh_model", "2"],
+                          ["--mesh_data", "2", "--mesh_model", "2"]]
 
 
-@pytest.mark.parametrize("flags,name,item", REFUSED, ids=[r[1] for r in REFUSED])
-def test_unported_flags_are_refused_before_any_data_is_read(tmp_path, flags, name, item):
+@pytest.mark.parametrize("flags", MESHES_WITHOUT_A_GROUP,
+                         ids=["data2", "model2", "data2_model2"])
+def test_a_mesh_without_a_process_group_exits_before_any_data_is_read(tmp_path, flags):
+    """A mesh over more than one process needs torch.distributed: without a
+    process group it is a SystemExit, never a quiet fallback to one."""
     argv = ["--do_test", "--device", "cpu", "--test_file", str(tmp_path / "absent.jsonl"),
             "--img_feat_file", str(tmp_path / "absent.pkl"),
             "--output_dir", str(tmp_path / "out"), *flags]
-    with pytest.raises(SystemExit, match=rf"{name}.*ROADMAP Queue 1 item {item}\)"):
+    with pytest.raises(SystemExit, match="needs a torch.distributed process group"):
         trun_pmr.main(argv)
     assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("flag", ["--bert_tokenizer_dir", "--roberta_tokenizer_dir"])
+def test_a_tokenizer_dir_without_transformers_exits_naming_it(data, monkeypatch, flag):
+    """Without transformers a tokenizer directory is a SystemExit that names
+    the package, not a fallback to the hash tokenizer."""
+    monkeypatch.setitem(sys.modules, "transformers", None)
+    argv = _port_argv(data, "port_no_hf", "--do_test", flag, str(data["dir"]))
+    with pytest.raises(SystemExit, match=rf"{flag} needs the 'transformers' package"):
+        trun_pmr.main(argv)
 
 
 def test_long_image_lengths_run_on_every_device(data, monkeypatch):

@@ -193,6 +193,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "from multimodal_context_reasoning_torch.serving import aot\n"
         "from multimodal_context_reasoning_torch.data import device_table\n"
         "from multimodal_context_reasoning_torch.utils import profiling, tensorboard\n"
+        "from multimodal_context_reasoning_torch.parallel import comm, mesh, partition\n"
+        "from multimodal_context_reasoning_torch.parallel import multihost\n"
+        "from multimodal_context_reasoning_torch.cli import build_chunk_masks, pack_features\n"
+        "from multimodal_context_reasoning_torch.cli import export_reference\n"
+        "from multimodal_context_reasoning_torch.data import tsv, feature_store\n"
+        "from multimodal_context_reasoning_torch.utils import itm_eval\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
@@ -206,6 +212,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "tb = sorted(n for n in sys.modules if n.split('.')[0] == 'tensorboard'\n"
         "            or n.startswith('torch.utils.tensorboard'))\n"
         "assert not tb, tb\n"
+        "# transformers loads only for a tokenizer directory or --chunker_dir\n"
+        "hf = sorted(n for n in sys.modules if n.split('.')[0] == 'transformers')\n"
+        "assert not hf, hf[:5]\n"
         "print(len([n for n in sys.modules if n.startswith(p.__name__)]))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))

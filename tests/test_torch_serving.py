@@ -676,17 +676,17 @@ def test_serve_cli_generate_serves_a_seeded_random_init(cli_files, monkeypatch, 
     assert again["generator"].generate([_example(tschemas, 0)]) == out[:1]
 
 
-REFUSED = [
-    (["--gpt_tokenizer_dir", "gpt"], "--gpt_tokenizer_dir", 11),
-    (["--bert_tokenizer_dir", "b"], "--bert_tokenizer_dir", 11),
-    (["--roberta_tokenizer_dir", "r"], "--roberta_tokenizer_dir", 11),
-]
-
-
-@pytest.mark.parametrize("flags,name,item", REFUSED, ids=[r[1] for r in REFUSED])
-def test_serve_cli_refuses_unported_flags_before_reading_data(tmp_path, flags, name, item):
-    argv = ["--img_feat_file", str(tmp_path / "absent.pkl"), "--device", "cpu", *flags]
-    with pytest.raises(SystemExit, match=rf"{name}.*ROADMAP Queue 1 item {item}\)"):
+@pytest.mark.parametrize("flag", ["--gpt_tokenizer_dir", "--bert_tokenizer_dir",
+                                  "--roberta_tokenizer_dir"])
+def test_serve_cli_tokenizer_dir_without_transformers_exits_naming_it(
+        cli_files, monkeypatch, tmp_path, flag):
+    """Without transformers a tokenizer directory is a SystemExit that names
+    the package, not a fallback to the hash tokenizer."""
+    monkeypatch.setitem(sys.modules, "transformers", None)
+    argv = ["--img_feat_file", cli_files["pkl"], "--device", "cpu", "--tiny",
+            "--compute_dtype", "float32", "--generate", "--gen_micro_batch", "1",
+            flag, str(tmp_path)]
+    with pytest.raises(SystemExit, match=rf"{flag} needs the 'transformers' package"):
         tserve_cli.main(argv)
 
 
