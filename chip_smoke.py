@@ -9,8 +9,9 @@ the two-stage recipe (``cli/train_two_stage.py``), run the ensemble
 and CLIP ablations with the CLIP precompute command
 (``cli/precompute_clip.py``), and hold the kernels' dispatcher ops, the
 device-resident feature table, the AOT artifacts (``serving/aot.py``) and
-the profiled, logged trainer (phase 21), and scale the train step and the
-scorer out over ``torch.distributed`` (phase 22).
+the profiled, logged trainer (phase 21), scale the train step and the
+scorer out over ``torch.distributed`` (phase 22), and run the one-stage
+real-data recipe (``cli/train_real_pmr.py``, phase 23).
 
     python3 chip_smoke.py
 
@@ -78,9 +79,11 @@ the port is not beside this script, or when any phase fails.  Phases:
     stage-mask forward's from 19c, ``ensemble_launches`` of all three from
     phase 20b and each kernel's ``roberta_no_prefix`` rows from 20e,
     ``aot_launches``, ``device_table_launches`` and ``op_host_us`` from
-    phase 21, ``parallel_launches`` per mesh from phase 22b's rank 0), then
-    the result line; the summary line before it carries ``ensembles``,
-    ``clip``, ``standalone`` (phase 21) and ``parallel`` (phase 22);
+    phase 21, ``parallel_launches`` per mesh from phase 22b's rank 0,
+    ``real_pmr_launches`` from phase 23a's ``main()``), then the result
+    line; the summary line before it carries ``ensembles``, ``clip``,
+    ``standalone`` (phase 21), ``parallel`` (phase 22) and ``real_pmr``
+    (phase 23);
 12. (run before 11) the two commands through ``main(argv)``, full-width
     bf16, on files written from the seed in a temporary directory (PMR
     JSONL of 64 / 32 / 32 examples, a VCR JSON of 64, 50 x 2054 region
@@ -273,6 +276,27 @@ the port is not beside this script, or when any phase fails.  Phases:
     pickle's.  ``--only 22d`` (a development aid for a machine of four
     cards, not part of the default run) holds mesh (2, 2) over NCCL, one
     process per card, to world size 1 as 22b holds its processes.
+23. (run before 11) the one-stage recipe, ``cli.train_real_pmr.main(argv)``
+    on REAL_PMR_EXAMPLES PMR rows written from the seed (153 train, 39
+    held-out), with every train step and evaluation forward counted and
+    timed (CUDA events) and the counts set to 0 just before each ``main``
+    and read just after: 23a, the slice's path, full width, bf16, random
+    init, dropout 0, TRAIN_EXAMPLES questions a step, REAL_PMR_STEPS steps,
+    validation every REAL_PMR_VALID, the corpus tokenizer and the device
+    table: exactly 36 / 48 / 24 launches a train step and 36 / 24 / 0 an
+    evaluation forward, finite losses and the curve's keys, device ms per
+    step, peak memory and the wall, then one more forward and backward
+    (uncounted) with each dense-forward launch held against its plain
+    version (2e-2 of max |plain|) and each backward launch against its
+    plain version and both against float64; 23b, the recipe's defaults
+    (dropout 0.1), REAL_PMR_SHORT_STEPS steps: the launches of every step
+    and evaluation forward equal to the first's, printed (a train step
+    launches none: every layer draws dropout); 23c, ``--midsize`` in fp32
+    (head dims 12 and 16), dropout 0, REAL_PMR_SHORT_STEPS steps of
+    REAL_PMR_MIDSIZE_BATCH, then one more step with every launch held
+    against its plain version at phases 3 and 7's fp32 tolerances; 23d,
+    ``--task vcr --tokenizer hash`` at full width on REAL_PMR_VCR_EXAMPLES
+    VCR rows, REAL_PMR_VCR_STEPS steps.
 """
 
 from __future__ import annotations
@@ -280,6 +304,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import os
 import pickle
@@ -360,6 +385,16 @@ TWO_STAGE_EXAMPLES = 96
 ENSEMBLE_QUESTIONS, CLIP_IMAGES = 8, 32
 CLIP_CMD_EXAMPLES, CLIP_CMD_IMAGES = 32, 16
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# phase 23: PMR examples written from the seed (the 80/20 split leaves 153
+# train examples: 4 full batches of TRAIN_EXAMPLES), 23a's steps and
+# validation cadence, 23b and 23c's steps, 23c's batch; 23d's VCR examples,
+# steps and batch; the keys of the command's curve.json
+REAL_PMR_EXAMPLES, REAL_PMR_STEPS, REAL_PMR_VALID = 192, 8, 4
+REAL_PMR_SHORT_STEPS, REAL_PMR_MIDSIZE_BATCH = 4, 8
+REAL_PMR_VCR_EXAMPLES, REAL_PMR_VCR_STEPS, REAL_PMR_VCR_BATCH = 64, 2, 16
+REAL_PMR_CURVE_KEYS = {"task", "data", "n_train", "n_val", "steps", "batch", "lr", "seed",
+                       "tiny", "wall_seconds", "baseline_acc", "final_acc", "best_acc",
+                       "history"}
 # phase 22: the global batch of the two-process step; its meshes; the bounds
 # of a two-process bf16 step and forward against world size 1 (|loss|, the
 # gradient norm relative, parameters after the step in learning rates: one
@@ -4622,9 +4657,243 @@ def phase22d() -> dict:
     return parallel_children((2, 2), "nccl", ref)
 
 
+
+# ---------------------------------------------------------------- the one-stage recipe
+
+def real_pmr_run(argv) -> dict:
+    """``cli.train_real_pmr.main(argv)`` on the card with every train step
+    and evaluation forward counted and timed (CUDA events), patched through
+    ``train/trainer.py``'s module-level ``train_step`` / ``eval_step``; the
+    counts are set to 0 just before ``main`` and read just after."""
+    from multimodal_context_reasoning_torch.cli import train_real_pmr
+    from multimodal_context_reasoning_torch.train import trainer as trainer_module
+
+    records = []
+
+    def timed(fn, kind):
+        def run(*args):
+            before = read_counts()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            start.record()
+            out = fn(*args)
+            end.record()
+            torch.cuda.synchronize()
+            after = read_counts()
+            records.append(dict(kind=kind, out=out, device_ms=start.elapsed_time(end),
+                                launches={k: after[k] - before[k] for k in after}))
+            return out
+        return run
+
+    saved = (trainer_module.train_step, trainer_module.eval_step)
+    trainer_module.train_step = timed(saved[0], "train")
+    trainer_module.eval_step = timed(saved[1], "eval")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer = train_real_pmr.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        trainer_module.train_step, trainer_module.eval_step = saved
+    with open(os.path.join(argv[argv.index("--out") + 1], "curve.json")) as f:
+        curve = json.load(f)
+    check({k: sum(r["launches"][k] for r in records) for k in KERNELS} == launches,
+          f"23: launches outside the steps and evaluations {launches}")
+    steps = [r for r in records if r["kind"] == "train"]
+    return dict(trainer=trainer, curve=curve, steps=steps,
+                evals=[r for r in records if r["kind"] == "eval"], launches=launches,
+                losses=[float(r["out"]["loss"]) for r in steps],
+                device_ms=[r["device_ms"] for r in steps], peak_gib=peak, wall_seconds=wall)
+
+
+def held_real_pmr_pass(trainer, *holders) -> None:
+    """One more forward and backward on the first training batch (no
+    update) after ``main`` returned, inside ``holders``; the kernel counts
+    are left as they were (these launches compare, they are not the
+    path's)."""
+    from multimodal_context_reasoning_torch.train.step import model_inputs
+
+    batch = trainer.to_device(next(iter(trainer.train_loader)))
+    model = trainer.model.train()
+    with uncounted(), contextlib.ExitStack() as stack:
+        for h in holders:
+            stack.enter_context(h)
+        out = model(model_inputs(batch))
+        torch.autograd.grad(out.loss, [p for p in model.parameters() if p.requires_grad],
+                            allow_unused=True)
+        torch.cuda.synchronize()
+
+
+def same_launches(records, what: str) -> dict:
+    """The launches of the first of ``records``, checked equal in all."""
+    check(bool(records) and all(r["launches"] == records[0]["launches"] for r in records),
+          f"{what}: launches {[r['launches'] for r in records]}")
+    return records[0]["launches"]
+
+
+def real_pmr_summary(tag: str, run: dict, steps: int, valid: int) -> dict:
+    """Checks common to 23a-23d (steps run, finite losses, the curve's keys
+    and validations) and the numbers each keeps."""
+    curve = run["curve"]
+    check(len(run["steps"]) == steps and np.isfinite(run["losses"]).all(),
+          f"{tag}: {len(run['steps'])} steps, losses {run['losses']}")
+    check(set(curve) == REAL_PMR_CURVE_KEYS
+          and [h["step"] for h in curve["history"]] == list(range(0, steps + 1, valid)),
+          f"{tag}: curve {json.dumps(curve)[:400]}")
+    steady = statistics.median(run["device_ms"][1:]) if steps > 1 else run["device_ms"][0]
+    return dict(launches=run["launches"], per_step=same_launches(run["steps"], f"{tag} steps"),
+                per_eval_forward=same_launches(run["evals"], f"{tag} evaluation forwards"),
+                eval_forwards=len(run["evals"]), losses=run["losses"],
+                ms_per_step=run["device_ms"], steady_ms=steady, peak_gib=run["peak_gib"],
+                wall_seconds=run["wall_seconds"], fit_seconds=curve["wall_seconds"],
+                baseline_acc=curve["baseline_acc"], best_acc=curve["best_acc"],
+                final_acc=curve["final_acc"], n_train=curve["n_train"], n_val=curve["n_val"])
+
+
+def real_pmr_print(tag: str, what: str, r: dict) -> None:
+    print(f"[{tag} real-pmr] {what}: losses {np.round(r['losses'], 4).tolist()} | device ms per "
+          f"step {np.round(r['ms_per_step'], 2).tolist()} -> {r['steady_ms']:.2f} | peak "
+          f"{r['peak_gib']:.2f} GiB | main() wall {r['wall_seconds']:.2f} s (fit "
+          f"{r['fit_seconds']} s)")
+    print(f"[{tag} real-pmr] launches per train step {r['per_step']}, per evaluation forward "
+          f"{r['per_eval_forward']} ({r['eval_forwards']} forwards) | all of main() "
+          f"{r['launches']} | accuracy: random init {r['baseline_acc']:.4f}, best "
+          f"{r['best_acc']:.4f}, final {r['final_acc']:.4f} ({r['n_train']} train / "
+          f"{r['n_val']} held-out)")
+
+
+def phase23(rng) -> dict:
+    """Phase 23: ``cli.train_real_pmr.main(argv)`` on rows written from the
+    seed.  23a, the slice's path: full width, bf16, dropout 0, corpus
+    tokenizer, device table, REAL_PMR_STEPS steps of TRAIN_EXAMPLES, then
+    one more forward and backward held against the plain versions; 23b the
+    recipe's defaults (dropout 0.1); 23c ``--midsize`` in fp32 (head dims 12
+    and 16), one more step with every launch held; 23d ``--task vcr
+    --tokenizer hash`` at full width."""
+    from multimodal_context_reasoning_torch.cli import train_real_pmr
+    from multimodal_context_reasoning_torch.core.config import ModCRConfig
+    from multimodal_context_reasoning_torch.serving.synthetic import task_rows, write_rows
+
+    t23 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="real_pmr_")
+    pmr, vcr = os.path.join(tmp, "pmr.jsonl"), os.path.join(tmp, "vcr.json")
+    img_len = ModCRConfig().img_len
+    write_rows(pmr, task_rows(rng, REAL_PMR_EXAMPLES, img_len, first=400_000))
+    write_rows(vcr, task_rows(rng, REAL_PMR_VCR_EXAMPLES, img_len, vcr=True, first=410_000))
+    common = lambda data, out: ["--jsonl", data, "--out", os.path.join(tmp, out), "--device",
+                                "cuda", "--seed", str(SEED)]
+    out = {}
+    try:
+        # 23a: the slice's path
+        argv = common(pmr, "a") + ["--dropout", "0", "--batch", str(TRAIN_EXAMPLES), "--steps",
+                                   str(REAL_PMR_STEPS), "--valid_steps", str(REAL_PMR_VALID)]
+        cfg = train_real_pmr.model_config(train_real_pmr.build_arg_parser().parse_args(argv))
+        run = real_pmr_run(argv)
+        r = out["a"] = real_pmr_summary("23a", run, REAL_PMR_STEPS, REAL_PMR_VALID)
+        want_eval = {"spec_attention": spec_launches_per_eval_forward(cfg),
+                     "fused_attention": cfg.roberta.num_hidden_layers, "flash_bwd": 0}
+        check(r["per_step"] == STEP_LAUNCHES and r["per_eval_forward"] == want_eval,
+              f"23a: launches per step {r['per_step']} (want {STEP_LAUNCHES}), per evaluation "
+              f"forward {r['per_eval_forward']} (want {want_eval})")
+        check(all(r["launches"][k] > 0 for k in KERNELS), f"23a launches {r['launches']}")
+        r["examples_per_s"] = TRAIN_EXAMPLES / r["steady_ms"] * 1e3
+        real_pmr_print("23a", f"full-width bf16, dropout 0, corpus tokenizer, device table, "
+                       f"{TRAIN_EXAMPLES} questions ({4 * TRAIN_EXAMPLES} rows) a step", r)
+        print(f"[23a real-pmr] median of steps 2-{REAL_PMR_STEPS}: {r['steady_ms']:.2f} ms = "
+              f"{r['examples_per_s']:.2f} examples/s")
+        dense, held = HeldDense(), HeldBackward()
+        held_real_pmr_pass(run["trainer"], dense, held)
+        dense_rows = {f"{k[0]} k {k[1]} {k[2]} bias {k[3]}": dict(launches=n, max_rel_err=w)
+                      for k, (n, w) in dense.seen.items()}
+        bwd_rows = held_backward_rows(held)
+        r["held"] = dict(dense_forward=dense_rows, backward=bwd_rows)
+        print(f"[23a real-pmr] one more step, each dense-forward launch against its plain "
+              f"version (over max |plain|, tol {TOL[torch.bfloat16]}): {dense_rows}")
+        print(f"[23a real-pmr] and each backward launch against its plain version and both "
+              f"against float64 ([dq, dk, dv], each over its max |exact|): {bwd_rows}")
+        check(sum(h["launches"] for h in dense_rows.values()) == STEP_LAUNCHES["fused_attention"]
+              and all(h["max_rel_err"] <= TOL[torch.bfloat16] for h in dense_rows.values()),
+              f"23a: dense-forward launches against plain {dense_rows}")
+        check(sum(h["launches"] for h in bwd_rows.values()) == STEP_LAUNCHES["flash_bwd"]
+              and backward_held_ok(bwd_rows),
+              f"23a: backward launches against plain and float64 {bwd_rows}")
+        del run, dense, held
+        release()
+
+        # 23b: the recipe's defaults (dropout 0.1 everywhere)
+        run = real_pmr_run(common(pmr, "b") + ["--steps", str(REAL_PMR_SHORT_STEPS),
+                                               "--valid_steps", str(REAL_PMR_SHORT_STEPS)])
+        r = out["b"] = real_pmr_summary("23b", run, REAL_PMR_SHORT_STEPS, REAL_PMR_SHORT_STEPS)
+        real_pmr_print("23b", f"the recipe's defaults (dropout 0.1), {TRAIN_EXAMPLES} questions "
+                       f"a step", r)
+        del run
+        release()
+
+        # 23c: --midsize in fp32, every launch of one more step held
+        run = real_pmr_run(common(pmr, "c") + [
+            "--midsize", "--dropout", "0", "--steps", str(REAL_PMR_SHORT_STEPS), "--batch",
+            str(REAL_PMR_MIDSIZE_BATCH), "--valid_steps", str(REAL_PMR_SHORT_STEPS)])
+        r = out["c"] = real_pmr_summary("23c", run, REAL_PMR_SHORT_STEPS, REAL_PMR_SHORT_STEPS)
+        real_pmr_print("23c", f"--midsize fp32, dropout 0, {REAL_PMR_MIDSIZE_BATCH} questions "
+                       f"a step", r)
+        spec, dense, held = HeldSpec(), HeldDense(), HeldBackward()
+        held_real_pmr_pass(run["trainer"], spec, dense, held)
+        fp32 = torch.float32
+        spec_rows = {f"{k[0]} {k[1]} {k[2]}": dict(launches=n, max_abs_err=w)
+                     for k, (n, w) in spec.seen.items()}
+        dense_rows = {f"{k[0]} k {k[1]} {k[2]} bias {k[3]}": dict(launches=n, max_rel_err=w)
+                      for k, (n, w) in dense.seen.items()}
+        bwd_rows = held_backward_rows(held)
+        head_dims = sorted({k[0][-1] for k in list(spec.seen) + list(dense.seen)}
+                           | {k[0][-1] for k in held.seen})
+        r["held"] = dict(spec=spec_rows, dense_forward=dense_rows, backward=bwd_rows,
+                         head_dims=head_dims)
+        print(f"[23c real-pmr] one more step, every launch against its plain version (fp32: "
+              f"forwards {TOL[fp32]} abs / of max |plain|, backward {BWD_TOL[fp32]} of max "
+              f"|exact|), head dims {head_dims}: stage-mask {spec_rows} | dense {dense_rows} | "
+              f"backward {bwd_rows}")
+        check(spec_rows and bwd_rows and all(str(fp32) in k for k in spec_rows)
+              and all(h["max_abs_err"] <= TOL[fp32] for h in spec_rows.values())
+              and all(h["max_rel_err"] <= TOL[fp32] for h in dense_rows.values())
+              and all(e <= BWD_TOL[fp32] for h in bwd_rows.values()
+                      for e in h["kernel_vs_plain"])
+              and {12, 16} <= set(head_dims),
+              f"23c: held launches {r['held']}")
+        del run, spec, dense, held
+        release()
+
+        # 23d: VCR rows, the hash tokenizers
+        run = real_pmr_run(common(vcr, "d") + [
+            "--task", "vcr", "--tokenizer", "hash", "--steps", str(REAL_PMR_VCR_STEPS),
+            "--batch", str(REAL_PMR_VCR_BATCH), "--valid_steps", str(REAL_PMR_VCR_STEPS)])
+        r = out["d"] = real_pmr_summary("23d", run, REAL_PMR_VCR_STEPS, REAL_PMR_VCR_STEPS)
+        check(run["curve"]["task"] == "vcr" and r["per_eval_forward"]["spec_attention"] > 0,
+              f"23d: task {run['curve']['task']}, launches {r['per_eval_forward']}")
+        real_pmr_print("23d", f"--task vcr --tokenizer hash, full width, {REAL_PMR_VCR_BATCH} "
+                       f"questions a step", r)
+        del run
+        release()
+    finally:
+        shutil.rmtree(tmp)
+    out["phase_seconds"] = time.perf_counter() - t23
+    print(f"[23] phases 23a-23d took {out['phase_seconds']:.1f} s")
+    return out
+
+
+def release() -> None:
+    """Drop the last run's model, optimizer and cached blocks."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
 def main(argv=None) -> int:
-    """All phases; ``--only 21`` (a development aid) runs the device and
-    build phases and phase 21 alone, and prints no result line."""
+    """All phases; ``--only 21`` (a development aid; also 22 and 23) runs
+    the device and build phases and that phase alone, and prints no result
+    line."""
     argv = sys.argv[1:] if argv is None else argv
     only = argv[1] if argv[:1] == ["--only"] else None
     if not torch.cuda.is_available():
@@ -4682,6 +4951,10 @@ def main(argv=None) -> int:
         return 0
     if only in ("22", "22d"):
         phase22() if only == "22" else phase22d()
+        print(card)
+        return 0
+    if only == "23":
+        phase23(np.random.default_rng(SEED + 23))
         print(card)
         return 0
 
@@ -4900,6 +5173,10 @@ def main(argv=None) -> int:
     # gloo at meshes (2, 1) and (1, 2), the native .mcrpack reader
     parallel = phase22()
 
+    # 23. the one-stage recipe: its path at full width, its defaults,
+    # --midsize in fp32 with every launch held, VCR rows
+    real_pmr = phase23(rng)
+
     # 11. kernels line, then the result line
     print(card)
     print(json.dumps({"serving": serving, "e2e_fp32_max_abs_diff": e2e_err,
@@ -4916,7 +5193,8 @@ def main(argv=None) -> int:
                       "ensembles": {k: v for k, v in ensembles.items() if k != "launches"},
                       "clip": clip,
                       "standalone": standalone["summary"],
-                      "parallel": parallel}))
+                      "parallel": parallel,
+                      "real_pmr": real_pmr}))
     parallel_launches = {k: {tag: r["train_launches"][k] for tag, r in parallel["meshes"].items()}
                          for k in KERNELS}
     main_path = train["launches"]
@@ -4943,6 +5221,7 @@ def main(argv=None) -> int:
         "ensemble_launches": ensembles["launches"]["spec_attention"],
         **standalone["kernels"]["spec_attention"],
         "parallel_launches": parallel_launches["spec_attention"],
+        "real_pmr_launches": real_pmr["a"]["launches"]["spec_attention"],
         "max_abs_err": max(max_err, train_err["spec_attention"],
                            long_keys["max_abs_err"]["spec_attention"],
                            *(r["max_abs_err"] for r in stage1_kernels["forward"]
@@ -4974,6 +5253,7 @@ def main(argv=None) -> int:
         "ensemble_launches": ensembles["launches"]["fused_attention"],
         **standalone["kernels"]["fused_attention"],
         "parallel_launches": parallel_launches["fused_attention"],
+        "real_pmr_launches": real_pmr["a"]["launches"]["fused_attention"],
         "max_abs_err": max(train_err["fused_attention"],
                            long_keys["max_abs_err"]["fused_attention"],
                            *(r["max_abs_err"] for r in no_prefix["dense"])),
@@ -4995,6 +5275,7 @@ def main(argv=None) -> int:
         "ensemble_launches": ensembles["launches"]["flash_bwd"],
         **standalone["kernels"]["flash_bwd"],
         "parallel_launches": parallel_launches["flash_bwd"],
+        "real_pmr_launches": real_pmr["a"]["launches"]["flash_bwd"],
         "max_abs_err": max(train_err["flash_bwd"], long_keys["max_abs_err"]["flash_bwd"],
                            *(r["max_abs_err"] for r in encoder_bwd + stage1_kernels["backward"]
                              + no_prefix["backward"])),

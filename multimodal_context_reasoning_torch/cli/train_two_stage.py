@@ -18,8 +18,9 @@ Stage 2, cold-start surgery and prefix-tune: a fresh composite grafts
 the global tower through the ``oscar_sd`` path, is evaluated, then trains the
 production recipe (frozen towers, mapping networks and prefix-RoBERTa live).
 
-Both stages share the featurized datasets; image features are synthesized
-per image id (``serving/synthetic.py::synthetic_features``, the JAX script's
+Both stages share the featurized datasets (built by the one-stage recipe's
+functions, cli/train_real_pmr.py); image features are synthesized per image
+id (``serving/synthetic.py::synthetic_features``, the JAX script's
 arrays).  The flags and defaults are the JAX script's, plus ``--device``
 (default ``cuda``; without a card the command raises, ``--device cpu`` asks
 for the CPU).  The image features stay on the device in a resident table
@@ -52,29 +53,25 @@ import time
 import numpy as np
 import torch
 
-from multimodal_context_reasoning_torch.core.config import ModCRConfig, TrainConfig
+from multimodal_context_reasoning_torch.cli.train_real_pmr import (
+    LOADERS,
+    build_tokenizers,
+    composite_config,
+    feature_table,
+    load_examples,
+    make_dataset,
+    split_examples,
+)
+from multimodal_context_reasoning_torch.core.config import TrainConfig
 from multimodal_context_reasoning_torch.core.device import resolve_device
-from multimodal_context_reasoning_torch.data.collate import BatchSpec
-from multimodal_context_reasoning_torch.data.device_table import DeviceFeatureTable
 from multimodal_context_reasoning_torch.data.loader import DataLoader
 from multimodal_context_reasoning_torch.data.mixed import MixedDataset
-from multimodal_context_reasoning_torch.data.pmr import PMRDataset, load_pmr_jsonl
-from multimodal_context_reasoning_torch.data.subword import corpus_wordpiece_tokenizer
-from multimodal_context_reasoning_torch.data.tokenization import (
-    NUM_DET_TOKENS,
-    HashTokenizer,
-    RobertaHashTokenizer,
-)
-from multimodal_context_reasoning_torch.data.vcr import VCRDataset, load_vcr_json
 from multimodal_context_reasoning_torch.interop.assemble import assemble_modcr_params
 from multimodal_context_reasoning_torch.interop.export import export_chunkalign_cls_state_dict
 from multimodal_context_reasoning_torch.models.chunkalign_cls import ChunkAlignClassifier
 from multimodal_context_reasoning_torch.models.modcr import ModCRModel
 from multimodal_context_reasoning_torch.serving.synthetic import synthetic_features
 from multimodal_context_reasoning_torch.train.trainer import Trainer
-
-LOADERS = {"pmr": (load_pmr_jsonl, PMRDataset), "vcr": (load_vcr_json, VCRDataset)}
-
 
 def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
@@ -133,22 +130,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return p
 
 
-def composite_config(args) -> ModCRConfig:
-    """The stage-2 composite's config; stage 1 reuses its encoder geometry
-    so the graft lands key for key."""
-    if args.tiny:
-        return dataclasses.replace(ModCRConfig.tiny(), compute_alignment=False)
-    cfg = ModCRConfig(compute_alignment=False).with_dtype("bfloat16")
-    d = args.dropout
-    enc = dataclasses.replace(cfg.global_encoder, hidden_dropout_prob=d,
-                              attention_probs_dropout_prob=d)
-    rd = d if args.roberta_dropout is None else args.roberta_dropout
-    rob = dataclasses.replace(cfg.roberta, remat=True, hidden_dropout_prob=rd,
-                              attention_probs_dropout_prob=rd)
-    return dataclasses.replace(cfg, global_encoder=enc, seq_encoder=enc, roberta=rob,
-                               mapping_dropout=d)
-
-
 def split_entry(entry: str, default_task: str):
     """``pmr:path`` / ``vcr:path`` -> (task, path); a bare path -> ``default_task``."""
     head, _, rest = entry.partition(":")
@@ -176,21 +157,11 @@ def main(argv=None) -> dict:
     def make_table(f):
         if not args.device_features:
             return None
-        table = DeviceFeatureTable(f, img_len=cfg2.img_len, dtype=table_dtype,
-                                   device=device)
-        logger.info("device feature table resident: %d images, %.1f MB (%s)",
-                    len(table.row), table.nbytes / 1e6, table_dtype)
-        return table
+        return feature_table(f, cfg2.img_len, table_dtype, device, logger)
 
     # ---- shared data (both stages featurize identically)
-    load_fn, dataset_cls = LOADERS[args.task]
-    examples = []
-    for path in args.jsonl.split(","):
-        examples.extend(load_fn(path, limit=args.limit or None))
-    order = np.random.default_rng(args.seed).permutation(len(examples))
-    n_train = int(len(examples) * args.train_frac)
-    train_ex = [examples[i] for i in order[:n_train]]
-    val_ex = [examples[i] for i in order[n_train:]]
+    examples = load_examples(args.task, args.jsonl, args.limit)
+    train_ex, val_ex = split_examples(examples, args.seed, args.train_frac)
     logger.info("examples: %d train / %d held-out", len(train_ex), len(val_ex))
     if len(train_ex) < max(args.batch, args.stage1_batch):
         # drop_last would otherwise leave an empty training loader
@@ -204,41 +175,20 @@ def main(argv=None) -> dict:
     feats = synthetic_features({ex.img_id for ex in examples}, enc_cfg.img_feature_dim,
                                max_regions=max_regions)
     os.makedirs(args.out, exist_ok=True)
-    if args.tokenizer == "corpus":
-        # one collision-free id space for both stages: the stage-2 train
-        # split plus any cross-task stage-1 text
-        corpus_ex = list(train_ex)
-        if args.stage1_jsonl:
-            for entry in args.stage1_jsonl.split(","):
-                task, path = split_entry(entry, args.stage1_task or args.task)
-                load1 = LOADERS["vcr" if task == "vcr" else "pmr"][0]
-                corpus_ex.extend(load1(path, limit=args.limit or None))
-        corpus = ([ex.premise for ex in corpus_ex]
-                  + [a for ex in corpus_ex for a in ex.answer_choices])
-        bert = corpus_wordpiece_tokenizer(
-            corpus, vocab_size=min(args.vocab_budget, enc_cfg.vocab_size - NUM_DET_TOKENS))
-        rob_tok = corpus_wordpiece_tokenizer(
-            corpus, vocab_size=min(args.vocab_budget,
-                                   cfg2.roberta.vocab_size - NUM_DET_TOKENS),
-            style="roberta")
-        logger.info("corpus WordPiece trained: %d/%d ids (bert/roberta)",
-                    len(bert), len(rob_tok))
-        # checkpoints are servable only with these ids
-        bert.save_vocab_file(os.path.join(args.out, "bert_vocab.txt"))
-        rob_tok.save_vocab_file(os.path.join(args.out, "roberta_vocab.txt"))
-    else:
-        bert = HashTokenizer(vocab_size=enc_cfg.vocab_size)
-        rob_tok = RobertaHashTokenizer(vocab_size=cfg2.roberta.vocab_size)
-    spec = BatchSpec(text_len=cfg2.text_len, img_len=cfg2.img_len,
-                     roberta_len=cfg2.roberta_len, num_labels=cfg2.num_labels,
-                     img_feature_dim=enc_cfg.img_feature_dim)
+    # one collision-free id space for both stages: the stage-2 train split
+    # plus any cross-task stage-1 text
+    corpus_ex = list(train_ex)
+    if args.tokenizer == "corpus" and args.stage1_jsonl:
+        for entry in args.stage1_jsonl.split(","):
+            task, path = split_entry(entry, args.stage1_task or args.task)
+            corpus_ex.extend(load_examples("vcr" if task == "vcr" else "pmr", path, args.limit))
+    bert, rob_tok = build_tokenizers(args.tokenizer, corpus_ex, cfg2, args.vocab_budget,
+                                     args.out, logger)
 
     def mk_ds(ds_cls, f, table, exs):
-        ds = ds_cls(exs, f, bert, rob_tok, spec=spec, max_chunks=cfg2.max_chunks)
-        if table is not None:
-            ds.use_device_table(table)
-        return ds
+        return make_dataset(ds_cls, exs, f, bert, rob_tok, cfg2, table)
 
+    dataset_cls = LOADERS[args.task][1]
     table = make_table(feats)
     train_ds, val_ds = (mk_ds(dataset_cls, feats, table, train_ex),
                         mk_ds(dataset_cls, feats, table, val_ex))
@@ -257,19 +207,16 @@ def main(argv=None) -> dict:
             if task == "both":
                 raise ValueError("--stage1_task both needs pmr:/vcr:-prefixed "
                                  f"--stage1_jsonl entries; got {entry!r}")
-            groups.setdefault(task, []).extend(LOADERS[task][0](path,
-                                                                limit=args.limit or None))
+            groups.setdefault(task, []).extend(load_examples(task, path, args.limit))
         feats1 = synthetic_features({ex.img_id for exs in groups.values() for ex in exs},
                                     enc_cfg.img_feature_dim, max_regions=max_regions)
         table1 = make_table(feats1)
         train_parts, val_parts = [], []
         for task in sorted(groups):
-            exs = groups[task]
-            order1 = np.random.default_rng(args.seed).permutation(len(exs))
-            n1 = int(len(exs) * args.train_frac)
+            train1, val1 = split_examples(groups[task], args.seed, args.train_frac)
             cls1 = LOADERS[task][1]
-            train_parts.append(mk_ds(cls1, feats1, table1, [exs[i] for i in order1[:n1]]))
-            val_parts.append(mk_ds(cls1, feats1, table1, [exs[i] for i in order1[n1:]]))
+            train_parts.append(mk_ds(cls1, feats1, table1, train1))
+            val_parts.append(mk_ds(cls1, feats1, table1, val1))
         if len(train_parts) == 1:
             train_ds1, val_ds1 = train_parts[0], val_parts[0]
         else:

@@ -186,7 +186,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "from multimodal_context_reasoning_torch.models import chunkalign_cls, oscar_heads\n"
         "from multimodal_context_reasoning_torch.interop import export\n"
         "from multimodal_context_reasoning_torch.data import mixed, task_processors\n"
-        "from multimodal_context_reasoning_torch.cli import train_two_stage\n"
+        "from multimodal_context_reasoning_torch.cli import train_two_stage, train_real_pmr\n"
         "from multimodal_context_reasoning_torch.models import ensemble, clip, clip_ensemble\n"
         "from multimodal_context_reasoning_torch.data import clip_preprocess, clip_tokenizer\n"
         "from multimodal_context_reasoning_torch.cli import precompute_clip\n"
