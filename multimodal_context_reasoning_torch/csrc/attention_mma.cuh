@@ -6,6 +6,12 @@
 // the one place the score tile meets the caller's mask.  ops/build.py hashes
 // every csrc/*.cuh into each kernel's rebuild key.
 //
+// The head dim Dh is a template parameter of both tiles, instantiated at 64
+// and at 128 (kMmaHeadDims); the wrappers zero-pad a narrower bf16 head to
+// the next of the two and pass the true width's scale (ops/fused_attention.py,
+// pad_bf16_heads).  Zero columns add exact zeros to Q K^T, and the padded
+// columns of the output are sliced off.
+//
 // For one (batch, head, 64 query rows) a block of 4 warps computes
 //
 //     out = softmax(Q K^T / sqrt(Dh) + mask) V
@@ -38,12 +44,15 @@
 // 16-byte stores; rows past Lq are not written.  No atomics: two launches
 // give the same bits.
 //
-// Budget: shared memory (2 Lk_pad + 64) * 72 * 2 + 4 kKeyWords Lk_pad bytes,
-// 65,280 B at Lk = 190 with one word a key: 4 resident blocks (16 warps) per
-// SM up to Lk_pad = 160 and 3 above, so one block's copies overlap another's
-// products; the kernels' __launch_bounds__ ask for that residency (at most
-// 128 registers a thread for 4 blocks, 168 for 3).  These instances take
-// Lk_pad <= 192 (NP <= kMaxPairs).
+// Budget at Dh 64: shared memory (2 Lk_pad + 64) * 72 * 2 + 4 kKeyWords Lk_pad
+// bytes, 65,280 B at Lk = 190 with one word a key: 4 resident blocks (16
+// warps) per SM up to Lk_pad = 160 and 3 above, so one block's copies overlap
+// another's products; the kernels' __launch_bounds__ ask for that residency
+// (at most 128 registers a thread for 4 blocks, 168 for 3).  At Dh 128 the
+// rows are 136 elements (122,624 B at Lk_pad = 192) and the O accumulator
+// doubles to 64 fp32 a lane: the bounds ask for 2 blocks (255 registers), and
+// shared memory allows 1 to 3.  These instances take Lk_pad <= 192
+// (NP <= kMaxPairs).
 //
 // Longer keys (the encoders at --max_img_seq_length > 52) go to the
 // key-looped instance attention_mma_tile_long<Mask>; the Pallas kernels need
@@ -56,10 +65,11 @@
 // rounds it to bf16 after the normalisation, as the short instances do, and
 // accumulates O += P V.  So the order of casts is the TPU kernels' (no
 // unnormalised P is ever rounded); only the sum's order differs (the
-// running rescale).  Shared memory 47,104 B with two mask words a key,
-// whatever Lk: up to 4 blocks per SM.  No atomics: two launches give the
-// same bits.  Both instances take Dh = 64 (the wrappers raise before launch
-// otherwise) and 16-byte aligned rows; the key count is unbounded.
+// running rescale).  Shared memory 47,104 B at Dh 64 with two mask words a
+// key, whatever Lk: up to 4 blocks per SM (88,064 B and 2 at Dh 128).  No
+// atomics: two launches give the same bits.  Both instances take Dh = 64 or
+// 128 (the launchers refuse any other) and 16-byte aligned rows; the key
+// count is unbounded.
 //
 // A Mask functor provides:
 //   using Args;                       the kernel's one argument, a struct
@@ -90,35 +100,43 @@ using bf16 = __nv_bfloat16;
 constexpr int kMmaWarps = 4;
 constexpr int kMmaThreads = kMmaWarps * 32;
 constexpr int kTileRows = 16 * kMmaWarps;  // query rows per block, 16 per warp
-constexpr int kMmaDh = 64;                 // the one head dim instantiated
 constexpr int kMaxPairs = 12;              // 16-key steps of the resident instances
 constexpr int kBlkKeys = 64;               // keys per block of the key-looped instance
 constexpr int kBlkPairs = kBlkKeys / 16;
 constexpr int kRowPad = 8;                 // elements (16 bytes) after each smem row
-constexpr int kS = kMmaDh + kRowPad;       // row stride of K, V and Q in shared memory
 
-// Dynamic shared memory of one block: K, V, the Q tile, and `key_words`
-// 32-bit words of the mask per key.
-size_t mma_smem_bytes(int lk, int key_words) {
+// Blocks per SM the kernels' __launch_bounds__ ask for: at Dh 64, 4 up to
+// Lk_pad = 160 (128 registers) and 3 above (168); at Dh 128, 2 (255).
+__host__ __device__ constexpr int mma_min_blocks(int dh, int np) {
+  return dh == 64 ? (np <= 10 ? 4 : 3) : 2;
+}
+// The key-looped instance's: 4 at Dh 64 (128 registers), 2 at Dh 128.
+__host__ __device__ constexpr int mma_long_min_blocks(int dh) { return dh == 64 ? 4 : 2; }
+
+// Dynamic shared memory of one block at head dim `dh`: K, V, the Q tile, and
+// `key_words` 32-bit words of the mask per key.
+size_t mma_smem_bytes(int lk, int key_words, int dh) {
   const size_t lkp = pad16(lk);
-  return sizeof(bf16) * (2 * lkp + kTileRows) * kS + sizeof(float) * key_words * lkp;
+  return sizeof(bf16) * (2 * lkp + kTileRows) * (dh + kRowPad) +
+         sizeof(float) * key_words * lkp;
 }
 
 // The key-looped instance's: two K and two V blocks, the Q tile, and two
 // blocks of mask words.
-size_t mma_long_smem_bytes(int key_words) {
-  return sizeof(bf16) * (4 * kBlkKeys + kTileRows) * kS +
+size_t mma_long_smem_bytes(int key_words, int dh) {
+  return sizeof(bf16) * (4 * kBlkKeys + kTileRows) * (dh + kRowPad) +
          sizeof(float) * 2 * key_words * kBlkKeys;
 }
 
 // Accumulator layout of an m16n8 tile: c[e] sits at row lane / 4 + 8 (e / 2),
 // column 2 (lane % 4) + e % 2.  A fragment (16x16): a[0] rows 0-7, a[1] rows
 // 8-15, a[2] and a[3] the same rows at columns 8-15.
-template <int NP, class Mask>
+template <int Dh, int NP, class Mask>
 __device__ __forceinline__ void attention_mma_tile(const typename Mask::Args& a) {
-  constexpr int kChunks = kMmaDh / 8;  // 16-byte chunks per row
-  constexpr int kSteps = kMmaDh / 16;  // k-steps over Dh
-  constexpr int kDt = kMmaDh / 8;      // 8-wide n-tiles over Dh
+  constexpr int kS = Dh + kRowPad;  // row stride of K, V and Q in shared memory
+  constexpr int kChunks = Dh / 8;   // 16-byte chunks per row
+  constexpr int kSteps = Dh / 16;   // k-steps over Dh
+  constexpr int kDt = Dh / 8;       // 8-wide n-tiles over Dh
   constexpr int kLkp = 16 * NP;
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -255,7 +273,7 @@ __device__ __forceinline__ void attention_mma_tile(const typename Mask::Args& a)
     const int d = (c % kChunks) * 8;
     const int i = i0 + r0 + r;
     if (i < a.lq)
-      *reinterpret_cast<uint4*>(a.out + ((int64_t(b) * a.lq + i) * a.n_heads + h) * kMmaDh + d) =
+      *reinterpret_cast<uint4*>(a.out + ((int64_t(b) * a.lq + i) * a.n_heads + h) * Dh + d) =
           *reinterpret_cast<const uint4*>(o_s + r * kS + d);
   }
 }
@@ -263,11 +281,12 @@ __device__ __forceinline__ void attention_mma_tile(const typename Mask::Args& a)
 // The key-looped instance for any Lk (used above Lk_pad = 192): the same
 // per-warp rows, fragments and order of casts as attention_mma_tile, over
 // key blocks of kBlkKeys in two sweeps (the design is in the header note).
-template <class Mask>
+template <int Dh, class Mask>
 __device__ __forceinline__ void attention_mma_tile_long(const typename Mask::Args& a) {
-  constexpr int kChunks = kMmaDh / 8;
-  constexpr int kSteps = kMmaDh / 16;
-  constexpr int kDt = kMmaDh / 8;
+  constexpr int kS = Dh + kRowPad;
+  constexpr int kChunks = Dh / 8;
+  constexpr int kSteps = Dh / 16;
+  constexpr int kDt = Dh / 8;
   constexpr int kBuf = kBlkKeys * kS;                     // one K or V block
   constexpr int kMaskBuf = kBlkKeys * Mask::kKeyWords;    // one block of mask words
 
@@ -434,7 +453,7 @@ __device__ __forceinline__ void attention_mma_tile_long(const typename Mask::Arg
     const int d = (c % kChunks) * 8;
     const int i = i0 + r0 + r;
     if (i < a.lq)
-      *reinterpret_cast<uint4*>(a.out + ((int64_t(b) * a.lq + i) * a.n_heads + h) * kMmaDh + d) =
+      *reinterpret_cast<uint4*>(a.out + ((int64_t(b) * a.lq + i) * a.n_heads + h) * Dh + d) =
           *reinterpret_cast<const uint4*>(o_s + r * kS + d);
   }
 }
@@ -452,7 +471,7 @@ int launch_mma(const Args& a, int b, size_t smem, cudaStream_t stream) {
 
 // `launch.template run<NP>()` for the instance whose score tile holds
 // Lk_pad = pad16(lk) = 16 NP keys; `launch.run_long()`, the key-looped
-// instance, above 16 kMaxPairs keys.
+// instance, above 16 kMaxPairs keys.  Each picks its head dim's instance.
 template <int NP, class Launch>
 int launch_pairs(int lk, const Launch& launch) {
   if constexpr (NP > kMaxPairs) {

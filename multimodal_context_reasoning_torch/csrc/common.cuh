@@ -41,10 +41,13 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// The widest head the FP32-pipe kernels take (MAX_DH in
-// ops/fused_attention.py): their streaming variants keep a row of q (and dO)
-// and kMaxDh / 32 output columns per lane.
-constexpr int kMaxDh = 128;
+// The widest head the FP32-pipe kernels take (MAX_DH[torch.float32] in
+// ops/fused_attention.py).  Their streaming variants keep a row of q (and
+// dO) in shared memory and MaxDh / 32 output columns per lane, MaxDh a
+// template parameter instantiated at kNarrowDh (heads up to 128, the
+// registers they always had) and at kMaxDh (heads from 129 to 256).
+constexpr int kMaxDh = 256;
+constexpr int kNarrowDh = 128;
 
 // True when one block may opt in to `smem` bytes of dynamic shared memory on
 // the current device (227 KB on an H100); the FP32-pipe kernels stage K and
@@ -89,6 +92,11 @@ cudaError_t reserve_smem(size_t smem) {
 }
 
 // ---- tensor-core helpers of the bf16 kernels (mma.sync, ldmatrix, cp.async)
+
+// The head dims the bf16 kernels are instantiated at, their Dh template
+// parameter (BF16_HEAD_DIMS in ops/fused_attention.py, whose launchers
+// zero-pad a narrower head to the next); the launchers refuse any other.
+__host__ __device__ constexpr bool mma_head_dim(int dh) { return dh == 64 || dh == 128; }
 
 __host__ __device__ constexpr int pad16(int n) { return (n + 15) & ~15; }
 

@@ -59,10 +59,17 @@
 //   Budget: shared memory 156,160 B at Lk = 138 and 194,560 B at Lk = 190,
 //   one block (8 warps) per SM; registers and spills as ptxas -v reports
 //   them (chip_smoke.py phase 2, PERF.md).  That holds K and V for up to
-//   kResidentKeys = 192 keys; above, flash_bwd_mma_long_kernel sweeps the
-//   keys in blocks of 64 (its note below; 92,160 B of shared memory at any
-//   Lk).  Both take Dh = 64 (the wrapper raises before launch otherwise) and
-//   16-byte aligned rows.
+//   resident_keys(64) = 192 keys; above, flash_bwd_mma_long_kernel sweeps
+//   the keys in blocks of 64 (its note below; 92,160 B of shared memory at
+//   any Lk).  Both exist at Dh = 64 and Dh = 128 (the wrapper zero-pads a
+//   narrower head to the next, with the true width's scale, and refuses a
+//   wider one before launch) and take 16-byte aligned rows.  At Dh 128 the
+//   resident kernel holds up to 128 keys (208,896 B of shared memory): its
+//   dK and dV sums are 2 Lk_pad Dh fp32 over 256 threads, 128 registers a
+//   thread at 128 keys and 192 at 144, the most shared memory would hold;
+//   and it reads the Q and dO fragments from shared memory at each product
+//   instead of holding them (64 registers).  Above 128 keys the key-looped
+//   kernel runs, 141,312 B at Dh 128.
 //
 // * fp32: flash_bwd_kernel, on the FP32 pipes.  A block stages its head's
 //   K and V in shared memory and walks the query rows in rounds of eight:
@@ -73,7 +80,8 @@
 //   thread owning fixed (key, dimension) cells.  155 KB of shared memory
 //   at Lk = 138, 212 KB at Lk = 190.  Beyond one block's shared memory
 //   (about 208 keys at Dh 64) flash_bwd_stream_kernel reads K and V from
-//   device memory and keeps the dK and dV sums in the outputs.
+//   device memory and keeps the dK and dV sums in the outputs.  Both take
+//   head dims up to kMaxDh = 256 (common.cuh).
 //
 // Plain C interface, loaded with ctypes (multimodal_context_reasoning_torch/
 // ops/flash.py).  The launcher returns cudaGetLastError().
@@ -245,7 +253,10 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // keys 32 at a time: each warp writes its row's P and dS for the chunk to
 // shared memory (the dbias atomics as above) and adds the chunk to its dQ,
 // and after a barrier each thread folds the round's rows, in order, into
-// fixed (key, dimension) cells of dK and dV.  Any Lk.
+// fixed (key, dimension) cells of dK and dV.  Any Lk; Dh <= MaxDh, each lane
+// holding MaxDh / 32 dQ columns (instantiated at kNarrowDh and kMaxDh,
+// common.cuh).
+template <int MaxDh>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_stream_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ dout,
@@ -256,8 +267,8 @@ flash_bwd_stream_kernel(const float* __restrict__ q, const float* __restrict__ k
                         int64_t skh, int64_t svb, int64_t svi, int64_t svh, int64_t sob,
                         int64_t soi, int64_t soh, int64_t sbb, int64_t sbq, int64_t sbk,
                         float scale) {
-  __shared__ float q_s[kWarps][kMaxDh];
-  __shared__ float do_s[kWarps][kMaxDh];
+  __shared__ float q_s[kWarps][MaxDh];
+  __shared__ float do_s[kWarps][MaxDh];
   __shared__ float p_s[kWarps][32];   // P of the chunk, one row per warp
   __shared__ float ds_s[kWarps][32];  // dS / sqrt(Dh) of the chunk
   const int h = blockIdx.x;
@@ -319,7 +330,7 @@ flash_bwd_stream_kernel(const float* __restrict__ q, const float* __restrict__ k
       row_dot = warp_sum(row_dot);
     }
 
-    float dq_r[kMaxDh / 32] = {};
+    float dq_r[MaxDh / 32] = {};
     for (int j0 = 0; j0 < lk; j0 += 32) {
       const int j = j0 + lane;
       float pj = 0.f, dsj = 0.f;
@@ -337,7 +348,7 @@ flash_bwd_stream_kernel(const float* __restrict__ q, const float* __restrict__ k
       const int n = min(32, lk - j0);
       if (active) {
 #pragma unroll
-        for (int r = 0; r < kMaxDh / 32; ++r) {
+        for (int r = 0; r < MaxDh / 32; ++r) {
           const int d = lane + 32 * r;
           if (d < dh)
             for (int jj = 0; jj < n; ++jj)
@@ -363,7 +374,7 @@ flash_bwd_stream_kernel(const float* __restrict__ q, const float* __restrict__ k
     if (active) {
       float* dqi = dq + ((int64_t(b) * lq + i) * n_heads + h) * dh;
 #pragma unroll
-      for (int r = 0; r < kMaxDh / 32; ++r)
+      for (int r = 0; r < MaxDh / 32; ++r)
         if (lane + 32 * r < dh) dqi[lane + 32 * r] = dq_r[r];
     }
   }
@@ -376,11 +387,16 @@ using bf16 = __nv_bfloat16;
 constexpr int kMmaWarps = 8;
 constexpr int kMmaThreads = kMmaWarps * 32;
 constexpr int kTileRows = 16 * kMmaWarps;  // query rows per tile, 16 per warp
-constexpr int kMmaDh = 64;                 // the one head dim instantiated
-constexpr int kResidentKeys = 192;         // K and V resident in flash_bwd_mma_kernel
 constexpr int kRowPad = 8;                 // elements (16 bytes) after each smem row
-// dK and dV units of 16 keys x Dh: 2 * kResidentKeys / 16 = 24 over 8 warps
-constexpr int kMaxUnits = 2 * kResidentKeys / 16 / kMmaWarps;
+
+// Keys held resident in flash_bwd_mma_kernel<Dh>: 192 at Dh 64; 128 at
+// Dh 128, where the dK and dV sums reach 128 registers a thread.
+__host__ __device__ constexpr int resident_keys(int dh) { return dh == 64 ? 192 : 128; }
+// dK and dV units of 16 keys x Dh per warp: 2 * 192 / 16 = 24 over 8 warps
+// at Dh 64, 2 * 128 / 16 = 16 at Dh 128.
+__host__ __device__ constexpr int max_units(int dh) {
+  return (2 * resident_keys(dh) / 16 + kMmaWarps - 1) / kMmaWarps;
+}
 // flash_bwd_mma_long_kernel's key blocks: 2 * 64 / 16 = 8 units, one per warp
 constexpr int kBlkKeys = 64;
 constexpr int kBlkPairs = kBlkKeys / 16;
@@ -416,6 +432,11 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int kChunks = Dh / 8;   // 16-byte chunks per row
   constexpr int kSteps = Dh / 16;   // k-steps over Dh
   constexpr int kDt = Dh / 8;       // 8-wide n-tiles over Dh
+  constexpr int kMaxUnits = max_units(Dh);
+  // Dh 64 holds the warp's Q and dO fragments in registers for a tile; Dh 128
+  // reads them from shared memory at each product
+  constexpr bool kHoldX = Dh == 64;
+  constexpr int kHeld = kHoldX ? kSteps : 1;
   const int lkp = pad16(lk);
   const int ps = lkp + kRowPad;     // row stride of P and dS
   const int n_pairs = lkp / 16;
@@ -477,16 +498,19 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       row[hi] = i0 + r0 + g + 8 * hi;
       brow[hi] = (bias != nullptr && row[hi] < lq) ? bias + b * sbb + row[hi] * sbq : nullptr;
     }
-    uint32_t qa[kSteps][4], oa[kSteps][4];
+    uint32_t qa[kHeld][4], oa[kHeld][4];
+    if constexpr (kHoldX) {
 #pragma unroll
-    for (int s = 0; s < kSteps; ++s) {
-      const int off = (r0 + (lane & 15)) * kS + 16 * s + 8 * (lane >> 4);
-      ldsm_x4(qa[s], q_s + off);
-      ldsm_x4(oa[s], do_s + off);
+      for (int s = 0; s < kSteps; ++s) {
+        const int off = (r0 + (lane & 15)) * kS + 16 * s + 8 * (lane >> 4);
+        ldsm_x4(qa[s], q_s + off);
+        ldsm_x4(oa[s], do_s + off);
+      }
     }
-    // X (16 rows) times the 16 rows jp*16.. of Y^T, as two 8-key tiles
-    auto product = [&](const uint32_t (&xa)[kSteps][4], const bf16* y_s, int jp,
-                       float (&out)[2][4]) {
+    // X (16 rows: the held fragments xa, or read from x_s) times the 16 rows
+    // jp*16.. of Y^T, as two 8-key tiles
+    auto product = [&](const uint32_t (&xa)[kHeld][4], const bf16* x_s, const bf16* y_s,
+                       int jp, float (&out)[2][4]) {
 #pragma unroll
       for (int n = 0; n < 2; ++n)
 #pragma unroll
@@ -496,12 +520,19 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         uint32_t y[4];
         ldsm_x4(y, y_s + (16 * jp + (lane & 7) + 8 * (lane >> 4)) * kS + 16 * s +
                        8 * ((lane >> 3) & 1));
-        mma16816(out[0], xa[s], y[0], y[1]);
-        mma16816(out[1], xa[s], y[2], y[3]);
+        if constexpr (kHoldX) {
+          mma16816(out[0], xa[s], y[0], y[1]);
+          mma16816(out[1], xa[s], y[2], y[3]);
+        } else {
+          uint32_t x[4];
+          ldsm_x4(x, x_s + (r0 + (lane & 15)) * kS + 16 * s + 8 * (lane >> 4));
+          mma16816(out[0], x, y[0], y[1]);
+          mma16816(out[1], x, y[2], y[3]);
+        }
       }
     };
     auto scores = [&](int jp, float (&sc)[2][4]) {
-      product(qa, k_s, jp, sc);
+      product(qa, q_s, k_s, jp, sc);
 #pragma unroll
       for (int n = 0; n < 2; ++n)
 #pragma unroll
@@ -544,7 +575,7 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int jp = 0; jp < n_pairs; ++jp) {
       float sc[2][4], dp[2][4];
       scores(jp, sc);
-      product(oa, v_s, jp, dp);
+      product(oa, do_s, v_s, jp, dp);
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
 #pragma unroll
@@ -571,7 +602,7 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int jp = 0; jp < n_pairs; ++jp) {
       float sc[2][4], dp[2][4];
       scores(jp, sc);
-      product(oa, v_s, jp, dp);
+      product(oa, do_s, v_s, jp, dp);
       uint32_t a[4];
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
@@ -652,7 +683,7 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// Lk > kResidentKeys: the same three passes per 16 query rows, with the key
+// Lk > resident_keys(Dh): the same three passes per 16 query rows, with the key
 // axis in blocks of kBlkKeys that each pass sweeps in order (K and V copied
 // into shared memory per block).  Per tile of 128 query rows: sweep 1 takes
 // each row's running max and sum (rescaled when the max grows), sweep 2
@@ -683,6 +714,10 @@ flash_bwd_mma_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   constexpr int kChunks = Dh / 8;
   constexpr int kSteps = Dh / 16;
   constexpr int kDt = Dh / 8;
+  // Q and dO fragments held (Dh 64) or read at each product (Dh 128), as in
+  // flash_bwd_mma_kernel
+  constexpr bool kHoldX = Dh == 64;
+  constexpr int kHeld = kHoldX ? kSteps : 1;
   static_assert(2 * kBlkPairs == kMmaWarps, "one dV or dK unit of a key block per warp");
   const int n_blocks = (lk + kBlkKeys - 1) / kBlkKeys;
 
@@ -747,9 +782,9 @@ flash_bwd_mma_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
       row[hi] = i0 + r0 + g + 8 * hi;
       brow[hi] = (bias != nullptr && row[hi] < lq) ? bias + b * sbb + row[hi] * sbq : nullptr;
     }
-    uint32_t qa[kSteps][4], oa[kSteps][4];
-    auto product = [&](const uint32_t (&xa)[kSteps][4], const bf16* y_s, int jp,
-                       float (&out)[2][4]) {
+    uint32_t qa[kHeld][4], oa[kHeld][4];
+    auto product = [&](const uint32_t (&xa)[kHeld][4], const bf16* x_s, const bf16* y_s,
+                       int jp, float (&out)[2][4]) {
 #pragma unroll
       for (int n = 0; n < 2; ++n)
 #pragma unroll
@@ -759,12 +794,19 @@ flash_bwd_mma_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
         uint32_t y[4];
         ldsm_x4(y, y_s + (16 * jp + (lane & 7) + 8 * (lane >> 4)) * kS + 16 * s +
                        8 * ((lane >> 3) & 1));
-        mma16816(out[0], xa[s], y[0], y[1]);
-        mma16816(out[1], xa[s], y[2], y[3]);
+        if constexpr (kHoldX) {
+          mma16816(out[0], xa[s], y[0], y[1]);
+          mma16816(out[1], xa[s], y[2], y[3]);
+        } else {
+          uint32_t x[4];
+          ldsm_x4(x, x_s + (r0 + (lane & 15)) * kS + 16 * s + 8 * (lane >> 4));
+          mma16816(out[0], x, y[0], y[1]);
+          mma16816(out[1], x, y[2], y[3]);
+        }
       }
     };
     auto scores = [&](int key0, int jp, float (&sc)[2][4]) {
-      product(qa, k_s, jp, sc);
+      product(qa, q_s, k_s, jp, sc);
 #pragma unroll
       for (int n = 0; n < 2; ++n)
 #pragma unroll
@@ -785,12 +827,14 @@ flash_bwd_mma_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     float l[2] = {0.f, 0.f};
     for (int blk = 0; blk < n_blocks; ++blk) {
       load_kv(blk, false);
-      if (blk == 0) {
+      if constexpr (kHoldX) {
+        if (blk == 0) {
 #pragma unroll
-        for (int s = 0; s < kSteps; ++s) {
-          const int off = (r0 + (lane & 15)) * kS + 16 * s + 8 * (lane >> 4);
-          ldsm_x4(qa[s], q_s + off);
-          ldsm_x4(oa[s], do_s + off);
+          for (int s = 0; s < kSteps; ++s) {
+            const int off = (r0 + (lane & 15)) * kS + 16 * s + 8 * (lane >> 4);
+            ldsm_x4(qa[s], q_s + off);
+            ldsm_x4(oa[s], do_s + off);
+          }
         }
       }
       for (int jp = 0; jp < kBlkPairs; ++jp) {
@@ -821,7 +865,7 @@ flash_bwd_mma_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
       for (int jp = 0; jp < kBlkPairs; ++jp) {
         float sc[2][4], dp[2][4];
         scores(blk * kBlkKeys, jp, sc);
-        product(oa, v_s, jp, dp);
+        product(oa, do_s, v_s, jp, dp);
 #pragma unroll
         for (int n = 0; n < 2; ++n)
 #pragma unroll
@@ -847,7 +891,7 @@ flash_bwd_mma_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
       for (int jp = 0; jp < kBlkPairs; ++jp) {
         float sc[2][4], dp[2][4];
         scores(key0, jp, sc);
-        product(oa, v_s, jp, dp);
+        product(oa, do_s, v_s, jp, dp);
         uint32_t a[4];
 #pragma unroll
         for (int n = 0; n < 2; ++n) {
@@ -938,10 +982,14 @@ int launch_fp32(const void* q, const void* k, const void* v, const void* dout,
                 const float* bias, void* dq, void* dk, void* dv, float* dbias, int b,
                 int lq, int lk, int h, int dh, const long long* st, float scale,
                 cudaStream_t stream) {
+  if (dh < 1 || dh > kMaxDh) return int(cudaErrorInvalidValue);
   const dim3 grid(h, b);
   const size_t smem = smem_bytes<float>(lk, dh);
   if (!fits_smem(smem)) {
-    flash_bwd_stream_kernel<<<grid, kThreads, 0, stream>>>(
+    // the narrower of the streaming kernel's two widths that holds Dh
+    auto kernel = dh <= kNarrowDh ? flash_bwd_stream_kernel<kNarrowDh>
+                                  : flash_bwd_stream_kernel<kMaxDh>;
+    kernel<<<grid, kThreads, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), bias,
         static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), dbias,
@@ -963,37 +1011,50 @@ int launch_fp32(const void* q, const void* k, const void* v, const void* dout,
 // The fp32 floats flash_bwd_mma_long_kernel keeps between query tiles (none
 // when it has one tile, or when K and V are resident).
 size_t long_part_floats(int b, int lq, int lk, int h, int dh) {
-  return lk > kResidentKeys && lq > kTileRows ? 2 * size_t(b) * h * lk * dh : 0;
+  return lk > resident_keys(dh) && lq > kTileRows ? 2 * size_t(b) * h * lk * dh : 0;
 }
 
-int launch_bf16(const void* q, const void* k, const void* v, const void* dout,
-                const float* bias, void* dq, void* dk, void* dv, float* dbias, float* part,
-                int b, int lq, int lk, int h, int dh, const long long* st, float scale,
-                cudaStream_t stream) {
-  if (dh != kMmaDh) return int(cudaErrorInvalidValue);
+// The resident kernel at head dim Dh up to resident_keys(Dh) keys, the
+// key-looped one above.
+template <int Dh>
+int launch_bf16_at(const void* q, const void* k, const void* v, const void* dout,
+                   const float* bias, void* dq, void* dk, void* dv, float* dbias, float* part,
+                   int b, int lq, int lk, int h, const long long* st, float scale,
+                   cudaStream_t stream) {
   const dim3 grid(h, b);
-  if (lk > kResidentKeys) {
-    if (part == nullptr && long_part_floats(b, lq, lk, h, dh) > 0)
+  if (lk > resident_keys(Dh)) {
+    if (part == nullptr && long_part_floats(b, lq, lk, h, Dh) > 0)
       return int(cudaErrorInvalidValue);
-    const size_t smem = mma_long_smem_bytes(dh);
-    const cudaError_t err = reserve_smem<flash_bwd_mma_long_kernel<kMmaDh>>(smem);
+    const size_t smem = mma_long_smem_bytes(Dh);
+    const cudaError_t err = reserve_smem<flash_bwd_mma_long_kernel<Dh>>(smem);
     if (err != cudaSuccess) return int(err);
-    flash_bwd_mma_long_kernel<kMmaDh><<<grid, kMmaThreads, smem, stream>>>(
+    flash_bwd_mma_long_kernel<Dh><<<grid, kMmaThreads, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<const bf16*>(dout), bias, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
         static_cast<bf16*>(dv), dbias, part, lq, lk, h, st[0], st[1], st[2], st[3], st[4],
         st[5], st[6], st[7], st[8], st[9], st[10], st[11], st[12], st[13], st[14], scale);
     return int(cudaGetLastError());
   }
-  const size_t smem = mma_smem_bytes(lk, dh);
-  const cudaError_t err = reserve_smem<flash_bwd_mma_kernel<kMmaDh>>(smem);
+  const size_t smem = mma_smem_bytes(lk, Dh);
+  const cudaError_t err = reserve_smem<flash_bwd_mma_kernel<Dh>>(smem);
   if (err != cudaSuccess) return int(err);
-  flash_bwd_mma_kernel<kMmaDh><<<grid, kMmaThreads, smem, stream>>>(
+  flash_bwd_mma_kernel<Dh><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), bias, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), dbias, lq, lk, h, st[0], st[1], st[2], st[3], st[4], st[5],
       st[6], st[7], st[8], st[9], st[10], st[11], st[12], st[13], st[14], scale);
   return int(cudaGetLastError());
+}
+
+int launch_bf16(const void* q, const void* k, const void* v, const void* dout,
+                const float* bias, void* dq, void* dk, void* dv, float* dbias, float* part,
+                int b, int lq, int lk, int h, int dh, const long long* st, float scale,
+                cudaStream_t stream) {
+  if (!mma_head_dim(dh)) return int(cudaErrorInvalidValue);
+  return dh == 64 ? launch_bf16_at<64>(q, k, v, dout, bias, dq, dk, dv, dbias, part, b, lq,
+                                       lk, h, st, scale, stream)
+                  : launch_bf16_at<128>(q, k, v, dout, bias, dq, dk, dv, dbias, part, b, lq,
+                                        lk, h, st, scale, stream);
 }
 
 }  // namespace
@@ -1011,9 +1072,11 @@ long long flash_bwd_part_floats(int b, int lq, int lk, int h, int dh, int is_bf1
 // (null: no bias).  dq, dk, dv are contiguous in q's layout and type; dbias,
 // when not null, is a zeroed contiguous fp32 [B, Lq, Lk] plane the kernel
 // adds the head-summed dS into; `part` holds flash_bwd_part_floats() fp32
-// (null when that is 0).  bf16 goes to the tensor-core kernels (Dh 64, rows
-// 16-byte aligned; resident K/V up to 192 keys, key-looped above), fp32 to
-// the FP32-pipe kernels (staged K/V while they fit, streamed above).
+// (null when that is 0); `scale` is 1 / sqrt of the true head dim when the
+// caller has zero-padded it.  bf16 goes to the tensor-core kernels (Dh 64 or
+// 128, rows 16-byte aligned; resident K/V up to 192 keys at Dh 64 and 128 at
+// Dh 128, key-looped above), fp32 to the FP32-pipe kernels (Dh up to 256;
+// staged K/V while they fit, streamed above).
 int flash_attention_backward(const void* q, const void* k, const void* v,
                              const void* dout, const float* bias, void* dq, void* dk,
                              void* dv, float* dbias, float* part, int b, int lq, int lk,

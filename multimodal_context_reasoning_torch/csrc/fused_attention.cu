@@ -35,9 +35,10 @@
 //   spill bytes in every instance; 128 registers at Lk_pad = 144 (the
 //   training path) and 160, 168 at 176 and 192, 45 to 128 below.
 //   Above 192 keys the key-looped dense_attention_mma_long_kernel runs the
-//   tile's key loop (attention_mma_tile_long).  It takes Dh = 64 (the
-//   wrapper raises before launch otherwise), 16-byte aligned rows and any
-//   Lk.  Why not one 8-warp block per
+//   tile's key loop (attention_mma_tile_long).  Every instance exists at
+//   Dh = 64 and Dh = 128 (the wrapper zero-pads a narrower head to the next
+//   and refuses a wider one before launch), takes 16-byte aligned rows and
+//   any Lk.  Why not one 8-warp block per
 //   (batch, head), staging K and V once: twice the shared memory per block
 //   and half the blocks, while the second 64-row block's K/V read mostly
 //   hits L2.
@@ -49,7 +50,8 @@
 //   reduces max and sum with shuffles, and each lane then accumulates its
 //   share of the output dimensions.  Where K and V do not fit in one block's
 //   shared memory (about 417 keys at Dh 64), dense_attention_stream_kernel
-//   reads them from device memory instead, 32 keys at a time per warp.
+//   reads them from device memory instead, 32 keys at a time per warp.  Both
+//   take head dims up to kMaxDh = 256 (common.cuh).
 //
 // Plain C interface, loaded with ctypes (multimodal_context_reasoning_torch/
 // ops/fused_attention.py).  The launcher returns cudaGetLastError().
@@ -154,8 +156,10 @@ dense_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // of casts, with each warp streaming its row's keys from device memory
 // (through L1 and L2) in two passes: a running max and sum per lane, merged
 // across the warp; then P for 32 keys at a time into a warp buffer and
-// out += P V, lanes over the output dimensions.  Any Lk.
-template <typename T>
+// out += P V, lanes over the output dimensions.  Any Lk; Dh <= MaxDh, each
+// lane holding MaxDh / 32 output columns (instantiated at kNarrowDh and
+// kMaxDh, common.cuh).
+template <typename T, int MaxDh>
 __global__ void __launch_bounds__(kThreads)
 dense_attention_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ v, const float* __restrict__ bias,
@@ -164,7 +168,7 @@ dense_attention_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               int64_t ski, int64_t skh, int64_t svb, int64_t svi,
                               int64_t svh, int64_t sbb, int64_t sbq, int64_t sbk,
                               float scale) {
-  __shared__ float q_s[kWarps][kMaxDh];
+  __shared__ float q_s[kWarps][MaxDh];
   __shared__ float p_s[kWarps][32];
   const int b = blockIdx.z;
   const int h = blockIdx.y;
@@ -201,7 +205,7 @@ dense_attention_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float mw = warp_max(m);
     const float sum = warp_sum(m == -INFINITY ? 0.f : l * expf(m - mw));
 
-    float acc[kMaxDh / 32] = {};
+    float acc[MaxDh / 32] = {};
     for (int j0 = 0; j0 < lk; j0 += 32) {
       const int j = j0 + lane;
       // normalise, then round P to V's type before PV, as the TPU kernel does
@@ -209,7 +213,7 @@ dense_attention_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
       __syncwarp();
       const int n = min(32, lk - j0);
 #pragma unroll
-      for (int r = 0; r < kMaxDh / 32; ++r) {
+      for (int r = 0; r < MaxDh / 32; ++r) {
         const int d = lane + 32 * r;
         if (d < dh)
           for (int jj = 0; jj < n; ++jj)
@@ -219,24 +223,27 @@ dense_attention_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     T* oi = out + ((int64_t(b) * lq + i) * n_heads + h) * dh;
 #pragma unroll
-    for (int r = 0; r < kMaxDh / 32; ++r)
+    for (int r = 0; r < MaxDh / 32; ++r)
       if (lane + 32 * r < dh) oi[lane + 32 * r] = from_f<T>(acc[r]);
     __syncwarp();  // q_row is rewritten by this warp's next row
   }
 }
 
 // The staged kernel when K and V fit in one block's shared memory, else the
-// streaming one.
+// streaming one at the narrower of its two widths that holds Dh.
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const float* bias, void* out,
            int b, int lq, int lk, int h, int dh, int64_t sqb, int64_t sqi,
            int64_t sqh, int64_t skb, int64_t ski, int64_t skh, int64_t svb,
            int64_t svi, int64_t svh, int64_t sbb, int64_t sbq, int64_t sbk,
            float scale, cudaStream_t stream) {
+  if (dh < 1 || dh > kMaxDh) return int(cudaErrorInvalidValue);
   const dim3 grid((lq + kRowsPerBlock - 1) / kRowsPerBlock, h, b);
   const size_t smem = smem_bytes<T>(lk, dh);
   if (!fits_smem(smem)) {
-    dense_attention_stream_kernel<T><<<grid, kThreads, 0, stream>>>(
+    auto kernel = dh <= kNarrowDh ? dense_attention_stream_kernel<T, kNarrowDh>
+                                  : dense_attention_stream_kernel<T, kMaxDh>;
+    kernel<<<grid, kThreads, 0, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         bias, static_cast<T*>(out), lq, lk, h, dh, sqb, sqi, sqh, skb, ski, skh, svb,
         svi, svh, sbb, sbq, sbk, scale);
@@ -313,36 +320,38 @@ struct PlaneBias {
   }
 };
 
-template <int NP, class Mask>
-__global__ void __launch_bounds__(kMmaThreads, NP <= 10 ? 4 : 3)
+template <int Dh, int NP, class Mask>
+__global__ void __launch_bounds__(kMmaThreads, mma_min_blocks(Dh, NP))
 dense_attention_mma_kernel(const MmaArgs a) {
-  attention_mma_tile<NP, Mask>(a);
+  attention_mma_tile<Dh, NP, Mask>(a);
 }
 
 // Lk > 192: the key-looped instance (attention_mma.cuh).
-template <class Mask>
-__global__ void __launch_bounds__(kMmaThreads, 4)
+template <int Dh, class Mask>
+__global__ void __launch_bounds__(kMmaThreads, mma_long_min_blocks(Dh))
 dense_attention_mma_long_kernel(const MmaArgs a) {
-  attention_mma_tile_long<Mask>(a);
+  attention_mma_tile_long<Dh, Mask>(a);
 }
 
-// The row or plane instance at Lk_pad = 16 NP, or the key-looped one.
+// The row or plane instance at Lk_pad = 16 NP, or the key-looped one, at
+// head dim Dh.
+template <int Dh>
 struct DenseLaunch {
   const MmaArgs& a;
   int b;
   cudaStream_t stream;
   template <int NP>
   int run() const {
-    const size_t smem = mma_smem_bytes(16 * NP, RowBias::kKeyWords);  // both masks
+    const size_t smem = mma_smem_bytes(16 * NP, RowBias::kKeyWords, Dh);  // both masks
     return a.sbq == 0
-               ? launch_mma<dense_attention_mma_kernel<NP, RowBias>>(a, b, smem, stream)
-               : launch_mma<dense_attention_mma_kernel<NP, PlaneBias>>(a, b, smem, stream);
+               ? launch_mma<dense_attention_mma_kernel<Dh, NP, RowBias>>(a, b, smem, stream)
+               : launch_mma<dense_attention_mma_kernel<Dh, NP, PlaneBias>>(a, b, smem, stream);
   }
   int run_long() const {
-    const size_t smem = mma_long_smem_bytes(RowBias::kKeyWords);
+    const size_t smem = mma_long_smem_bytes(RowBias::kKeyWords, Dh);
     return a.sbq == 0
-               ? launch_mma<dense_attention_mma_long_kernel<RowBias>>(a, b, smem, stream)
-               : launch_mma<dense_attention_mma_long_kernel<PlaneBias>>(a, b, smem, stream);
+               ? launch_mma<dense_attention_mma_long_kernel<Dh, RowBias>>(a, b, smem, stream)
+               : launch_mma<dense_attention_mma_long_kernel<Dh, PlaneBias>>(a, b, smem, stream);
   }
 };
 
@@ -350,11 +359,12 @@ int launch_bf16(const void* q, const void* k, const void* v, const float* bias, 
                 int b, int lq, int lk, int h, int dh, int64_t sqb, int64_t sqi, int64_t sqh,
                 int64_t skb, int64_t ski, int64_t skh, int64_t svb, int64_t svi, int64_t svh,
                 int64_t sbb, int64_t sbq, int64_t sbk, float scale, cudaStream_t stream) {
-  if (dh != kMmaDh) return int(cudaErrorInvalidValue);
+  if (!mma_head_dim(dh)) return int(cudaErrorInvalidValue);
   const MmaArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                   static_cast<const bf16*>(v), bias, static_cast<bf16*>(out), lq, lk, h,
                   sqb, sqi, sqh, skb, ski, skh, svb, svi, svh, sbb, sbq, sbk, scale};
-  return launch_pairs<1>(lk, DenseLaunch{a, b, stream});
+  return dh == 64 ? launch_pairs<1>(lk, DenseLaunch<64>{a, b, stream})
+                  : launch_pairs<1>(lk, DenseLaunch<128>{a, b, stream});
 }
 
 }  // namespace
@@ -364,9 +374,11 @@ extern "C" {
 // q [B, Lq, H, Dh], k and v [B, Lk, H, Dh] with unit stride on Dh and the
 // given element strides on B, L and H; bias fp32 addressed as
 // bias[b * sbb + i * sbq + j * sbk] (null: no bias); out contiguous
-// [B, Lq, H, Dh] of q's type.  bf16 goes to the tensor-core kernels (Dh 64,
-// rows 16-byte aligned; resident K/V up to 192 keys, key-looped above), fp32
-// to the FP32-pipe kernels (staged K/V while they fit, streamed above).
+// [B, Lq, H, Dh] of q's type; `scale` multiplies Q K^T (1 / sqrt of the
+// true head dim when the caller has zero-padded it).  bf16 goes to the
+// tensor-core kernels (Dh 64 or 128, rows 16-byte aligned; resident K/V up
+// to 192 keys, key-looped above), fp32 to the FP32-pipe kernels (Dh up to
+// 256; staged K/V while they fit, streamed above).
 int dense_attention_forward(const void* q, const void* k, const void* v,
                             const float* bias, void* out, int b, int lq, int lk,
                             int h, int dh, long long sqb, long long sqi,

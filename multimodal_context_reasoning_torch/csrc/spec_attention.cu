@@ -46,8 +46,9 @@
 //   0 spill bytes in every instance.  Above 192 keys the key-looped
 //   spec_attention_mma_long_kernel runs the tile's key loop
 //   (attention_mma_tile_long: K and V in double-buffered blocks of 64 keys,
-//   the mask staged per block).  It takes Dh = 64 and 16-byte aligned rows
-//   (the wrapper raises before launch otherwise), and any Lk.
+//   the mask staged per block).  Every instance exists at Dh = 64 and
+//   Dh = 128 (the wrapper zero-pads a narrower head to the next and refuses
+//   a wider one before launch), takes 16-byte aligned rows and any Lk.
 //
 // * fp32 (the parity checks): spec_attention_kernel, on the FP32 pipes.
 //   Each block stages one head's whole K and V in shared memory and serves
@@ -56,7 +57,8 @@
 //   sum with shuffles, and each lane then accumulates its share of the
 //   output dimensions.  Where K and V do not fit in one block's shared
 //   memory (about 411 keys at Dh 64), spec_attention_stream_kernel reads
-//   them from device memory instead, 32 keys at a time per warp.
+//   them from device memory instead, 32 keys at a time per warp.  Both take
+//   head dims up to kMaxDh = 256 (common.cuh).
 //
 // Plain C interface, loaded with ctypes (multimodal_context_reasoning_torch/
 // ops/spec_attention.py).  The launcher returns cudaGetLastError().
@@ -195,8 +197,10 @@ spec_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // order of casts, with each warp streaming its row's keys (and their valid
 // and gi) from device memory in two passes: a running max and sum per lane,
 // merged across the warp; then P for 32 keys at a time into a warp buffer
-// and out += P V, lanes over the output dimensions.  Any Lk.
-template <typename T>
+// and out += P V, lanes over the output dimensions.  Any Lk; Dh <= MaxDh,
+// each lane holding MaxDh / 32 output columns (instantiated at kNarrowDh and
+// kMaxDh, common.cuh).
+template <typename T, int MaxDh>
 __global__ void __launch_bounds__(kThreads)
 spec_attention_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
                              const T* __restrict__ v, const float* __restrict__ valid,
@@ -205,7 +209,7 @@ spec_attention_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
                              int64_t sqb, int64_t sqi, int64_t sqh, int64_t skb,
                              int64_t ski, int64_t skh, int64_t svb, int64_t svi,
                              int64_t svh, int stage, int text_len, float scale) {
-  __shared__ float q_s[kWarps][kMaxDh];
+  __shared__ float q_s[kWarps][MaxDh];
   __shared__ float p_s[kWarps][32];
   const int b = blockIdx.z;
   const int h = blockIdx.y;
@@ -246,7 +250,7 @@ spec_attention_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float mw = warp_max(m);
     const float sum = warp_sum(m == -INFINITY ? 0.f : l * expf(m - mw));
 
-    float acc[kMaxDh / 32] = {};
+    float acc[MaxDh / 32] = {};
     for (int j0 = 0; j0 < lk; j0 += 32) {
       const int j = j0 + lane;
       // normalise, then round P to V's type before PV, as the TPU kernel does
@@ -254,7 +258,7 @@ spec_attention_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
       __syncwarp();
       const int n = min(32, lk - j0);
 #pragma unroll
-      for (int r = 0; r < kMaxDh / 32; ++r) {
+      for (int r = 0; r < MaxDh / 32; ++r) {
         const int d = lane + 32 * r;
         if (d < dh)
           for (int jj = 0; jj < n; ++jj)
@@ -264,24 +268,27 @@ spec_attention_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     T* oi = out + ((int64_t(b) * lq + i) * n_heads + h) * dh;
 #pragma unroll
-    for (int r = 0; r < kMaxDh / 32; ++r)
+    for (int r = 0; r < MaxDh / 32; ++r)
       if (lane + 32 * r < dh) oi[lane + 32 * r] = from_f<T>(acc[r]);
     __syncwarp();  // q_row is rewritten by this warp's next row
   }
 }
 
 // The staged kernel when K and V fit in one block's shared memory, else the
-// streaming one.
+// streaming one at the narrower of its two widths that holds Dh.
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const float* valid,
            const int* gi, const float* rowfull, void* out, int b, int lq, int lk,
            int h, int dh, int64_t sqb, int64_t sqi, int64_t sqh, int64_t skb,
            int64_t ski, int64_t skh, int64_t svb, int64_t svi, int64_t svh,
            int stage, int text_len, float scale, cudaStream_t stream) {
+  if (dh < 1 || dh > kMaxDh) return int(cudaErrorInvalidValue);
   const dim3 grid((lq + kRowsPerBlock - 1) / kRowsPerBlock, h, b);
   const size_t smem = smem_bytes<T>(lk, dh);
   if (!fits_smem(smem)) {
-    spec_attention_stream_kernel<T><<<grid, kThreads, 0, stream>>>(
+    auto kernel = dh <= kNarrowDh ? spec_attention_stream_kernel<T, kNarrowDh>
+                                  : spec_attention_stream_kernel<T, kMaxDh>;
+    kernel<<<grid, kThreads, 0, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         valid, gi, rowfull, static_cast<T*>(out), lq, lk, h, dh, sqb, sqi, sqh, skb,
         ski, skh, svb, svi, svh, stage, text_len, scale);
@@ -404,20 +411,22 @@ struct ChunkStage {
   }
 };
 
-template <int NP, class Mask>
-__global__ void __launch_bounds__(kMmaThreads, NP <= 10 ? 4 : 3)
+template <int Dh, int NP, class Mask>
+__global__ void __launch_bounds__(kMmaThreads, mma_min_blocks(Dh, NP))
 spec_attention_mma_kernel(const SpecArgs a) {
-  attention_mma_tile<NP, Mask>(a);
+  attention_mma_tile<Dh, NP, Mask>(a);
 }
 
 // Lk > 192: the key-looped instance (attention_mma.cuh).
-template <class Mask>
-__global__ void __launch_bounds__(kMmaThreads, 4)
+template <int Dh, class Mask>
+__global__ void __launch_bounds__(kMmaThreads, mma_long_min_blocks(Dh))
 spec_attention_mma_long_kernel(const SpecArgs a) {
-  attention_mma_tile_long<Mask>(a);
+  attention_mma_tile_long<Dh, Mask>(a);
 }
 
-// The full or chunk/cross instance at Lk_pad = 16 NP, or the key-looped one.
+// The full or chunk/cross instance at Lk_pad = 16 NP, or the key-looped one,
+// at head dim Dh.
+template <int Dh>
 struct SpecLaunch {
   const SpecArgs& a;
   bool full;
@@ -425,16 +434,16 @@ struct SpecLaunch {
   cudaStream_t stream;
   template <int NP>
   int run() const {
-    return full ? launch_mma<spec_attention_mma_kernel<NP, FullStage>>(
-                      a, b, mma_smem_bytes(16 * NP, FullStage::kKeyWords), stream)
-                : launch_mma<spec_attention_mma_kernel<NP, ChunkStage>>(
-                      a, b, mma_smem_bytes(16 * NP, ChunkStage::kKeyWords), stream);
+    return full ? launch_mma<spec_attention_mma_kernel<Dh, NP, FullStage>>(
+                      a, b, mma_smem_bytes(16 * NP, FullStage::kKeyWords, Dh), stream)
+                : launch_mma<spec_attention_mma_kernel<Dh, NP, ChunkStage>>(
+                      a, b, mma_smem_bytes(16 * NP, ChunkStage::kKeyWords, Dh), stream);
   }
   int run_long() const {
-    return full ? launch_mma<spec_attention_mma_long_kernel<FullStage>>(
-                      a, b, mma_long_smem_bytes(FullStage::kKeyWords), stream)
-                : launch_mma<spec_attention_mma_long_kernel<ChunkStage>>(
-                      a, b, mma_long_smem_bytes(ChunkStage::kKeyWords), stream);
+    return full ? launch_mma<spec_attention_mma_long_kernel<Dh, FullStage>>(
+                      a, b, mma_long_smem_bytes(FullStage::kKeyWords, Dh), stream)
+                : launch_mma<spec_attention_mma_long_kernel<Dh, ChunkStage>>(
+                      a, b, mma_long_smem_bytes(ChunkStage::kKeyWords, Dh), stream);
   }
 };
 
@@ -443,13 +452,14 @@ int launch_bf16(const void* q, const void* k, const void* v, const float* valid,
                 int h, int dh, int64_t sqb, int64_t sqi, int64_t sqh, int64_t skb,
                 int64_t ski, int64_t skh, int64_t svb, int64_t svi, int64_t svh,
                 int stage, int text_len, float scale, cudaStream_t stream) {
-  if (dh != kMmaDh || (stage != kFull && lq != lk))
+  if (!mma_head_dim(dh) || (stage != kFull && lq != lk))
     return int(cudaErrorInvalidValue);
   const SpecArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                    static_cast<const bf16*>(v), static_cast<bf16*>(out), valid, gi, rowfull,
                    lq, lk, h, sqb, sqi, sqh, skb, ski, skh, svb, svi, svh, text_len,
                    stage == kCross, scale};
-  return launch_pairs<1>(lk, SpecLaunch{a, stage == kFull, b, stream});
+  return dh == 64 ? launch_pairs<1>(lk, SpecLaunch<64>{a, stage == kFull, b, stream})
+                  : launch_pairs<1>(lk, SpecLaunch<128>{a, stage == kFull, b, stream});
 }
 
 }  // namespace
@@ -458,10 +468,12 @@ extern "C" {
 
 // q [B, Lq, H, Dh], k and v [B, Lk, H, Dh] with unit stride on Dh and the
 // given element strides on B, L and H; valid, rowfull fp32 and gi int32,
-// contiguous [B, Lk]; out contiguous [B, Lq, H, Dh] of q's type.  bf16 goes
-// to the tensor-core kernels (Dh 64, rows 16-byte aligned; resident K/V up to
-// 192 keys, key-looped above), fp32 to the FP32-pipe kernels (staged K/V
-// while they fit, streamed above).
+// contiguous [B, Lk]; out contiguous [B, Lq, H, Dh] of q's type; `scale`
+// multiplies Q K^T (1 / sqrt of the true head dim when the caller has
+// zero-padded it).  bf16 goes to the tensor-core kernels (Dh 64 or 128, rows
+// 16-byte aligned; resident K/V up to 192 keys, key-looped above), fp32 to
+// the FP32-pipe kernels (Dh up to 256; staged K/V while they fit, streamed
+// above).
 int spec_attention_forward(const void* q, const void* k, const void* v,
                            const float* valid, const int* gi,
                            const float* rowfull, void* out, int b, int lq, int lk,

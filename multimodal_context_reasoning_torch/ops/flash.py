@@ -16,12 +16,17 @@ CUDA backward kernel's wrapper (port of the JAX package's ``ops/flash.py``).
   when ``want_dbias`` is false, and the wrapper gives ``None``. bf16 goes to
   the source's tensor-core kernels (K and V resident up to 192 keys; above,
   a key loop whose dK and dV sums pass between 128-row query tiles through
-  an fp32 buffer this wrapper allocates), which take head dim 64 and rows
-  that start on 16 bytes (checked here before launch); fp32 to its FP32-pipe
-  kernels (K and V staged in shared memory while they fit, read from device
-  memory above), which take head dims up to 128. Both take any key count;
-  batch and head count are at most 65535 (the grid). Its ``launches``
-  counter grows by one per kernel launch.
+  an fp32 buffer this wrapper allocates; at head dim 128 the resident
+  kernel holds up to 128 keys), which exist at head dims 64 and 128 and take
+  rows that start on 16 bytes: a head up to 128 wide is zero-padded to the
+  next of the two (q, k, v and dO, with the true width's scale) and dq, dk
+  and dv sliced back (:func:`pad_bf16_heads`; the dbias plane does not
+  depend on the head dim), the alignment checked here before launch; fp32
+  goes to its FP32-pipe kernels (K and V staged in shared memory while they
+  fit, read from device memory above), which take head dims up to 256.  A
+  wider head raises ``ValueError`` naming the limit.  Both take any key
+  count; batch and head count are at most 65535 (the grid).  Its
+  ``launches`` counter grows by one per kernel launch.
 - :func:`mem_efficient_attention` is the dense-bias attention op
   (ops/fused_attention.py), whose gradient, registered here with
   ``torch.library.register_autograd``, saves only (q, k, v, bias) and runs
@@ -41,9 +46,10 @@ from multimodal_context_reasoning_torch.ops.fused_attention import (
     LIBRARY,
     bias_strides,
     call_op,
-    check_bf16_limits,
     check_qkv,
     fused_attention,
+    pad_bf16_heads,
+    unpad_heads,
 )
 
 _lib = torch.library.Library(LIBRARY, "FRAGMENT")
@@ -53,13 +59,14 @@ _lib.define("flash_bwd(Tensor q, Tensor k, Tensor v, Tensor? bias, Tensor d_out,
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
 
 
-def flash_attention_bwd_plain(q, k, v, bias, d_out) -> Grads:
+def flash_attention_bwd_plain(q, k, v, bias, d_out, scale=None) -> Grads:
     """The kernel's function in plain PyTorch: q and d_out [B, Lq, H, Dh], k
     and v [B, Lk, H, Dh], a head-shared bias broadcastable to [B, 1, Lq, Lk]
     (or None) -> (dq, dk, dv in the operand dtype, dbias plane [B, Lq, Lk]
-    fp32)."""
+    fp32).  ``scale`` is the forward's on q kᵀ (default 1/√Dh)."""
     dt = q.dtype
-    scale = 1.0 / q.shape[-1] ** 0.5
+    if scale is None:
+        scale = 1.0 / q.shape[-1] ** 0.5
     qf, kf, vf, dof = q.float(), k.float(), v.float(), d_out.float()
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
     if bias is not None:
@@ -111,18 +118,19 @@ class FlashAttentionBwd:
         bias_ptr, *bstrides = bias_strides(bias, q, lk)
         is_bf16 = int(q.dtype == torch.bfloat16)
         if is_bf16:
-            check_bf16_limits("bf16 attention backward", q, k, v, d_out)
+            q, k, v, d_out = pad_bf16_heads("bf16 attention backward", q, k, v, d_out)
+        width = q.shape[-1]
         lib = self._library()
         strides = (ctypes.c_longlong * 15)(
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *d_out.stride()[:3],
             *bstrides)
 
-        dq = torch.empty((B, lq, H, dh), dtype=q.dtype, device=q.device)
-        dk = torch.empty((B, lk, H, dh), dtype=q.dtype, device=q.device)
+        dq = torch.empty((B, lq, H, width), dtype=q.dtype, device=q.device)
+        dk = torch.empty((B, lk, H, width), dtype=q.dtype, device=q.device)
         dv = torch.empty_like(dk)
         dbias = (torch.zeros((B, lq, lk), dtype=torch.float32, device=q.device)
                  if want_dbias else None)
-        n_part = lib.flash_bwd_part_floats(B, lq, lk, H, dh, is_bf16)
+        n_part = lib.flash_bwd_part_floats(B, lq, lk, H, width, is_bf16)
         part = (torch.empty(n_part, dtype=torch.float32, device=q.device)
                 if n_part else None)
         with torch.cuda.device(q.device):
@@ -132,13 +140,13 @@ class FlashAttentionBwd:
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 dbias.data_ptr() if dbias is not None else 0,
                 part.data_ptr() if part is not None else 0,
-                B, lq, lk, H, dh, strides, 1.0 / dh ** 0.5, is_bf16, stream,
+                B, lq, lk, H, width, strides, 1.0 / dh ** 0.5, is_bf16, stream,
             )
         if err != 0:
             raise RuntimeError(f"flash_bwd kernel launch failed: CUDA error {err} "
                                f"(B={B}, Lq={lq}, Lk={lk}, H={H}, Dh={dh}, {q.dtype})")
         self.launches += 1
-        return dq, dk, dv, dbias
+        return unpad_heads(dq, dh), unpad_heads(dk, dh), unpad_heads(dv, dh), dbias
 
 
 flash_attention_bwd = FlashAttentionBwd()

@@ -21,19 +21,23 @@ v's dtype before PV.
   fake tensors the output's shape, dtype and strides; its gradient
   (ops/flash.py) is the backward kernel's op.  bf16 goes to the source's
   tensor-core kernels (K and V resident up to 192 keys, a key loop above),
-  which take head dim 64 and rows that start on 16 bytes (checked here
-  before launch); fp32 to its FP32-pipe kernels (K and V staged in shared
-  memory while they fit, read from device memory above), which take head
-  dims up to 128. Both take any key count; batch and head count are at most
-  65535 (the grid). Its ``launches`` counter grows by one per kernel launch.
+  which exist at head dims 64 and 128 and take rows that start on 16 bytes:
+  a head up to 128 wide is zero-padded to the next of the two and the
+  output sliced back (:func:`pad_bf16_heads`), and the alignment is checked
+  here before launch; fp32 goes to its FP32-pipe kernels (K and V staged in
+  shared memory while they fit, read from device memory above), which take
+  head dims up to 256.  A wider head raises ``ValueError`` naming the limit
+  (:data:`MAX_DH`).  Both take any key count; batch and head count are at
+  most 65535 (the grid).  Its ``launches`` counter grows by one per kernel
+  launch.
 
 When no input needs a gradient, the wrapper calls the op below the
 autograd key, so serving and the frozen encoders add no autograd
 bookkeeping to a launch.
 
-The helpers :func:`check_qkv`, :func:`check_bf16_limits` and
-:func:`bias_strides` are shared with the backward kernel's wrapper
-(ops/flash.py); the first two with the stage-mask forward's
+The helpers :func:`check_qkv`, :func:`pad_bf16_heads`, :func:`unpad_heads`
+and :func:`bias_strides` are shared with the backward kernel's wrapper
+(ops/flash.py); all but the last with the stage-mask forward's
 (ops/spec_attention.py).
 """
 
@@ -49,19 +53,24 @@ LIBRARY = "modcr_torch"
 _lib = torch.library.Library(LIBRARY, "FRAGMENT")
 _lib.define("dense_attention(Tensor q, Tensor k, Tensor v, Tensor? bias) -> Tensor")
 
-MAX_DH = 128   # kMaxDh, csrc/common.cuh
-# The bf16 tensor-core kernels' head dim (kMmaDh in csrc/attention_mma.cuh,
-# shared by the dense-bias and stage-mask forwards, and in csrc/flash_bwd.cu;
-# their launchers refuse any other).
-BF16_HEAD_DIM = 64
+# The widest head each route takes: the FP32-pipe kernels' kMaxDh
+# (csrc/common.cuh) and the widest tensor-core instance.
+MAX_DH = {torch.float32: 256, torch.bfloat16: 128}
+# The bf16 tensor-core kernels' head dims (the Dh template parameter of the
+# tiles in csrc/attention_mma.cuh, shared by the dense-bias and stage-mask
+# forwards, and of csrc/flash_bwd.cu's kernels; their launchers refuse any
+# other).  A narrower head is zero-padded to the next.
+BF16_HEAD_DIMS = (64, 128)
 
 
 def fused_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          bias: Optional[torch.Tensor]) -> torch.Tensor:
+                          bias: Optional[torch.Tensor],
+                          scale: Optional[float] = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch: q [B, Lq, H, Dh], k and v
     [B, Lk, H, Dh], bias broadcastable to [B, 1, Lq, Lk] -> [B, Lq, H, Dh]
-    in q's dtype."""
-    scale = 1.0 / q.shape[-1] ** 0.5
+    in q's dtype.  ``scale`` multiplies q kᵀ (default 1/√Dh)."""
+    if scale is None:
+        scale = 1.0 / q.shape[-1] ** 0.5
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if bias is not None:
         s = s + bias.float()
@@ -85,10 +94,11 @@ def check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"v {tuple(v.shape)}")
     if any(t.shape != q.shape for t in others):
         raise ValueError("the output gradient must be shaped like q")
-    if dh > MAX_DH:
-        raise ValueError(f"head dim {dh} > {MAX_DH}")
-    if q.dtype not in (torch.float32, torch.bfloat16):
+    if q.dtype not in MAX_DH:
         raise TypeError(f"dtype {q.dtype} not taken (float32 or bfloat16)")
+    if dh > MAX_DH[q.dtype]:
+        raise ValueError(f"{q.dtype} head dim {dh} not taken: the kernels take "
+                         f"{q.dtype} heads up to {MAX_DH[q.dtype]} wide")
     if any(t.dtype != q.dtype for t in (k, v, *others)):
         raise TypeError("q, k, v (and the output gradient) must share one dtype")
     if q.device.type != "cuda" or any(t.device != q.device for t in (k, v, *others)):
@@ -102,14 +112,9 @@ def check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def check_bf16_limits(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       *others: torch.Tensor) -> None:
-    """Raise ``ValueError`` on a bf16 input the tensor-core ``kernel`` does
-    not take: another head dim, or a row (16 bytes and more) that its
-    16-byte copies cannot read.  ``others`` (the output gradient) are shaped
-    like q."""
-    dh = q.shape[-1]
-    if dh != BF16_HEAD_DIM:
-        raise ValueError(f"{kernel}: head dim {dh} not taken "
-                         f"(the kernel is built for {BF16_HEAD_DIM})")
+    """Raise ``ValueError`` on a bf16 input whose rows (16 bytes and more)
+    the tensor-core ``kernel``'s 16-byte copies cannot read.  ``others``
+    (the output gradient) are shaped like q."""
     for name, t in zip(("q", "k", "v", "d_out"), (q, k, v, *others)):
         # one pass per tensor: this runs before every bf16 launch
         (sb, si, sh, _), (nb, ni, nh, _) = t.stride(), t.shape
@@ -118,6 +123,37 @@ def check_bf16_limits(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Te
             raise ValueError(f"{kernel}: {name}'s rows are not 16-byte aligned "
                              f"(data_ptr % 16 = {t.data_ptr() % 16}, "
                              f"strides {tuple(t.stride())})")
+
+
+def pad_bf16_heads(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   *others: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """q, k, v (and ``others``, the output gradient) for a bf16 launch of
+    ``kernel``: at a head dim the tensor cores are built for, as they are;
+    at a narrower one (check_qkv has refused a wider), each zero-padded on
+    the head dimension to the next of :data:`BF16_HEAD_DIMS`, into a fresh
+    contiguous buffer (16-byte aligned, as every allocation is), as the
+    Pallas kernel pads its heads to the lanes.  Zero columns add exact zeros
+    to q kᵀ, dO vᵀ and dS·K; the caller passes the true width's scale and
+    slices the outputs back (:func:`unpad_heads`).  Then the rows' alignment
+    is checked (:func:`check_bf16_limits`)."""
+    dh = q.shape[-1]
+    width = next(w for w in BF16_HEAD_DIMS if dh <= w)
+    ts = (q, k, v, *others)
+    if width != dh:
+        padded = []
+        for t in ts:
+            p = t.new_zeros((*t.shape[:-1], width))
+            p[..., :dh] = t
+            padded.append(p)
+        ts = tuple(padded)
+    check_bf16_limits(kernel, *ts)
+    return ts
+
+
+def unpad_heads(t: torch.Tensor, dh: int) -> torch.Tensor:
+    """A kernel output at a padded head width, sliced back to the first
+    ``dh`` columns (contiguous, as the op's fake implementation says)."""
+    return t if t.shape[-1] == dh else t[..., :dh].contiguous()
 
 
 def bias_strides(bias: Optional[torch.Tensor], q: torch.Tensor,
@@ -174,15 +210,16 @@ class DenseBiasAttention:
         bias_ptr, sbb, sbq, sbk = bias_strides(bias, q, lk)
         is_bf16 = int(q.dtype == torch.bfloat16)
         if is_bf16:
-            check_bf16_limits("bf16 attention forward", q, k, v)
+            q, k, v = pad_bf16_heads("bf16 attention forward", q, k, v)
+        width = q.shape[-1]
         lib = self._library()
 
-        out = torch.empty((B, lq, H, dh), dtype=q.dtype, device=q.device)
+        out = torch.empty((B, lq, H, width), dtype=q.dtype, device=q.device)
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
             err = lib.dense_attention_forward(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, out.data_ptr(),
-                B, lq, lk, H, dh,
+                B, lq, lk, H, width,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], sbb, sbq, sbk,
                 1.0 / dh ** 0.5, is_bf16, stream,
             )
@@ -190,7 +227,7 @@ class DenseBiasAttention:
             raise RuntimeError(f"fused_attention kernel launch failed: CUDA error {err} "
                                f"(B={B}, Lq={lq}, Lk={lk}, H={H}, Dh={dh}, {q.dtype})")
         self.launches += 1
-        return out
+        return unpad_heads(out, dh)
 
 
 def call_op(op, diff_inputs, *args):

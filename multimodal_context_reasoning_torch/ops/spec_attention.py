@@ -26,13 +26,16 @@ and a uniform row where every key is masked.
   ``spec_attention_mma_kernel`` on the tensor cores, the dense-bias
   forward's tile (``csrc/attention_mma.cuh``) with the stage mask as its
   mask functor, K and V resident up to 192 keys and in a key loop above
-  (``spec_attention_mma_long_kernel``); it takes head dim 64 and rows that
-  start on 16 bytes, checked here before launch (:func:`check_bf16_limits`).
-  fp32 (the parity checks) goes to ``spec_attention_kernel`` on the FP32
-  pipes (K and V staged in shared memory while they fit, read from device
-  memory above; head dims up to 128).  Both take any key count; batch and
-  head count are at most 65535 (the grid).  Its ``launches`` counter grows
-  by one per kernel launch.
+  (``spec_attention_mma_long_kernel``); it exists at head dims 64 and 128
+  and takes rows that start on 16 bytes: a head up to 128 wide is
+  zero-padded to the next of the two, with the true width's scale, and the
+  output sliced back (:func:`pad_bf16_heads`), the alignment checked here
+  before launch.  fp32 (the parity checks) goes to ``spec_attention_kernel``
+  on the FP32 pipes (K and V staged in shared memory while they fit, read
+  from device memory above; head dims up to 256).  A wider head raises
+  ``ValueError`` naming the limit.  Both take any key count; batch and head
+  count are at most 65535 (the grid).  Its ``launches`` counter grows by one
+  per kernel launch.
 - What bounds the kernel on the card is bytes (q, k, v read once, out
   written once; about 95 FLOP/byte at the ModCR shapes, below the H100's
   ridge): both routes read q, k, v in place through their strides and
@@ -58,8 +61,9 @@ from multimodal_context_reasoning_torch.ops.flash import FLASH_BWD
 from multimodal_context_reasoning_torch.ops.fused_attention import (
     LIBRARY,
     call_op,
-    check_bf16_limits,
     check_qkv,
+    pad_bf16_heads,
+    unpad_heads,
 )
 
 _lib = torch.library.Library(LIBRARY, "FRAGMENT")
@@ -97,14 +101,17 @@ def stage_visibility(valid: torch.Tensor, gi: torch.Tensor, rowfull: torch.Tenso
     return imgqf * img_rows + (1.0 - imgqf) * text_rows
 
 
-def spec_attention_plain(q, k, v, valid, gi, rowfull, *, stage: str,
-                         text_len: int) -> torch.Tensor:
+def spec_attention_plain(q, k, v, valid, gi, rowfull, *, stage: str, text_len: int,
+                         scale=None) -> torch.Tensor:
     """The kernel's function in plain PyTorch: q [B, Lq, H, Dh], k and v
-    [B, Lk, H, Dh] -> [B, Lq, H, Dh] in q's dtype."""
+    [B, Lk, H, Dh] -> [B, Lq, H, Dh] in q's dtype.  ``scale`` multiplies
+    q kᵀ (default 1/√Dh)."""
     lq, dh = q.shape[1], q.shape[3]
+    if scale is None:
+        scale = 1.0 / dh ** 0.5
     vis = stage_visibility(valid, gi, rowfull, stage=stage, text_len=text_len, lq=lq)
     neg = (1.0 - vis) * MASK_PENALTY                            # one mask, all heads
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / dh ** 0.5)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     s = s - neg[:, None]
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -176,16 +183,17 @@ class SpecAttention:
             raise ValueError("valid, gi and rowfull must be contiguous")
         is_bf16 = int(q.dtype == torch.bfloat16)
         if is_bf16:
-            check_bf16_limits("bf16 stage-mask attention forward", q, k, v)
+            q, k, v = pad_bf16_heads("bf16 stage-mask attention forward", q, k, v)
+        width = q.shape[-1]
         lib = self._library()
 
-        out = torch.empty((B, lq, H, dh), dtype=q.dtype, device=q.device)
+        out = torch.empty((B, lq, H, width), dtype=q.dtype, device=q.device)
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
             err = lib.spec_attention_forward(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
                 gi.data_ptr(), rowfull.data_ptr(), out.data_ptr(),
-                B, lq, lk, H, dh,
+                B, lq, lk, H, width,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 STAGES[stage], int(text_len), 1.0 / dh ** 0.5, is_bf16, stream,
             )
@@ -193,7 +201,7 @@ class SpecAttention:
             raise RuntimeError(f"spec_attention kernel launch failed: CUDA error {err} "
                                f"(B={B}, Lq={lq}, Lk={lk}, H={H}, Dh={dh}, {q.dtype})")
         self.launches += 1
-        return out
+        return unpad_heads(out, dh)
 
 
 fused_attention_spec = SpecAttention()

@@ -121,7 +121,7 @@ def test_kernel_refuses_what_it_does_not_take(card):
         fused_attention_spec(q, k, v, spec.valid.double(), spec.gi, spec.rowfull,
                              stage="full", text_len=21)
     with pytest.raises(ValueError, match="head dim"):
-        wide = torch.zeros(*q.shape[:3], 160, device=card)
+        wide = torch.zeros(*q.shape[:3], 288, device=card)   # fp32 takes up to 256
         fused_attention_spec(wide, wide, wide, *vec, stage="full", text_len=21)
     # the refused launch leaves no error behind for the next one
     got = fused_attention_spec(q, k, v, *vec, stage=spec.stage, text_len=21)
@@ -312,8 +312,9 @@ def test_bf16_backward_refuses_what_it_does_not_take(card):
         wide = torch.zeros(*q.shape[:3], 72, dtype=torch.bfloat16, device=card)
         flash_attention_bwd(wide[..., 1:65], k, v, bias, d_out)
     with pytest.raises(ValueError, match="head dim"):
-        narrow = [t[..., :32].contiguous() for t in (q, k, v, d_out)]
-        flash_attention_bwd(narrow[0], narrow[1], narrow[2], bias, narrow[3])
+        wide = [torch.zeros(*t.shape[:3], 160, dtype=torch.bfloat16, device=card)
+                for t in (q, k, v, d_out)]   # bf16 takes up to 128
+        flash_attention_bwd(wide[0], wide[1], wide[2], bias, wide[3])
     got = flash_attention_bwd(q, k, v, bias, d_out)   # no error left behind
     for g, w in zip(got, flash_attention_bwd_plain(q, k, v, bias, d_out)):
         _close(g, w, BWD_TOL[torch.bfloat16])
@@ -372,8 +373,9 @@ def test_bf16_dense_forward_refuses_what_it_does_not_take(card):
         wide = torch.zeros(*q.shape[:3], 72, dtype=torch.bfloat16, device=card)
         fused_attention(wide[..., 1:65], k, v, bias)
     with pytest.raises(ValueError, match="head dim"):
-        narrow = [t[..., :32].contiguous() for t in (q, k, v)]
-        fused_attention(*narrow, bias)
+        wide = [torch.zeros(*t.shape[:3], 160, dtype=torch.bfloat16, device=card)
+                for t in (q, k, v)]   # bf16 takes up to 128
+        fused_attention(*wide, bias)
     got = fused_attention(q, k, v, bias)   # no error left behind
     _close(got, fused_attention_plain(q, k, v, bias), TOL[torch.bfloat16])
 
@@ -497,16 +499,17 @@ def test_bf16_spec_is_deterministic(card, stage_idx):
 
 
 def test_bf16_spec_refuses_what_it_does_not_take(card):
-    """Head dim 32 raises ValueError before launch; the next launch is
-    clean."""
+    """Head dim 160 (past the widest tensor-core instance, 128) raises
+    ValueError before launch; the next launch is clean."""
     (q, k, v), specs = _case(card, Dh=64)
     q, k, v = _bf16(q, k, v)
     spec = specs[1]
     vec = (spec.valid, spec.gi, spec.rowfull)
     before = fused_attention_spec.launches
     with pytest.raises(ValueError, match="head dim"):
-        narrow = [t[..., :32].contiguous() for t in (q, k, v)]
-        fused_attention_spec(*narrow, *vec, stage="full", text_len=spec.text_len)
+        wide = [torch.zeros(*t.shape[:3], 160, dtype=torch.bfloat16, device=card)
+                for t in (q, k, v)]
+        fused_attention_spec(*wide, *vec, stage="full", text_len=spec.text_len)
     assert fused_attention_spec.launches == before
     got = fused_attention_spec(q, k, v, *vec, stage="full", text_len=spec.text_len)
     want = spec_attention_plain(q, k, v, *vec, stage="full", text_len=spec.text_len)
@@ -684,6 +687,142 @@ def test_backward_at_the_encoder_shape_with_the_stage_plane(card, dtype, stage_i
     for g, w in zip(got, flash_attention_bwd_plain(q, k, v, bias, d_out)):
         assert g.dtype == w.dtype and torch.isfinite(g).all()
         _rel_close(g, w, BWD_TOL[dtype])
+
+
+# ---------------------------------------------------------------- every head
+# dim the Pallas kernels take: bf16 from 8 to 128 (zero-padded to the 64- or
+# 128-wide tensor-core instance; 128 native), fp32 at 160 and 256 (the
+# FP32-pipe kernels' wider instances), each at a key count the bf16 kernels
+# hold resident (138, RoBERTa's) and one they loop over (240)
+
+HEAD_DIM_CASES = ([(torch.bfloat16, dh) for dh in (8, 16, 32, 48, 80, 96, 128)]
+                  + [(torch.float32, dh) for dh in (160, 256)])
+HEAD_DIM_IDS = [f"{str(dt)[6:]}-{dh}" for dt, dh in HEAD_DIM_CASES]
+HEAD_DIM_KEYS = (138, 240)
+
+
+def _exact_backward(q, k, v, bias, d_out):
+    """dq, dk, dv in float64 with nothing rounded."""
+    qd, kd, vd, dod = (t.double() for t in (q, k, v, d_out))
+    scale = 1.0 / q.shape[-1] ** 0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", qd, kd) * scale + bias.double()
+    p = torch.softmax(s, dim=-1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dod, vd)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * scale
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, kd), torch.einsum("bhqk,bqhd->bkhd", ds, qd),
+            torch.einsum("bhqk,bqhd->bkhd", p, dod))
+
+
+@pytest.mark.parametrize("lk", HEAD_DIM_KEYS)
+@pytest.mark.parametrize("dtype,dh", HEAD_DIM_CASES, ids=HEAD_DIM_IDS)
+def test_head_dims_spec_matches_plain(card, dtype, dh, lk):
+    """The chunk stage (every term of the mask) at Lq = Lk."""
+    (q, k, v), specs = _case(card, B=2, T=100, I=lk - 100, H=2, Dh=dh, seed=11)
+    spec = specs[0]
+    args = (q.to(dtype), k.to(dtype), v.to(dtype), spec.valid, spec.gi, spec.rowfull)
+    kw = dict(stage=spec.stage, text_len=spec.text_len)
+    before = fused_attention_spec.launches
+    got = fused_attention_spec(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_attention_spec.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape and got.is_contiguous()
+    torch.testing.assert_close(got.float(), spec_attention_plain(*args, **kw).float(),
+                               rtol=0, atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("lk", HEAD_DIM_KEYS)
+@pytest.mark.parametrize("dtype,dh", HEAD_DIM_CASES, ids=HEAD_DIM_IDS)
+def test_head_dims_dense_forward_matches_plain(card, dtype, dh, lk):
+    """RoBERTa's geometry: 10 prefix keys and a [B, 1, 1, Lk] padding row."""
+    q, k, v, bias, _ = _dense_case(card, B=3, Lq=lk - 10, P=10, H=2, Dh=dh, seed=12)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    before = fused_attention.launches
+    got = fused_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert fused_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape and got.is_contiguous()
+    _rel_close(got, fused_attention_plain(q, k, v, bias), TOL[dtype])
+
+
+@pytest.mark.parametrize("lk", HEAD_DIM_KEYS)
+@pytest.mark.parametrize("dtype,dh", HEAD_DIM_CASES, ids=HEAD_DIM_IDS)
+def test_head_dims_backward_matches_plain(card, dtype, dh, lk):
+    """Lq = Lk - 10 (one query tile at 138 keys, two at 240) with a
+    [B, 1, Lq, Lk] plane.  fp32: dq, dk, dv and dbias within 1e-4 of each
+    output's max |plain|.  bf16: the kernel no further from float64 than
+    its plain version plus 2e-2 of each output's max |exact| (as
+    chip_smoke.py phases 18, 19c, 20b and 23a hold it: both round P and dS
+    to bf16, and where dq = dS K cancels they round apart), and dbias within
+    2e-2 of max |plain|."""
+    q, k, v, bias, d_out = _dense_case(card, B=3, Lq=lk - 10, P=10, H=2, Dh=dh, seed=13,
+                                       bias_shape="plane")
+    q, k, v, d_out = (t.to(dtype) for t in (q, k, v, d_out))
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, bias, d_out)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_plain(q, k, v, bias, d_out)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.isfinite(g).all()
+    if dtype == torch.float32:
+        for g, w in zip(got, want):
+            _rel_close(g, w, BWD_TOL[dtype])
+        return
+    exact = _exact_backward(q, k, v, bias, d_out)
+    for name, g, w, e in zip(("dq", "dk", "dv"), got, want, exact):
+        scale = e.abs().max().item()
+        kernel_err = (g.double() - e).abs().max().item() / scale
+        plain_err = (w.double() - e).abs().max().item() / scale
+        assert kernel_err <= plain_err + BWD_TOL[dtype], (name, kernel_err, plain_err)
+    _rel_close(got[3], want[3], BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dh", (96, 128))
+def test_head_dims_bf16_launches_are_bit_equal(card, dh):
+    """No atomics outside the dbias plane: two launches of each bf16 route
+    at Dh 96 (padded) and 128 agree bit for bit, resident and key-looped."""
+    for lk in HEAD_DIM_KEYS:
+        (q, k, v), specs = _case(card, B=2, T=100, I=lk - 100, H=2, Dh=dh, seed=14)
+        q, k, v = _bf16(q, k, v)
+        spec = specs[0]
+        args = (q, k, v, spec.valid, spec.gi, spec.rowfull)
+        kw = dict(stage=spec.stage, text_len=spec.text_len)
+        assert torch.equal(fused_attention_spec(*args, **kw), fused_attention_spec(*args, **kw))
+        bias = spec_bias(*args[3:], **kw, lq=lk)
+        assert torch.equal(fused_attention(q, k, v, bias), fused_attention(q, k, v, bias))
+        d_out = torch.randn(q.shape, device=card, generator=torch.Generator(card).manual_seed(2))
+        d_out = d_out.bfloat16()
+        first = flash_attention_bwd(q, k, v, bias, d_out, want_dbias=False)
+        second = flash_attention_bwd(q, k, v, bias, d_out, want_dbias=False)
+        for a, b in zip(first[:3], second[:3]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,dh", [(torch.bfloat16, 160), (torch.float32, 288)],
+                         ids=["bfloat16-160", "float32-288"])
+def test_head_dims_past_the_limit_raise_by_name(card, dtype, dh):
+    """bf16 above 128 and fp32 above 256: ValueError naming the dtype, the
+    head dim and the limit, before any launch; the next launch is clean."""
+    q = torch.zeros(2, 9, 2, dh, dtype=dtype, device=card)
+    valid = torch.ones(2, 9, device=card)
+    gi = torch.full((2, 9), -1, dtype=torch.int32, device=card)
+    before = (fused_attention_spec.launches, fused_attention.launches,
+              flash_attention_bwd.launches)
+    limit = 128 if dtype == torch.bfloat16 else 256
+    pattern = f"{dtype} head dim {dh} not taken: .* up to {limit} wide"
+    with pytest.raises(ValueError, match=pattern):
+        fused_attention_spec(q, q, q, valid, gi, torch.zeros_like(valid), stage="full",
+                             text_len=9)
+    with pytest.raises(ValueError, match=pattern):
+        fused_attention(q, q, q, None)
+    with pytest.raises(ValueError, match=pattern):
+        flash_attention_bwd(q, q, q, None, q)
+    assert (fused_attention_spec.launches, fused_attention.launches,
+            flash_attention_bwd.launches) == before
+    ok = q[..., :limit]
+    torch.testing.assert_close(fused_attention(ok, ok, ok, None).float(),
+                               fused_attention_plain(ok, ok, ok, None).float(),
+                               rtol=0, atol=TOL[dtype])
 
 
 # ---------------------------------------------------------------- int8 products
