@@ -10,8 +10,9 @@ and CLIP ablations with the CLIP precompute command
 (``cli/precompute_clip.py``), and hold the kernels' dispatcher ops, the
 device-resident feature table, the AOT artifacts (``serving/aot.py``) and
 the profiled, logged trainer (phase 21), scale the train step and the
-scorer out over ``torch.distributed`` (phase 22), and run the one-stage
-real-data recipe (``cli/train_real_pmr.py``, phase 23).
+scorer out over ``torch.distributed`` (phase 22), run the one-stage
+real-data recipe (``cli/train_real_pmr.py``, phase 23), and run the model
+at every head width the Pallas kernels take (phases 24 and 25).
 
     python3 chip_smoke.py
 
@@ -297,6 +298,22 @@ the port is not beside this script, or when any phase fails.  Phases:
     against its plain version at phases 3 and 7's fp32 tolerances; 23d,
     ``--task vcr --tokenizer hash`` at full width on REAL_PMR_VCR_EXAMPLES
     VCR rows, REAL_PMR_VCR_STEPS steps.
+24. (run before 11) other head widths: 24a and 24b, ``pmr_training_config()``
+    with only its head counts changed (HEAD_GEOMETRIES: 8 heads of 96 and
+    128; heads of 32), HEAD_STEPS train steps through ``Trainer.fit``
+    counted by the wrappers (exactly 36 / 48 / 24 a step) and, for one more
+    step, by ``torch.profiler``, then one step with every launch held
+    against its plain version, ``run_pmr --do_test --eval_model_dir`` from
+    the run's ``config.json`` (36 / 24 / 0 a forward) and each kernel at
+    those widths b2b beside its bound, plain version and SDPA; 24c, small
+    models (tiny and ``--midsize`` in bf16, fp32 at heads of 256 and 160),
+    one held forward and backward each;
+25. (run before 11) heads wider than the widest kernel instance (bf16 above
+    128 in slabs of 128 columns, fp32 above 256 in slabs of 256): 25a and
+    25b as 24a (WIDE_HEAD_GEOMETRIES: encoders 4 heads of 192 and RoBERTa 4
+    of 256; 2 of 384 and 2 of 512), 25c small models at heads of 160 and 192
+    (bf16), 320 and 512 (fp32) and 1024 (both); each phase prints its
+    seconds.
 """
 
 from __future__ import annotations
@@ -409,6 +426,11 @@ PARALLEL_PARAM_TOL_LR, PARALLEL_LOGIT_TOL = 2.5, 5e-2
 # 1024: 24a 8 of 96 (padded to 128) and 8 of 128; 24b 24 of 32 and 32 of 32
 # (both padded to 64); train steps of each, and the --do_test file's rows
 HEAD_GEOMETRIES = {"24a": (8, 8), "24b": (24, 32)}
+# phase 25: heads wider than the widest instance, the same widths: 25a
+# encoders 4 of 192 (padded to 256: two 128-column slabs) and RoBERTa 4 of
+# 256; 25b 2 of 384 and 2 of 512
+WIDE_HEAD_GEOMETRIES = {"25a": (4, 4), "25b": (2, 2)}
+HEAD_PHASES = {**HEAD_GEOMETRIES, **WIDE_HEAD_GEOMETRIES}
 HEAD_STEPS, HEAD_TEST_EXAMPLES = 3, 32
 PARALLEL_PARAMS = ("roberta.encoder.layer.0.attention.self.query.weight",
                    "roberta.encoder.layer.0.attention.self.query.bias",
@@ -420,16 +442,16 @@ PARALLEL_PARAMS = ("roberta.encoder.layer.0.attention.self.query.weight",
 
 def ptxas_summary(log: str) -> str:
     """Each kernel instance of an ``nvcc -Xptxas -v`` log: its name with
-    its integer and mask-functor template arguments (``<Dh,NP,RowBias>``),
-    its spill bytes and registers."""
+    its integer, bool (0 or 1) and mask-functor template arguments
+    (``<Dh,NP,RowBias>``), its spill bytes and registers."""
     out = []
     for ln in log.splitlines():
-        entry = re.search(r"entry function '.*?\d([a-z][a-z_]*_kernel)(I.*?)?Ev", ln)
+        entry = re.search(r"entry function '.*?\d([a-z][a-z_]*_kernel)(?:(I.*?)Ev|E)", ln)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         regs = re.search(r"Used (\d+) registers", ln)
         if entry:
-            args = [a or b for a, b in re.findall(
-                r"Li(\d+)E|\d([A-Z][A-Za-z]*?(?:Bias|Stage))E", entry.group(2) or "")]
+            args = ["".join(a) for a in re.findall(
+                r"Li(\d+)E|Lb([01])E|\d([A-Z][A-Za-z]*?(?:Bias|Stage))E", entry.group(2) or "")]
             out.append(entry.group(1) + (f"<{','.join(args)}>" if args else "") + ":")
         elif spill:
             out.append(f"spill {spill.group(1)}/{spill.group(2)} B,")
@@ -5012,7 +5034,7 @@ def head_dim_kernels(tag: str, rng, cfg, dense_in, bwd_in, launches: dict) -> li
         flash_attention_bwd_plain,
     )
     from multimodal_context_reasoning_torch.ops.fused_attention import (
-        BF16_HEAD_DIMS,
+        bf16_width,
         fused_attention,
         fused_attention_plain,
     )
@@ -5027,12 +5049,12 @@ def head_dim_kernels(tag: str, rng, cfg, dense_in, bwd_in, launches: dict) -> li
 
     def row(name, kind, dh, kernel, plain, library, b_ms, b_by, n):
         r = dict(shape=name, kind=kind, head_dim=dh,
-                 kernel_width=next(w for w in BF16_HEAD_DIMS if dh <= w),
+                 kernel_width=bf16_width(dh),
                  launches_per_step=n, b2b_ms=back_to_back_ms(kernel),
                  plain_ms=median_ms(plain, reps=5, warmup=1),
                  library_b2b_ms=back_to_back_ms(library), bound_ms=b_ms, bound_by=b_by)
         rows.append(r)
-        print(f"[{tag} kernels] {name:46s} Dh {dh} (the {r['kernel_width']}-wide instance): "
+        print(f"[{tag} kernels] {name:46s} Dh {dh} (launched {r['kernel_width']} wide): "
               f"kernel b2b {r['b2b_ms']:.4f} ms | bound {b_ms:.4f} ms ({b_by}, true width) | "
               f"plain {r['plain_ms']:.4f} ms per call | sdpa b2b {r['library_b2b_ms']:.4f} ms "
               f"| {n} a step")
@@ -5252,6 +5274,39 @@ def small_head_run(rng, tag: str, what: str, cfg, want_dims: set) -> dict:
     return dict(what=what, launches=launches, held=held)
 
 
+def head_phase(rng, phase: str, geometries: dict, small: list) -> dict:
+    """Phases 24 and 25: ``head_geometry_run`` at each of ``geometries``
+    (tag: (encoder heads, RoBERTa heads)), then ``small_head_run`` for each
+    (what, config, head dims) of ``small``; the phase's seconds."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix=f"head_dims_{phase}_")
+    out = {}
+    try:
+        for tag, (enc_heads, rob_heads) in geometries.items():
+            out[tag] = head_geometry_run(rng, tag, enc_heads, rob_heads, tmp)
+        out[f"{phase}c"] = [small_head_run(rng, f"{phase}c", what, cfg, dims)
+                            for what, cfg, dims in small]
+    finally:
+        shutil.rmtree(tmp)
+    out["phase_seconds"] = time.perf_counter() - t0
+    print(f"[{phase}] phases {phase}a-{phase}c took {out['phase_seconds']:.1f} s")
+    return out
+
+
+def small_heads_config(cfg, enc_dh: int, enc_heads: int, rob_dh: int, rob_heads: int):
+    """``cfg`` (a small geometry) with the encoders at ``enc_heads`` heads of
+    ``enc_dh`` and RoBERTa at ``rob_heads`` of ``rob_dh``, feed-forward twice
+    the width, mapping dropout 0."""
+    enc = dataclasses.replace(cfg.global_encoder, hidden_size=enc_dh * enc_heads,
+                              num_attention_heads=enc_heads,
+                              intermediate_size=2 * enc_dh * enc_heads)
+    rob = dataclasses.replace(cfg.roberta, hidden_size=rob_dh * rob_heads,
+                              num_attention_heads=rob_heads,
+                              intermediate_size=2 * rob_dh * rob_heads)
+    return dataclasses.replace(cfg, global_encoder=enc, seq_encoder=enc, roberta=rob,
+                               mapping_dropout=0.0)
+
+
 def phase24(rng) -> dict:
     """Phase 24: the head dims the Pallas kernels take, on the slice's path.
     24a and 24b: the production PMR model with only its head counts changed
@@ -5262,37 +5317,37 @@ def phase24(rng) -> dict:
     from multimodal_context_reasoning_torch.cli import train_real_pmr
     from multimodal_context_reasoning_torch.core.config import ModCRConfig
 
-    t24 = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="head_dims_")
-    out = {}
-    try:
-        for tag, (enc_heads, rob_heads) in HEAD_GEOMETRIES.items():
-            out[tag] = head_geometry_run(rng, tag, enc_heads, rob_heads, tmp)
-        midsize = train_real_pmr.model_config(train_real_pmr.build_arg_parser().parse_args(
-            ["--midsize", "--dropout", "0", "--jsonl", "unused"]))
-        tiny = ModCRConfig.tiny()
-        wide = dataclasses.replace(
-            tiny, global_encoder=dataclasses.replace(
-                tiny.global_encoder, hidden_size=256, num_attention_heads=1,
-                intermediate_size=512),
-            roberta=dataclasses.replace(tiny.roberta, hidden_size=320, num_attention_heads=2,
-                                        intermediate_size=640))
-        wide = dataclasses.replace(wide, seq_encoder=wide.global_encoder)
-        out["24c"] = [
-            small_head_run(rng, "24c", "ModCRConfig.tiny() in bf16",
-                           dataclasses.replace(tiny.with_dtype("bfloat16"), mapping_dropout=0.0),
-                           {8, 12}),
-            small_head_run(rng, "24c", "--midsize in bf16", midsize.with_dtype("bfloat16"),
-                           {12, 16}),
-            small_head_run(rng, "24c", "a narrow fp32 model (encoders 1 head of 256, RoBERTa "
-                           "2 of 160)", dataclasses.replace(wide, mapping_dropout=0.0),
-                           {160, 256}),
-        ]
-    finally:
-        shutil.rmtree(tmp)
-    out["phase_seconds"] = time.perf_counter() - t24
-    print(f"[24] phases 24a-24c took {out['phase_seconds']:.1f} s")
-    return out
+    midsize = train_real_pmr.model_config(train_real_pmr.build_arg_parser().parse_args(
+        ["--midsize", "--dropout", "0", "--jsonl", "unused"]))
+    tiny = ModCRConfig.tiny()
+    return head_phase(rng, "24", HEAD_GEOMETRIES, [
+        ("ModCRConfig.tiny() in bf16",
+         dataclasses.replace(tiny.with_dtype("bfloat16"), mapping_dropout=0.0), {8, 12}),
+        ("--midsize in bf16", midsize.with_dtype("bfloat16"), {12, 16}),
+        ("a narrow fp32 model (encoders 1 head of 256, RoBERTa 2 of 160)",
+         small_heads_config(tiny, 256, 1, 160, 2), {160, 256}),
+    ])
+
+
+def phase25(rng) -> dict:
+    """Phase 25: heads wider than the widest kernel instance (bf16 above 128
+    in slabs of 128 columns, fp32 above 256 in slabs of 256).  25a and 25b:
+    the production PMR model at WIDE_HEAD_GEOMETRIES through
+    ``head_geometry_run``; 25c: small models through ``small_head_run``,
+    bf16 at heads of 160 and 192, fp32 at heads of 320 and 512, and one
+    pass at heads of 1024 in each dtype."""
+    from multimodal_context_reasoning_torch.core.config import ModCRConfig
+
+    tiny = ModCRConfig.tiny()
+    return head_phase(rng, "25", WIDE_HEAD_GEOMETRIES, [
+        ("bf16, encoders 1 head of 160, RoBERTa 2 of 192",
+         small_heads_config(tiny.with_dtype("bfloat16"), 160, 1, 192, 2), {160, 192}),
+        ("fp32, encoders 1 head of 320, RoBERTa 2 of 512",
+         small_heads_config(tiny, 320, 1, 512, 2), {320, 512}),
+        ("fp32, heads of 1024", small_heads_config(tiny, 1024, 1, 1024, 1), {1024}),
+        ("bf16, heads of 1024", small_heads_config(tiny.with_dtype("bfloat16"), 1024, 1, 1024, 1),
+         {1024}),
+    ])
 
 
 def release() -> None:
@@ -5301,9 +5356,9 @@ def release() -> None:
     torch.cuda.empty_cache()
 
 def main(argv=None) -> int:
-    """All phases; ``--only 21`` (a development aid; also 22, 23 and 24) runs
-    the device and build phases and that phase alone, and prints no result
-    line."""
+    """All phases; ``--only 21`` (a development aid; also 22, 23, 24 and 25)
+    runs the device and build phases and that phase alone, and prints no
+    result line."""
     argv = sys.argv[1:] if argv is None else argv
     only = argv[1] if argv[:1] == ["--only"] else None
     if not torch.cuda.is_available():
@@ -5355,6 +5410,10 @@ def main(argv=None) -> int:
         return 0
     if only == "24":
         phase24(np.random.default_rng(SEED + 24))
+        print(card)
+        return 0
+    if only == "25":
+        phase25(np.random.default_rng(SEED + 25))
         print(card)
         return 0
 
@@ -5582,6 +5641,12 @@ def main(argv=None) -> int:
     # small geometries
     head_dims = phase24(rng)
 
+    # 25. heads wider than the widest kernel instance, in slabs: the
+    # production widths at 4 and 2 heads through a train step and run_pmr
+    # --do_test, then small models up to heads of 1024
+    wide_heads = phase25(rng)
+    head_runs = {**head_dims, **wide_heads}
+
     # 11. kernels line, then the result line
     print(card)
     print(json.dumps({"serving": serving, "e2e_fp32_max_abs_diff": e2e_err,
@@ -5602,7 +5667,9 @@ def main(argv=None) -> int:
                       "real_pmr": real_pmr,
                       "head_dims": {tag: {k: v for k, v in r.items() if k not in ("held",
                                                                                  "kernels")}
-                                    for tag, r in head_dims.items() if tag in HEAD_GEOMETRIES}
+                                    for tag, r in head_runs.items() if tag in HEAD_PHASES},
+                      "head_dims_seconds": {"24": head_dims["phase_seconds"],
+                                            "25": wide_heads["phase_seconds"]}
                       }))
     parallel_launches = {k: {tag: r["train_launches"][k] for tag, r in parallel["meshes"].items()}
                          for k in KERNELS}
@@ -5610,12 +5677,12 @@ def main(argv=None) -> int:
     shape = "bf16 (128, 128, 138, 16, 64), one launch, as one RoBERTa layer of the slice"
 
     def head_dim_rows(kind):
-        return [dict(r, phase=tag) for tag in HEAD_GEOMETRIES
-                for r in head_dims[tag]["kernels"] if r["kind"] == kind]
+        return [dict(r, phase=tag) for tag in HEAD_PHASES
+                for r in head_runs[tag]["kernels"] if r["kind"] == kind]
 
     def head_dim_launches(name):
-        return {**{tag: head_dims[tag]["launches_per_step"][name] for tag in HEAD_GEOMETRIES},
-                "24c": [r["launches"][name] for r in head_dims["24c"]]}
+        return {**{tag: head_runs[tag]["launches_per_step"][name] for tag in HEAD_PHASES},
+                **{tag: [r["launches"][name] for r in head_runs[tag]] for tag in ("24c", "25c")}}
 
     def long_key_row(name):
         return dict(largest_lk=long_keys["largest_lk"],

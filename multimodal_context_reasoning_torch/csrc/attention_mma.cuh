@@ -7,10 +7,12 @@
 // every csrc/*.cuh into each kernel's rebuild key.
 //
 // The head dim Dh is a template parameter of both tiles, instantiated at 64
-// and at 128 (kMmaHeadDims); the wrappers zero-pad a narrower bf16 head to
-// the next of the two and pass the true width's scale (ops/fused_attention.py,
-// pad_bf16_heads).  Zero columns add exact zeros to Q K^T, and the padded
-// columns of the output are sliced off.
+// and at 128; the wrappers zero-pad a narrower bf16 head to the next of the
+// two, and a wider one to the next multiple of 128, which the key-looped
+// tile runs in slabs of 128 columns (its Slabs flag, at any key count); they
+// pass the true width's scale (ops/fused_attention.py, pad_bf16_heads).
+// Zero columns add exact zeros to Q K^T, and the padded columns of the
+// output are sliced off.
 //
 // For one (batch, head, 64 query rows) a block of 4 warps computes
 //
@@ -68,8 +70,8 @@
 // running rescale).  Shared memory 47,104 B at Dh 64 with two mask words a
 // key, whatever Lk: up to 4 blocks per SM (88,064 B and 2 at Dh 128).  No
 // atomics: two launches give the same bits.  Both instances take Dh = 64 or
-// 128 (the launchers refuse any other) and 16-byte aligned rows; the key
-// count is unbounded.
+// 128 (and the key-looped one, in slabs, any multiple of 128 above) and
+// 16-byte aligned rows; the key count is unbounded.
 //
 // A Mask functor provides:
 //   using Args;                       the kernel's one argument, a struct
@@ -121,10 +123,10 @@ size_t mma_smem_bytes(int lk, int key_words, int dh) {
          sizeof(float) * key_words * lkp;
 }
 
-// The key-looped instance's: two K and two V blocks, the Q tile, and two
-// blocks of mask words.
-size_t mma_long_smem_bytes(int key_words, int dh) {
-  return sizeof(bf16) * (4 * kBlkKeys + kTileRows) * (dh + kRowPad) +
+// The key-looped instance's: two K and two V blocks, `q_bufs` Q tiles (two
+// in slabs), and two blocks of mask words.
+size_t mma_long_smem_bytes(int key_words, int dh, int q_bufs = 1) {
+  return sizeof(bf16) * (4 * kBlkKeys + q_bufs * kTileRows) * (dh + kRowPad) +
          sizeof(float) * 2 * key_words * kBlkKeys;
 }
 
@@ -281,22 +283,38 @@ __device__ __forceinline__ void attention_mma_tile(const typename Mask::Args& a)
 // The key-looped instance for any Lk (used above Lk_pad = 192): the same
 // per-warp rows, fragments and order of casts as attention_mma_tile, over
 // key blocks of kBlkKeys in two sweeps (the design is in the header note).
-template <int Dh, class Mask>
+//
+// With Slabs (at Dh = kSlabDh), a head of a.slabs * 128 columns, any Lk: the
+// grid's x holds the query tiles of each 128-column output slab in turn,
+// and a block writes only its own slab of O.  A step is then one (sweep,
+// key block, input slab): it multiplies Q's and K's slab in buffer
+// `step & 1` (Q double-buffered too) into the key block's fp32 scores while
+// the next step's copy is in flight, so the products run in the order one
+// wide tile would run them; after the block's last slab the scores are
+// whole, and are masked and used as below.  A key block's mask words, and
+// in sweep 2 V's own slab, ride in its first step's copy, double-buffered
+// by key block.  The Q K^T work is repeated once per output slab.
+template <int Dh, class Mask, bool Slabs = false>
 __device__ __forceinline__ void attention_mma_tile_long(const typename Mask::Args& a) {
+  static_assert(!Slabs || Dh == kSlabDh, "slabs are kSlabDh columns wide");
   constexpr int kS = Dh + kRowPad;
   constexpr int kChunks = Dh / 8;
   constexpr int kSteps = Dh / 16;
   constexpr int kDt = Dh / 8;
   constexpr int kBuf = kBlkKeys * kS;                     // one K or V block
+  constexpr int kQBuf = Slabs ? kTileRows * kS : 0;       // Q's second buffer, from q_s
   constexpr int kMaskBuf = kBlkKeys * Mask::kKeyWords;    // one block of mask words
 
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* k_s = reinterpret_cast<bf16*>(smem);                       // [2][kBlkKeys][kS]
   bf16* v_s = k_s + 2 * kBuf;                                      // [2][kBlkKeys][kS]
-  bf16* q_s = v_s + 2 * kBuf;                                      // [kTileRows][kS], then O
-  float* mask_s = reinterpret_cast<float*>(q_s + kTileRows * kS);  // [2][kMaskBuf]
+  bf16* q_s = v_s + 2 * kBuf;                                      // [1|2][kTileRows][kS], then O
+  float* mask_s = reinterpret_cast<float*>(q_s + kTileRows * kS + kQBuf);  // [2][kMaskBuf]
 
-  const int i0 = blockIdx.x * kTileRows;
+  const int slabs = Slabs ? a.slabs : 1;
+  const int n_tiles = Slabs ? (a.lq + kTileRows - 1) / kTileRows : 1;
+  const int i0 = (Slabs ? blockIdx.x % n_tiles : blockIdx.x) * kTileRows;
+  const int c0 = Slabs ? Dh * (blockIdx.x / n_tiles) : 0;  // this block's output columns
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int warp = threadIdx.x >> 5;
@@ -305,36 +323,50 @@ __device__ __forceinline__ void attention_mma_tile_long(const typename Mask::Arg
   const int t = lane & 3;
   const int r0 = 16 * warp;
   const int n_blocks = (a.lk + kBlkKeys - 1) / kBlkKeys;
-  const int n_steps = 2 * n_blocks;  // sweep 1 (K), then sweep 2 (K and V)
+  const int n_steps = 2 * n_blocks * slabs;  // sweep 1 (K), then sweep 2 (K and V)
 
   const bf16* qb = a.q + b * a.sqb + h * a.sqh;
   const bf16* kb = a.k + b * a.skb + h * a.skh;
-  const bf16* vb = a.v + b * a.svb + h * a.svh;
-  // step it's copies into buffer it & 1: the key block's K (and in sweep 2
-  // its V) as one cp.async group, and its mask words
-  auto load = [&](int it) {
-    const int buf = it & 1;
-    const int key0 = (it < n_blocks ? it : it - n_blocks) * kBlkKeys;
+  const bf16* vb = a.v + b * a.svb + h * a.svh + c0;
+  // a step's copies into buffer `buf`: input slab sl of key block kblk's K
+  // (with Slabs, and of the Q tile) as one cp.async group, with the block's V
+  // (in sweep 2) and mask words at its first slab; kblk counts over both
+  // sweeps, 0 .. 2 n_blocks - 1
+  auto load = [&](int buf, int kblk, int sl) {
+    const int key0 = (kblk < n_blocks ? kblk : kblk - n_blocks) * kBlkKeys;
+    const int col = Dh * sl;
+    // keep the braces: without them nvcc 12.8 built the non-slab instances
+    // wrong (their outputs came out NaN), though the code means the same
+    if constexpr (Slabs) {
+      for (int c = threadIdx.x; c < kTileRows * kChunks; c += kMmaThreads) {
+        const int r = c / kChunks;
+        const int d = (c % kChunks) * 8;
+        const bool ok = i0 + r < a.lq;
+        cp_async16(q_s + buf * kQBuf + r * kS + d, qb + (ok ? i0 + r : 0) * a.sqi + col + d, ok);
+      }
+    }
     for (int c = threadIdx.x; c < kBlkKeys * kChunks; c += kMmaThreads) {
       const int r = c / kChunks;
       const int d = (c % kChunks) * 8;
       const int j = key0 + r;
       const bool ok = j < a.lk;
-      cp_async16(k_s + buf * kBuf + r * kS + d, kb + (ok ? j : 0) * a.ski + d, ok);
-      if (it >= n_blocks)
-        cp_async16(v_s + buf * kBuf + r * kS + d, vb + (ok ? j : 0) * a.svi + d, ok);
+      cp_async16(k_s + buf * kBuf + r * kS + d, kb + (ok ? j : 0) * a.ski + col + d, ok);
+      if (sl == 0 && kblk >= n_blocks)
+        cp_async16(v_s + (kblk & 1) * kBuf + r * kS + d, vb + (ok ? j : 0) * a.svi + d, ok);
     }
     cp_async_commit();
-    Mask::stage(a, mask_s + buf * kMaskBuf, b, key0, kBlkKeys);
+    if (sl == 0) Mask::stage(a, mask_s + (kblk & 1) * kMaskBuf, b, key0, kBlkKeys);
   };
 
-  for (int c = threadIdx.x; c < kTileRows * kChunks; c += kMmaThreads) {
-    const int r = c / kChunks;
-    const int d = (c % kChunks) * 8;
-    const bool ok = i0 + r < a.lq;
-    cp_async16(q_s + r * kS + d, qb + (ok ? i0 + r : 0) * a.sqi + d, ok);
+  if constexpr (!Slabs) {
+    for (int c = threadIdx.x; c < kTileRows * kChunks; c += kMmaThreads) {
+      const int r = c / kChunks;
+      const int d = (c % kChunks) * 8;
+      const bool ok = i0 + r < a.lq;
+      cp_async16(q_s + r * kS + d, qb + (ok ? i0 + r : 0) * a.sqi + d, ok);
+    }
   }
-  load(0);  // the Q tile rides in step 0's group
+  load(0, 0, 0);  // the Q tile rides in step 0's group
   cp_async_wait<0>();
   __syncthreads();
 
@@ -347,27 +379,33 @@ __device__ __forceinline__ void attention_mma_tile_long(const typename Mask::Arg
   for (int n = 0; n < kDt; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float sc[kBlkPairs][2][4];
 
   for (int it = 0; it < n_steps; ++it) {
     // buffer (it + 1) & 1 was last read in step it - 1, before its barrier
-    if (it + 1 < n_steps) load(it + 1);
+    // (and the next key block's mask and V buffers in the last step of key
+    // block it / slabs - 1)
+    if (it + 1 < n_steps) load((it + 1) & 1, (it + 1) / slabs, (it + 1) % slabs);
     const int buf = it & 1;
-    const int key0 = (it < n_blocks ? it : it - n_blocks) * kBlkKeys;
+    const int kblk = it / slabs;
+    const int sl = it % slabs;
+    const int key0 = (kblk < n_blocks ? kblk : kblk - n_blocks) * kBlkKeys;
     const bf16* kk = k_s + buf * kBuf;
-    mask.rebase(mask_s + buf * kMaskBuf, key0);
+    const bf16* qq = q_s + buf * kQBuf;
 
-    // S = Q K^T for this warp's 16 rows and the block's keys, scaled and masked
-    float sc[kBlkPairs][2][4];
+    // S (+)= Q K^T for this warp's 16 rows and the block's keys
+    if (sl == 0) {
 #pragma unroll
-    for (int jp = 0; jp < kBlkPairs; ++jp)
+      for (int jp = 0; jp < kBlkPairs; ++jp)
 #pragma unroll
-      for (int n = 0; n < 2; ++n)
+        for (int n = 0; n < 2; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) sc[jp][n][e] = 0.f;
+          for (int e = 0; e < 4; ++e) sc[jp][n][e] = 0.f;
+    }
 #pragma unroll
     for (int s = 0; s < kSteps; ++s) {
       uint32_t qa[4];
-      ldsm_x4(qa, q_s + (r0 + (lane & 15)) * kS + 16 * s + 8 * (lane >> 4));
+      ldsm_x4(qa, qq + (r0 + (lane & 15)) * kS + 16 * s + 8 * (lane >> 4));
 #pragma unroll
       for (int jp = 0; jp < kBlkPairs; ++jp) {
         uint32_t y[4];
@@ -377,69 +415,73 @@ __device__ __forceinline__ void attention_mma_tile_long(const typename Mask::Arg
         mma16816(sc[jp][1], qa, y[2], y[3]);
       }
     }
-#pragma unroll
-    for (int jp = 0; jp < kBlkPairs; ++jp)
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int j = key0 + 16 * jp + 8 * n + 2 * t + (e & 1);
-          const float x = __fmul_rn(sc[jp][n][e], a.scale);
-          sc[jp][n][e] = j < a.lk ? x + mask(e >> 1, j) : -INFINITY;
-        }
-
-    if (it < n_blocks) {
-      // sweep 1: the running row max (quad-uniform) and this lane's sum
-#pragma unroll
-      for (int hi = 0; hi < 2; ++hi) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int jp = 0; jp < kBlkPairs; ++jp)
-#pragma unroll
-          for (int n = 0; n < 2; ++n)
-            mx = fmaxf(mx, fmaxf(sc[jp][n][2 * hi], sc[jp][n][2 * hi + 1]));
-        const float mn = fmaxf(m[hi], quad_max(mx));
-        float sum = l[hi] * expf(m[hi] - mn);
-#pragma unroll
-        for (int jp = 0; jp < kBlkPairs; ++jp)
-#pragma unroll
-          for (int n = 0; n < 2; ++n)
-            sum += expf(sc[jp][n][2 * hi] - mn) + expf(sc[jp][n][2 * hi + 1] - mn);
-        m[hi] = mn;
-        l[hi] = sum;
-      }
-      if (it == n_blocks - 1) {
-        l[0] = quad_sum(l[0]);
-        l[1] = quad_sum(l[1]);
-      }
-    } else {
-      // sweep 2: P = exp(S - m) / l rounded to bf16, then O += P V
-      uint32_t pa[kBlkPairs][4];
+    if (sl == slabs - 1) {
+      // the scores are whole: scaled and masked
+      mask.rebase(mask_s + (kblk & 1) * kMaskBuf, key0);
 #pragma unroll
       for (int jp = 0; jp < kBlkPairs; ++jp)
 #pragma unroll
         for (int n = 0; n < 2; ++n)
 #pragma unroll
-          for (int hi = 0; hi < 2; ++hi)
-            pa[jp][2 * n + hi] =
-                pack_bf16(expf(sc[jp][n][2 * hi] - m[hi]) / l[hi],
-                          expf(sc[jp][n][2 * hi + 1] - m[hi]) / l[hi]);
-      const bf16* vv = v_s + buf * kBuf;
+          for (int e = 0; e < 4; ++e) {
+            const int j = key0 + 16 * jp + 8 * n + 2 * t + (e & 1);
+            const float x = __fmul_rn(sc[jp][n][e], a.scale);
+            sc[jp][n][e] = j < a.lk ? x + mask(e >> 1, j) : -INFINITY;
+          }
+
+      if (kblk < n_blocks) {
+        // sweep 1: the running row max (quad-uniform) and this lane's sum
 #pragma unroll
-      for (int jp = 0; jp < kBlkPairs; ++jp)
+        for (int hi = 0; hi < 2; ++hi) {
+          float mx = -INFINITY;
 #pragma unroll
-        for (int s = 0; s < kSteps; ++s) {
-          uint32_t y[4];
-          ldsm_x4_t(y, vv + (16 * jp + (lane & 15)) * kS + 16 * s + 8 * (lane >> 4));
-          mma16816(o[2 * s], pa[jp], y[0], y[1]);
-          mma16816(o[2 * s + 1], pa[jp], y[2], y[3]);
+          for (int jp = 0; jp < kBlkPairs; ++jp)
+#pragma unroll
+            for (int n = 0; n < 2; ++n)
+              mx = fmaxf(mx, fmaxf(sc[jp][n][2 * hi], sc[jp][n][2 * hi + 1]));
+          const float mn = fmaxf(m[hi], quad_max(mx));
+          float sum = l[hi] * expf(m[hi] - mn);
+#pragma unroll
+          for (int jp = 0; jp < kBlkPairs; ++jp)
+#pragma unroll
+            for (int n = 0; n < 2; ++n)
+              sum += expf(sc[jp][n][2 * hi] - mn) + expf(sc[jp][n][2 * hi + 1] - mn);
+          m[hi] = mn;
+          l[hi] = sum;
         }
+        if (kblk == n_blocks - 1) {
+          l[0] = quad_sum(l[0]);
+          l[1] = quad_sum(l[1]);
+        }
+      } else {
+        // sweep 2: P = exp(S - m) / l rounded to bf16, then O += P V
+        uint32_t pa[kBlkPairs][4];
+#pragma unroll
+        for (int jp = 0; jp < kBlkPairs; ++jp)
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int hi = 0; hi < 2; ++hi)
+              pa[jp][2 * n + hi] =
+                  pack_bf16(expf(sc[jp][n][2 * hi] - m[hi]) / l[hi],
+                            expf(sc[jp][n][2 * hi + 1] - m[hi]) / l[hi]);
+        const bf16* vv = v_s + (kblk & 1) * kBuf;
+#pragma unroll
+        for (int jp = 0; jp < kBlkPairs; ++jp)
+#pragma unroll
+          for (int s = 0; s < kSteps; ++s) {
+            uint32_t y[4];
+            ldsm_x4_t(y, vv + (16 * jp + (lane & 15)) * kS + 16 * s + 8 * (lane >> 4));
+            mma16816(o[2 * s], pa[jp], y[0], y[1]);
+            mma16816(o[2 * s + 1], pa[jp], y[2], y[3]);
+          }
+      }
     }
     cp_async_wait<0>();
     __syncthreads();
   }
-
   // O through this warp's own Q rows to 16-byte stores, as attention_mma_tile
+  // (with Slabs, into this block's columns of the padded head)
   bf16* o_s = q_s + r0 * kS;
 #pragma unroll
   for (int hi = 0; hi < 2; ++hi)
@@ -453,18 +495,19 @@ __device__ __forceinline__ void attention_mma_tile_long(const typename Mask::Arg
     const int d = (c % kChunks) * 8;
     const int i = i0 + r0 + r;
     if (i < a.lq)
-      *reinterpret_cast<uint4*>(a.out + ((int64_t(b) * a.lq + i) * a.n_heads + h) * Dh + d) =
-          *reinterpret_cast<const uint4*>(o_s + r * kS + d);
+      *reinterpret_cast<uint4*>(a.out + ((int64_t(b) * a.lq + i) * a.n_heads + h) * Dh * slabs +
+                                c0 + d) = *reinterpret_cast<const uint4*>(o_s + r * kS + d);
   }
 }
 
-// Reserve `Kernel`'s shared memory and launch it on a (ceil(Lq / 64), H, B)
-// grid; returns cudaGetLastError().
+// Reserve `Kernel`'s shared memory and launch it on a (ceil(Lq / 64) *
+// a.slabs, H, B) grid (a.slabs is 1 for the Dh-64 and Dh-128 instances);
+// returns cudaGetLastError().
 template <auto Kernel, class Args>
 int launch_mma(const Args& a, int b, size_t smem, cudaStream_t stream) {
   const cudaError_t err = reserve_smem<Kernel>(smem);
   if (err != cudaSuccess) return int(err);
-  const dim3 grid((a.lq + kTileRows - 1) / kTileRows, a.n_heads, b);
+  const dim3 grid(ceil_div(a.lq, kTileRows) * a.slabs, a.n_heads, b);
   Kernel<<<grid, kMmaThreads, smem, stream>>>(a);
   return int(cudaGetLastError());
 }

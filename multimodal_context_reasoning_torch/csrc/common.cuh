@@ -41,13 +41,18 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// The widest head the FP32-pipe kernels take (MAX_DH[torch.float32] in
-// ops/fused_attention.py).  Their streaming variants keep a row of q (and
-// dO) in shared memory and MaxDh / 32 output columns per lane, MaxDh a
-// template parameter instantiated at kNarrowDh (heads up to 128, the
-// registers they always had) and at kMaxDh (heads from 129 to 256).
+// The FP32-pipe kernels' head widths.  Their staged variants take heads up
+// to kMaxDh.  Their streaming variants keep a row of q (and dO) in shared
+// memory and MaxDh / 32 output columns per lane, MaxDh a template parameter
+// instantiated at kNarrowDh (heads up to 128, the registers they always had)
+// and at kMaxDh (heads from 129 to 256).  A head wider than kMaxDh runs the
+// kMaxDh streaming instance in slabs (its Slabs flag): one block per slab of
+// kMaxDh output columns, the scores over the whole head, q (and dO) read
+// through L1 for them and only the slab's columns staged.
 constexpr int kMaxDh = 256;
 constexpr int kNarrowDh = 128;
+
+__host__ __device__ constexpr int ceil_div(int n, int d) { return (n + d - 1) / d; }
 
 // True when one block may opt in to `smem` bytes of dynamic shared memory on
 // the current device (227 KB on an H100); the FP32-pipe kernels stage K and
@@ -93,10 +98,17 @@ cudaError_t reserve_smem(size_t smem) {
 
 // ---- tensor-core helpers of the bf16 kernels (mma.sync, ldmatrix, cp.async)
 
-// The head dims the bf16 kernels are instantiated at, their Dh template
-// parameter (BF16_HEAD_DIMS in ops/fused_attention.py, whose launchers
-// zero-pad a narrower head to the next); the launchers refuse any other.
+// The head widths the bf16 kernels take (bf16_width in ops/fused_attention.py,
+// whose launchers zero-pad every head to one of them): 64 and 128, their
+// Dh template parameter, and any multiple of kSlabDh above, which the slab
+// instances run in slabs of kSlabDh output columns (one block per slab, the
+// scores summed over every slab of the head).
+constexpr int kSlabDh = 128;
 __host__ __device__ constexpr bool mma_head_dim(int dh) { return dh == 64 || dh == 128; }
+// The slab count of a head the slab instances take, 0 for any other.
+__host__ __device__ constexpr int mma_slabs(int dh) {
+  return dh > kSlabDh && dh % kSlabDh == 0 ? dh / kSlabDh : 0;
+}
 
 __host__ __device__ constexpr int pad16(int n) { return (n + 15) & ~15; }
 

@@ -62,8 +62,10 @@
 //   resident_keys(64) = 192 keys; above, flash_bwd_mma_long_kernel sweeps
 //   the keys in blocks of 64 (its note below; 92,160 B of shared memory at
 //   any Lk).  Both exist at Dh = 64 and Dh = 128 (the wrapper zero-pads a
-//   narrower head to the next, with the true width's scale, and refuses a
-//   wider one before launch) and take 16-byte aligned rows.  At Dh 128 the
+//   narrower head to the next, with the true width's scale) and take
+//   16-byte aligned rows.  A head wider than 128 (zero-padded to a multiple
+//   of 128) runs the key-looped kernel in slabs of 128 output columns
+//   (flash_bwd_mma_long_kernel<128, true>, its note below).  At Dh 128 the
 //   resident kernel holds up to 128 keys (208,896 B of shared memory): its
 //   dK and dV sums are 2 Lk_pad Dh fp32 over 256 threads, 128 registers a
 //   thread at 128 keys and 192 at 144, the most shared memory would hold;
@@ -80,8 +82,10 @@
 //   thread owning fixed (key, dimension) cells.  155 KB of shared memory
 //   at Lk = 138, 212 KB at Lk = 190.  Beyond one block's shared memory
 //   (about 208 keys at Dh 64) flash_bwd_stream_kernel reads K and V from
-//   device memory and keeps the dK and dV sums in the outputs.  Both take
-//   head dims up to kMaxDh = 256 (common.cuh).
+//   device memory and keeps the dK and dV sums in the outputs.  The staged
+//   kernel takes heads up to kMaxDh = 256 (common.cuh); a wider head streams
+//   in slabs of 256 columns, one block per slab (only the first adds into
+//   the dbias plane).
 //
 // Plain C interface, loaded with ctypes (multimodal_context_reasoning_torch/
 // ops/flash.py).  The launcher returns cudaGetLastError().
@@ -255,8 +259,12 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // and after a barrier each thread folds the round's rows, in order, into
 // fixed (key, dimension) cells of dK and dV.  Any Lk; Dh <= MaxDh, each lane
 // holding MaxDh / 32 dQ columns (instantiated at kNarrowDh and kMaxDh,
-// common.cuh).
-template <int MaxDh>
+// common.cuh).  With Slabs, any Dh: the grid's x holds each head's slabs of
+// MaxDh columns in turn; a block recomputes S and dP over the whole head,
+// reading q and dO through L1 (the same products in the same order), stages
+// only its slab's columns of them for dK and dV, writes its slab of dq, dk
+// and dv, and only the first slab's blocks add into the dbias plane.
+template <int MaxDh, bool Slabs>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_stream_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ dout,
@@ -267,11 +275,14 @@ flash_bwd_stream_kernel(const float* __restrict__ q, const float* __restrict__ k
                         int64_t skh, int64_t svb, int64_t svi, int64_t svh, int64_t sob,
                         int64_t soi, int64_t soh, int64_t sbb, int64_t sbq, int64_t sbk,
                         float scale) {
-  __shared__ float q_s[kWarps][MaxDh];
+  __shared__ float q_s[kWarps][MaxDh];  // the row's q, or its slab's columns
   __shared__ float do_s[kWarps][MaxDh];
   __shared__ float p_s[kWarps][32];   // P of the chunk, one row per warp
   __shared__ float ds_s[kWarps][32];  // dS / sqrt(Dh) of the chunk
-  const int h = blockIdx.x;
+  const int n_slabs = Slabs ? ceil_div(dh, MaxDh) : 1;
+  const int h = Slabs ? blockIdx.x / n_slabs : blockIdx.x;
+  const int d0 = Slabs ? MaxDh * (blockIdx.x % n_slabs) : 0;  // the slab's first column
+  const int w = Slabs ? min(MaxDh, dh - d0) : dh;              // and its width
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -287,12 +298,15 @@ flash_bwd_stream_kernel(const float* __restrict__ q, const float* __restrict__ k
     if (active) {
       const float* qi = q + b * sqb + i * sqi + h * sqh;
       const float* doi = dout + b * sob + i * soi + h * soh;
-      for (int d = lane; d < dh; d += 32) {
-        q_row[d] = qi[d];
-        do_row[d] = doi[d];
+      for (int d = lane; d < w; d += 32) {
+        q_row[d] = qi[d0 + d];
+        do_row[d] = doi[d0 + d];
       }
     }
     __syncwarp();
+    // the whole rows, read through L1 by a slab's scores (read only when active)
+    const float* q_all = Slabs ? q + b * sqb + i * sqi + h * sqh : nullptr;
+    const float* do_all = Slabs ? dout + b * sob + i * soi + h * soh : nullptr;
     const float* bias_row = (bias != nullptr && active) ? bias + b * sbb + i * sbq : nullptr;
     // S = (q . k) * scale + bias and dP = dO . v for key j
     auto score = [&](int j, float& dpj) {
@@ -302,8 +316,8 @@ flash_bwd_stream_kernel(const float* __restrict__ q, const float* __restrict__ k
       float dp = 0.f;
 #pragma unroll 8
       for (int d = 0; d < dh; ++d) {
-        s = fmaf(q_row[d], kj[d], s);
-        dp = fmaf(do_row[d], vj[d], dp);
+        s = fmaf(Slabs ? __ldg(q_all + d) : q_row[d], kj[d], s);
+        dp = fmaf(Slabs ? __ldg(do_all + d) : do_row[d], vj[d], dp);
       }
       s *= scale;
       if (bias_row != nullptr) s += __ldg(bias_row + j * sbk);
@@ -339,7 +353,8 @@ flash_bwd_stream_kernel(const float* __restrict__ q, const float* __restrict__ k
         const float s = score(j, dpj);
         pj = expf(s - m) / l;
         dsj = pj * (dpj - row_dot);
-        if (dbias != nullptr) atomicAdd(dbias + (int64_t(b) * lq + i) * lk + j, dsj);
+        if (dbias != nullptr && d0 == 0)
+          atomicAdd(dbias + (int64_t(b) * lq + i) * lk + j, dsj);
         dsj *= scale;
       }
       p_s[warp][lane] = pj;
@@ -350,16 +365,16 @@ flash_bwd_stream_kernel(const float* __restrict__ q, const float* __restrict__ k
 #pragma unroll
         for (int r = 0; r < MaxDh / 32; ++r) {
           const int d = lane + 32 * r;
-          if (d < dh)
+          if (d < w)
             for (int jj = 0; jj < n; ++jj)
-              dq_r[r] = fmaf(ds_s[warp][jj], kb[(j0 + jj) * ski + d], dq_r[r]);
+              dq_r[r] = fmaf(ds_s[warp][jj], kb[(j0 + jj) * ski + d0 + d], dq_r[r]);
         }
       }
       // dV += P^T dO and dK += dS^T Q over the round's rows, in order
-      for (int c = threadIdx.x; c < n * dh; c += kThreads) {
-        const int jj = c / dh;
-        const int d = c - jj * dh;
-        const int64_t o = ((int64_t(b) * lk + j0 + jj) * n_heads + h) * dh + d;
+      for (int c = threadIdx.x; c < n * w; c += kThreads) {
+        const int jj = c / w;
+        const int d = c - jj * w;
+        const int64_t o = ((int64_t(b) * lk + j0 + jj) * n_heads + h) * dh + d0 + d;
         float ak = i0 == 0 ? 0.f : dk[o];
         float av = i0 == 0 ? 0.f : dv[o];
         for (int r = 0; r < n_rows; ++r) {
@@ -372,10 +387,10 @@ flash_bwd_stream_kernel(const float* __restrict__ q, const float* __restrict__ k
       __syncthreads();  // the chunk buffers are rewritten by the next chunk
     }
     if (active) {
-      float* dqi = dq + ((int64_t(b) * lq + i) * n_heads + h) * dh;
+      float* dqi = dq + ((int64_t(b) * lq + i) * n_heads + h) * dh + d0;
 #pragma unroll
       for (int r = 0; r < MaxDh / 32; ++r)
-        if (lane + 32 * r < dh) dqi[lane + 32 * r] = dq_r[r];
+        if (lane + 32 * r < w) dqi[lane + 32 * r] = dq_r[r];
     }
   }
 }
@@ -698,7 +713,22 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // or to dk and dv in bf16 after the last tile: the same thread reads and
 // writes the same elements in tile order, so no atomics touch dq, dk or dv
 // and two launches give the same bits.  `part` is needed only when Lq > 128.
-template <int Dh>
+//
+// With Slabs (at Dh = kSlabDh), a head of `slabs` 128-column slabs at any
+// key count (the wrapper zero-pads a wider head to the next multiple of
+// 128, with the true width's scale; no resident variant, as holding the
+// whole head's K and V is what the slabs avoid): one block per (head,
+// output slab, batch row) on an (H * slabs, B) grid.  Each sweep takes a
+// key block's S (and dP) as the sum over the head's input slabs, in slab
+// order: slab sl of the block's K (and V) and of the tile's Q (and dO) is
+// copied into the Dh-128 buffers and multiplied into fp32 accumulators
+// held for the block's 64 keys, so every block of a head computes the same
+// S, P, dP and D.  Sweep 3 then copies its own slab of K, Q and dO back
+// (unless the last slab, still in place, is its own) for dQ, dK and dV,
+// whose columns it alone writes; `part` is [2][B][H][Lk][slabs * 128].
+// Only the first slab's blocks add dS into the dbias plane, so the plane
+// holds the head sum once.  S and dP are recomputed once per output slab.
+template <int Dh, bool Slabs = false>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 flash_bwd_mma_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -709,6 +739,7 @@ flash_bwd_mma_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
                           int64_t skb, int64_t ski, int64_t skh, int64_t svb, int64_t svi,
                           int64_t svh, int64_t sob, int64_t soi, int64_t soh, int64_t sbb,
                           int64_t sbq, int64_t sbk, float scale) {
+  static_assert(!Slabs || Dh == kSlabDh, "slabs are kSlabDh columns wide");
   constexpr int kS = Dh + kRowPad;        // row stride of K, V, Q, dO in shared memory
   constexpr int kPs = kBlkKeys + kRowPad;  // row stride of P and dS
   constexpr int kChunks = Dh / 8;
@@ -720,6 +751,8 @@ flash_bwd_mma_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   constexpr int kHeld = kHoldX ? kSteps : 1;
   static_assert(2 * kBlkPairs == kMmaWarps, "one dV or dK unit of a key block per warp");
   const int n_blocks = (lk + kBlkKeys - 1) / kBlkKeys;
+  const int slabs = Slabs ? gridDim.x / n_heads : 1;
+  const int width = Dh * slabs;  // the (padded) head
 
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* k_s = reinterpret_cast<bf16*>(smem);  // [kBlkKeys][kS]
@@ -729,7 +762,9 @@ flash_bwd_mma_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   bf16* p_s = do_s + kTileRows * kS;          // [kTileRows][kPs], P rounded
   bf16* ds_s = p_s + kTileRows * kPs;         // [kTileRows][kPs], dS / sqrt(Dh) rounded
 
-  const int h = blockIdx.x;
+  const int h = Slabs ? blockIdx.x / slabs : blockIdx.x;
+  const int own = Slabs ? blockIdx.x % slabs : 0;  // this block's output slab
+  const int c0 = Dh * own;
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -744,9 +779,10 @@ flash_bwd_mma_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   // this warp's unit: dV (even warps) or dK of 16 keys from kl in each block
   const bool is_dk = warp & 1;
   const int kl = 16 * (warp >> 1);
-  float* part_u = part == nullptr ? nullptr
-                                  : part + (is_dk ? int64_t(gridDim.y) * n_heads * lk * Dh : 0) +
-                                        (int64_t(b) * n_heads + h) * lk * Dh;
+  float* part_u = part == nullptr
+                      ? nullptr
+                      : part + (is_dk ? int64_t(gridDim.y) * n_heads * lk * width : 0) +
+                            (int64_t(b) * n_heads + h) * lk * width + c0;
   bf16* out_u = is_dk ? dk : dv;
 
   // key block blk's K (and V) into shared memory, after every copy issued so
@@ -764,15 +800,43 @@ flash_bwd_mma_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     cp_async_wait_all();
     __syncthreads();
   };
-
-  for (int i0 = 0; i0 < lq; i0 += kTileRows) {
+  // Slabs: input slab sl of key block blk's K (and V) and of the tile's Q
+  // (and dO) rows into shared memory, once every warp is done with what is
+  // there
+  auto load_slab = [&](int i0, int blk, int sl, bool with_v, bool with_do) {
+    __syncthreads();
+    const int key0 = blk * kBlkKeys;
+    const int col = Dh * sl;
+    for (int c = threadIdx.x; c < kBlkKeys * kChunks; c += kMmaThreads) {
+      const int r = c / kChunks;
+      const int d = (c % kChunks) * 8;
+      const int j = key0 + r;
+      const bool ok = j < lk;
+      cp_async16(k_s + r * kS + d, kb + (ok ? j : 0) * ski + col + d, ok);
+      if (with_v) cp_async16(v_s + r * kS + d, vb + (ok ? j : 0) * svi + col + d, ok);
+    }
     for (int c = threadIdx.x; c < kTileRows * kChunks; c += kMmaThreads) {
       const int r = c / kChunks;
       const int d = (c % kChunks) * 8;
       const bool ok = i0 + r < lq;
       const int i = ok ? i0 + r : 0;
-      cp_async16(q_s + r * kS + d, qb + i * sqi + d, ok);
-      cp_async16(do_s + r * kS + d, ob + i * soi + d, ok);
+      cp_async16(q_s + r * kS + d, qb + i * sqi + col + d, ok);
+      if (with_do) cp_async16(do_s + r * kS + d, ob + i * soi + col + d, ok);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  };
+
+  for (int i0 = 0; i0 < lq; i0 += kTileRows) {
+    if constexpr (!Slabs) {
+      for (int c = threadIdx.x; c < kTileRows * kChunks; c += kMmaThreads) {
+        const int r = c / kChunks;
+        const int d = (c % kChunks) * 8;
+        const bool ok = i0 + r < lq;
+        const int i = ok ? i0 + r : 0;
+        cp_async16(q_s + r * kS + d, qb + i * sqi + d, ok);
+        cp_async16(do_s + r * kS + d, ob + i * soi + d, ok);
+      }
     }
 
     int row[2];
@@ -783,12 +847,10 @@ flash_bwd_mma_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
       brow[hi] = (bias != nullptr && row[hi] < lq) ? bias + b * sbb + row[hi] * sbq : nullptr;
     }
     uint32_t qa[kHeld][4], oa[kHeld][4];
-    auto product = [&](const uint32_t (&xa)[kHeld][4], const bf16* x_s, const bf16* y_s,
-                       int jp, float (&out)[2][4]) {
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) out[n][e] = 0.f;
+    // out += this warp's 16 rows of x_s (or the held xa) times the 16 keys
+    // from 16 jp of y_s, transposed
+    auto accumulate = [&](const uint32_t (&xa)[kHeld][4], const bf16* x_s, const bf16* y_s,
+                          int jp, float (&out)[2][4]) {
 #pragma unroll
       for (int s = 0; s < kSteps; ++s) {
         uint32_t y[4];
@@ -805,8 +867,42 @@ flash_bwd_mma_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
         }
       }
     };
+    auto product = [&](const uint32_t (&xa)[kHeld][4], const bf16* x_s, const bf16* y_s,
+                       int jp, float (&out)[2][4]) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) out[n][e] = 0.f;
+      accumulate(xa, x_s, y_s, jp, out);
+    };
+    // Slabs: the key block's S (and dP, with_dp) summed over the head's
+    // input slabs, for every pair of 8-key tiles
+    float s_blk[kBlkPairs][2][4], dp_blk[kBlkPairs][2][4];
+    auto slab_scores = [&](int blk, bool with_dp) {
+#pragma unroll
+      for (int jp = 0; jp < kBlkPairs; ++jp)
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s_blk[jp][n][e] = dp_blk[jp][n][e] = 0.f;
+      for (int sl = 0; sl < slabs; ++sl) {
+        load_slab(i0, blk, sl, with_dp, with_dp);
+#pragma unroll
+        for (int jp = 0; jp < kBlkPairs; ++jp) {
+          accumulate(qa, q_s, k_s, jp, s_blk[jp]);
+          if (with_dp) accumulate(oa, do_s, v_s, jp, dp_blk[jp]);
+        }
+      }
+    };
     auto scores = [&](int key0, int jp, float (&sc)[2][4]) {
-      product(qa, q_s, k_s, jp, sc);
+      if constexpr (Slabs) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[n][e] = s_blk[jp][n][e];
+      } else {
+        product(qa, q_s, k_s, jp, sc);
+      }
 #pragma unroll
       for (int n = 0; n < 2; ++n)
 #pragma unroll
@@ -821,19 +917,34 @@ flash_bwd_mma_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
           sc[n][e] = x;
         }
     };
+    // dP = dO V^T of the block's keys 16 jp..
+    auto dprod = [&](int jp, float (&dp)[2][4]) {
+      if constexpr (Slabs) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dp[n][e] = dp_blk[jp][n][e];
+      } else {
+        product(oa, do_s, v_s, jp, dp);
+      }
+    };
 
     // sweep 1: row max and sum of exp, online over the key blocks
     float m[2] = {-INFINITY, -INFINITY};
     float l[2] = {0.f, 0.f};
     for (int blk = 0; blk < n_blocks; ++blk) {
-      load_kv(blk, false);
-      if constexpr (kHoldX) {
-        if (blk == 0) {
+      if constexpr (Slabs) {
+        slab_scores(blk, false);
+      } else {
+        load_kv(blk, false);
+        if constexpr (kHoldX) {
+          if (blk == 0) {
 #pragma unroll
-          for (int s = 0; s < kSteps; ++s) {
-            const int off = (r0 + (lane & 15)) * kS + 16 * s + 8 * (lane >> 4);
-            ldsm_x4(qa[s], q_s + off);
-            ldsm_x4(oa[s], do_s + off);
+            for (int s = 0; s < kSteps; ++s) {
+              const int off = (r0 + (lane & 15)) * kS + 16 * s + 8 * (lane >> 4);
+              ldsm_x4(qa[s], q_s + off);
+              ldsm_x4(oa[s], do_s + off);
+            }
           }
         }
       }
@@ -861,11 +972,15 @@ flash_bwd_mma_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     // sweep 2: D = rowsum(dP o P) with the fp32 P
     float dsum[2] = {0.f, 0.f};
     for (int blk = 0; blk < n_blocks; ++blk) {
-      load_kv(blk, true);
+      if constexpr (Slabs) {
+        slab_scores(blk, true);
+      } else {
+        load_kv(blk, true);
+      }
       for (int jp = 0; jp < kBlkPairs; ++jp) {
         float sc[2][4], dp[2][4];
         scores(blk * kBlkKeys, jp, sc);
-        product(oa, do_s, v_s, jp, dp);
+        dprod(jp, dp);
 #pragma unroll
         for (int n = 0; n < 2; ++n)
 #pragma unroll
@@ -887,11 +1002,16 @@ flash_bwd_mma_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     const int rows_here = pad16(min(kTileRows, lq - i0));
     for (int blk = 0; blk < n_blocks; ++blk) {
       const int key0 = blk * kBlkKeys;
-      load_kv(blk, true);
+      if constexpr (Slabs) {
+        slab_scores(blk, true);
+        if (own != slabs - 1) load_slab(i0, blk, own, false, true);  // K, Q, dO of this slab
+      } else {
+        load_kv(blk, true);
+      }
       for (int jp = 0; jp < kBlkPairs; ++jp) {
         float sc[2][4], dp[2][4];
         scores(key0, jp, sc);
-        product(oa, do_s, v_s, jp, dp);
+        dprod(jp, dp);
         uint32_t a[4];
 #pragma unroll
         for (int n = 0; n < 2; ++n) {
@@ -903,7 +1023,7 @@ flash_bwd_mma_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
             for (int e = 0; e < 2; ++e) {
               p[e] = expf(sc[n][2 * hi + e] - m[hi]) / l[hi];
               ds[e] = p[e] * (dp[n][2 * hi + e] - dd[hi]);
-              if (dbias != nullptr && row[hi] < lq && key0 + col + e < lk)
+              if (own == 0 && dbias != nullptr && row[hi] < lq && key0 + col + e < lk)
                 atomicAdd(dbias + (int64_t(b) * lq + row[hi]) * lk + key0 + col + e, ds[e]);
             }
             a[2 * n + hi] = pack_bf16(ds[0] * scale, ds[1] * scale);
@@ -931,7 +1051,7 @@ flash_bwd_mma_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
         for (int n = 0; n < kDt; ++n) {
           float2 prev = make_float2(0.f, 0.f);
           if (!first_tile && j < lk)
-            prev = *reinterpret_cast<const float2*>(part_u + int64_t(j) * Dh + 8 * n + 2 * t);
+            prev = *reinterpret_cast<const float2*>(part_u + int64_t(j) * width + 8 * n + 2 * t);
           acc[n][2 * hi] = prev.x;
           acc[n][2 * hi + 1] = prev.y;
         }
@@ -957,11 +1077,11 @@ flash_bwd_mma_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 #pragma unroll
         for (int n = 0; n < kDt; ++n) {
           if (last_tile)
-            *reinterpret_cast<uint32_t*>(out_u + ((int64_t(b) * lk + j) * n_heads + h) * Dh +
-                                         8 * n + 2 * t) =
+            *reinterpret_cast<uint32_t*>(out_u + ((int64_t(b) * lk + j) * n_heads + h) * width +
+                                         c0 + 8 * n + 2 * t) =
                 pack_bf16(acc[n][2 * hi], acc[n][2 * hi + 1]);
           else
-            *reinterpret_cast<float2*>(part_u + int64_t(j) * Dh + 8 * n + 2 * t) =
+            *reinterpret_cast<float2*>(part_u + int64_t(j) * width + 8 * n + 2 * t) =
                 make_float2(acc[n][2 * hi], acc[n][2 * hi + 1]);
         }
       }
@@ -970,7 +1090,7 @@ flash_bwd_mma_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 #pragma unroll
     for (int hi = 0; hi < 2; ++hi) {
       if (row[hi] >= lq) continue;
-      bf16* out = dq + ((int64_t(b) * lq + row[hi]) * n_heads + h) * Dh + 2 * t;
+      bf16* out = dq + ((int64_t(b) * lq + row[hi]) * n_heads + h) * width + c0 + 2 * t;
 #pragma unroll
       for (int n = 0; n < kDt; ++n)
         *reinterpret_cast<uint32_t*>(out + 8 * n) = pack_bf16(dqa[n][2 * hi], dqa[n][2 * hi + 1]);
@@ -982,14 +1102,16 @@ int launch_fp32(const void* q, const void* k, const void* v, const void* dout,
                 const float* bias, void* dq, void* dk, void* dv, float* dbias, int b,
                 int lq, int lk, int h, int dh, const long long* st, float scale,
                 cudaStream_t stream) {
-  if (dh < 1 || dh > kMaxDh) return int(cudaErrorInvalidValue);
+  if (dh < 1) return int(cudaErrorInvalidValue);
   const dim3 grid(h, b);
   const size_t smem = smem_bytes<float>(lk, dh);
-  if (!fits_smem(smem)) {
-    // the narrower of the streaming kernel's two widths that holds Dh
-    auto kernel = dh <= kNarrowDh ? flash_bwd_stream_kernel<kNarrowDh>
-                                  : flash_bwd_stream_kernel<kMaxDh>;
-    kernel<<<grid, kThreads, 0, stream>>>(
+  if (dh > kMaxDh || !fits_smem(smem)) {
+    // the narrower of the streaming kernel's two widths that holds Dh, or
+    // the wider one in slabs
+    auto kernel = dh <= kNarrowDh ? flash_bwd_stream_kernel<kNarrowDh, false>
+                  : dh <= kMaxDh  ? flash_bwd_stream_kernel<kMaxDh, false>
+                                  : flash_bwd_stream_kernel<kMaxDh, true>;
+    kernel<<<dim3(h * ceil_div(dh, kMaxDh), b), kThreads, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), bias,
         static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), dbias,
@@ -1008,10 +1130,32 @@ int launch_fp32(const void* q, const void* k, const void* v, const void* dout,
   return int(cudaGetLastError());
 }
 
-// The fp32 floats flash_bwd_mma_long_kernel keeps between query tiles (none
-// when it has one tile, or when K and V are resident).
+// The fp32 floats flash_bwd_mma_long_kernel keeps between query tiles: none
+// when there is one tile, or when K and V are resident; in slabs they hold
+// every slab of the head.
 size_t long_part_floats(int b, int lq, int lk, int h, int dh) {
-  return lk > resident_keys(dh) && lq > kTileRows ? 2 * size_t(b) * h * lk * dh : 0;
+  const bool looped = mma_slabs(dh) > 0 || lk > resident_keys(dh);
+  return looped && lq > kTileRows ? 2 * size_t(b) * h * lk * dh : 0;
+}
+
+// The key-looped kernel at head dim Dh on an (H * slabs, B) grid (with
+// Slabs, a head of `slabs` 128-column slabs; else slabs is 1).
+template <int Dh, bool Slabs>
+int launch_long(const void* q, const void* k, const void* v, const void* dout,
+                const float* bias, void* dq, void* dk, void* dv, float* dbias, float* part,
+                int b, int lq, int lk, int h, int slabs, const long long* st, float scale,
+                cudaStream_t stream) {
+  if (part == nullptr && long_part_floats(b, lq, lk, h, Dh * slabs) > 0)
+    return int(cudaErrorInvalidValue);
+  const size_t smem = mma_long_smem_bytes(Dh);
+  const cudaError_t err = reserve_smem<flash_bwd_mma_long_kernel<Dh, Slabs>>(smem);
+  if (err != cudaSuccess) return int(err);
+  flash_bwd_mma_long_kernel<Dh, Slabs><<<dim3(h * slabs, b), kMmaThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), bias, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), dbias, part, lq, lk, h, st[0], st[1], st[2], st[3], st[4], st[5],
+      st[6], st[7], st[8], st[9], st[10], st[11], st[12], st[13], st[14], scale);
+  return int(cudaGetLastError());
 }
 
 // The resident kernel at head dim Dh up to resident_keys(Dh) keys, the
@@ -1021,24 +1165,13 @@ int launch_bf16_at(const void* q, const void* k, const void* v, const void* dout
                    const float* bias, void* dq, void* dk, void* dv, float* dbias, float* part,
                    int b, int lq, int lk, int h, const long long* st, float scale,
                    cudaStream_t stream) {
-  const dim3 grid(h, b);
-  if (lk > resident_keys(Dh)) {
-    if (part == nullptr && long_part_floats(b, lq, lk, h, Dh) > 0)
-      return int(cudaErrorInvalidValue);
-    const size_t smem = mma_long_smem_bytes(Dh);
-    const cudaError_t err = reserve_smem<flash_bwd_mma_long_kernel<Dh>>(smem);
-    if (err != cudaSuccess) return int(err);
-    flash_bwd_mma_long_kernel<Dh><<<grid, kMmaThreads, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(dout), bias, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), dbias, part, lq, lk, h, st[0], st[1], st[2], st[3], st[4],
-        st[5], st[6], st[7], st[8], st[9], st[10], st[11], st[12], st[13], st[14], scale);
-    return int(cudaGetLastError());
-  }
+  if (lk > resident_keys(Dh))
+    return launch_long<Dh, false>(q, k, v, dout, bias, dq, dk, dv, dbias, part, b, lq, lk, h,
+                                  1, st, scale, stream);
   const size_t smem = mma_smem_bytes(lk, Dh);
   const cudaError_t err = reserve_smem<flash_bwd_mma_kernel<Dh>>(smem);
   if (err != cudaSuccess) return int(err);
-  flash_bwd_mma_kernel<Dh><<<grid, kMmaThreads, smem, stream>>>(
+  flash_bwd_mma_kernel<Dh><<<dim3(h, b), kMmaThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), bias, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), dbias, lq, lk, h, st[0], st[1], st[2], st[3], st[4], st[5],
@@ -1050,6 +1183,9 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* dout,
                 const float* bias, void* dq, void* dk, void* dv, float* dbias, float* part,
                 int b, int lq, int lk, int h, int dh, const long long* st, float scale,
                 cudaStream_t stream) {
+  if (const int slabs = mma_slabs(dh))
+    return launch_long<kSlabDh, true>(q, k, v, dout, bias, dq, dk, dv, dbias, part, b, lq, lk,
+                                      h, slabs, st, scale, stream);
   if (!mma_head_dim(dh)) return int(cudaErrorInvalidValue);
   return dh == 64 ? launch_bf16_at<64>(q, k, v, dout, bias, dq, dk, dv, dbias, part, b, lq,
                                        lk, h, st, scale, stream)
@@ -1075,8 +1211,9 @@ long long flash_bwd_part_floats(int b, int lq, int lk, int h, int dh, int is_bf1
 // (null when that is 0); `scale` is 1 / sqrt of the true head dim when the
 // caller has zero-padded it.  bf16 goes to the tensor-core kernels (Dh 64 or
 // 128, rows 16-byte aligned; resident K/V up to 192 keys at Dh 64 and 128 at
-// Dh 128, key-looped above), fp32 to the FP32-pipe kernels (Dh up to 256;
-// staged K/V while they fit, streamed above).
+// Dh 128, key-looped above; a multiple of 128 above 128 key-looped in
+// slabs), fp32 to the FP32-pipe kernels (any Dh; staged K/V while they fit
+// and Dh <= 256, streamed otherwise, in slabs above 256).
 int flash_attention_backward(const void* q, const void* k, const void* v,
                              const void* dout, const float* bias, void* dq, void* dk,
                              void* dv, float* dbias, float* part, int b, int lq, int lk,

@@ -36,9 +36,12 @@
 //   training path) and 160, 168 at 176 and 192, 45 to 128 below.
 //   Above 192 keys the key-looped dense_attention_mma_long_kernel runs the
 //   tile's key loop (attention_mma_tile_long).  Every instance exists at
-//   Dh = 64 and Dh = 128 (the wrapper zero-pads a narrower head to the next
-//   and refuses a wider one before launch), takes 16-byte aligned rows and
-//   any Lk.  Why not one 8-warp block per
+//   Dh = 64 and Dh = 128 (the wrapper zero-pads a narrower head to the
+//   next), takes 16-byte aligned rows and any Lk.  A head wider than 128
+//   (zero-padded to a multiple of 128) runs
+//   dense_attention_mma_long_slab_kernel, the key loop in slabs
+//   (attention_mma.cuh) at any key count: one block per 128 output columns,
+//   the scores summed over every slab.  Why not one 8-warp block per
 //   (batch, head), staging K and V once: twice the shared memory per block
 //   and half the blocks, while the second 64-row block's K/V read mostly
 //   hits L2.
@@ -50,8 +53,9 @@
 //   reduces max and sum with shuffles, and each lane then accumulates its
 //   share of the output dimensions.  Where K and V do not fit in one block's
 //   shared memory (about 417 keys at Dh 64), dense_attention_stream_kernel
-//   reads them from device memory instead, 32 keys at a time per warp.  Both
-//   take head dims up to kMaxDh = 256 (common.cuh).
+//   reads them from device memory instead, 32 keys at a time per warp.  The
+//   staged kernel takes heads up to kMaxDh = 256 (common.cuh); a wider head
+//   streams in slabs of 256 output columns, one block per slab.
 //
 // Plain C interface, loaded with ctypes (multimodal_context_reasoning_torch/
 // ops/fused_attention.py).  The launcher returns cudaGetLastError().
@@ -158,8 +162,11 @@ dense_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // across the warp; then P for 32 keys at a time into a warp buffer and
 // out += P V, lanes over the output dimensions.  Any Lk; Dh <= MaxDh, each
 // lane holding MaxDh / 32 output columns (instantiated at kNarrowDh and
-// kMaxDh, common.cuh).
-template <typename T, int MaxDh>
+// kMaxDh, common.cuh).  With Slabs, any Dh: the grid's x holds the row
+// tiles of each slab of MaxDh output columns in turn; each block scores its
+// rows over the whole head, reading q through L1 (the same products in the
+// same order), and writes only its slab of out.
+template <typename T, int MaxDh, bool Slabs>
 __global__ void __launch_bounds__(kThreads)
 dense_attention_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ v, const float* __restrict__ bias,
@@ -168,8 +175,11 @@ dense_attention_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               int64_t ski, int64_t skh, int64_t svb, int64_t svi,
                               int64_t svh, int64_t sbb, int64_t sbq, int64_t sbk,
                               float scale) {
-  __shared__ float q_s[kWarps][MaxDh];
+  __shared__ float q_s[kWarps][Slabs ? 1 : MaxDh];
   __shared__ float p_s[kWarps][32];
+  const int n_tiles = Slabs ? ceil_div(lq, kRowsPerBlock) : 1;
+  const int tile = Slabs ? blockIdx.x % n_tiles : blockIdx.x;
+  const int d0 = Slabs ? MaxDh * (blockIdx.x / n_tiles) : 0;  // the slab's first column
   const int b = blockIdx.z;
   const int h = blockIdx.y;
   const int warp = threadIdx.x >> 5;
@@ -179,17 +189,20 @@ dense_attention_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* q_row = q_s[warp];
   float* p = p_s[warp];
 
-  const int row_end = min(lq, int(blockIdx.x + 1) * kRowsPerBlock);
-  for (int i = blockIdx.x * kRowsPerBlock + warp; i < row_end; i += kWarps) {
+  const int row_end = min(lq, (tile + 1) * kRowsPerBlock);
+  for (int i = tile * kRowsPerBlock + warp; i < row_end; i += kWarps) {
     const T* qi = q + b * sqb + i * sqi + h * sqh;
-    for (int d = lane; d < dh; d += 32) q_row[d] = to_f(qi[d]);
-    __syncwarp();
+    if constexpr (!Slabs) {
+      for (int d = lane; d < dh; d += 32) q_row[d] = to_f(qi[d]);
+      __syncwarp();
+    }
     const float* bias_row = bias == nullptr ? nullptr : bias + b * sbb + i * sbq;
     auto score = [&](int j) {
       const T* kj = kb + j * ski;
       float acc = 0.f;
 #pragma unroll 8
-      for (int d = 0; d < dh; ++d) acc = fmaf(q_row[d], to_f(kj[d]), acc);
+      for (int d = 0; d < dh; ++d)
+        acc = fmaf(Slabs ? to_f(__ldg(qi + d)) : q_row[d], to_f(kj[d]), acc);
       float s = acc * scale;
       if (bias_row != nullptr) s += __ldg(bias_row + j * sbk);
       return s;
@@ -214,35 +227,38 @@ dense_attention_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int n = min(32, lk - j0);
 #pragma unroll
       for (int r = 0; r < MaxDh / 32; ++r) {
-        const int d = lane + 32 * r;
+        const int d = d0 + lane + 32 * r;
         if (d < dh)
           for (int jj = 0; jj < n; ++jj)
             acc[r] = fmaf(p[jj], to_f(vb[(j0 + jj) * svi + d]), acc[r]);
       }
       __syncwarp();
     }
-    T* oi = out + ((int64_t(b) * lq + i) * n_heads + h) * dh;
+    T* oi = out + ((int64_t(b) * lq + i) * n_heads + h) * dh + d0;
 #pragma unroll
     for (int r = 0; r < MaxDh / 32; ++r)
-      if (lane + 32 * r < dh) oi[lane + 32 * r] = from_f<T>(acc[r]);
+      if (d0 + lane + 32 * r < dh) oi[lane + 32 * r] = from_f<T>(acc[r]);
     __syncwarp();  // q_row is rewritten by this warp's next row
   }
 }
 
-// The staged kernel when K and V fit in one block's shared memory, else the
-// streaming one at the narrower of its two widths that holds Dh.
+// The staged kernel when K and V fit in one block's shared memory (heads up
+// to kMaxDh), else the streaming one at the narrower of its two widths that
+// holds Dh; a wider head streams in slabs of kMaxDh columns.
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const float* bias, void* out,
            int b, int lq, int lk, int h, int dh, int64_t sqb, int64_t sqi,
            int64_t sqh, int64_t skb, int64_t ski, int64_t skh, int64_t svb,
            int64_t svi, int64_t svh, int64_t sbb, int64_t sbq, int64_t sbk,
            float scale, cudaStream_t stream) {
-  if (dh < 1 || dh > kMaxDh) return int(cudaErrorInvalidValue);
-  const dim3 grid((lq + kRowsPerBlock - 1) / kRowsPerBlock, h, b);
+  if (dh < 1) return int(cudaErrorInvalidValue);
+  const int tiles = ceil_div(lq, kRowsPerBlock);
   const size_t smem = smem_bytes<T>(lk, dh);
-  if (!fits_smem(smem)) {
-    auto kernel = dh <= kNarrowDh ? dense_attention_stream_kernel<T, kNarrowDh>
-                                  : dense_attention_stream_kernel<T, kMaxDh>;
+  if (dh > kMaxDh || !fits_smem(smem)) {
+    auto kernel = dh <= kNarrowDh ? dense_attention_stream_kernel<T, kNarrowDh, false>
+                  : dh <= kMaxDh  ? dense_attention_stream_kernel<T, kMaxDh, false>
+                                  : dense_attention_stream_kernel<T, kMaxDh, true>;
+    const dim3 grid(tiles * ceil_div(dh, kMaxDh), h, b);
     kernel<<<grid, kThreads, 0, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         bias, static_cast<T*>(out), lq, lk, h, dh, sqb, sqi, sqh, skb, ski, skh, svb,
@@ -251,7 +267,7 @@ int launch(const void* q, const void* k, const void* v, const float* bias, void*
   }
   const cudaError_t err = reserve_smem<dense_attention_kernel<T>>(smem);
   if (err != cudaSuccess) return int(err);
-  dense_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
+  dense_attention_kernel<T><<<dim3(tiles, h, b), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       bias, static_cast<T*>(out), lq, lk, h, dh, sqb, sqi, sqh, skb, ski, skh, svb,
       svi, svh, sbb, sbq, sbk, scale);
@@ -264,7 +280,7 @@ int launch(const void* q, const void* k, const void* v, const float* bias, void*
 // attention_mma.cuh, shared with spec_attention.cu; here are the bias masks.
 
 // q, k, v, out and the bias: its data pointer (null: none) and element
-// strides.
+// strides; the head's 128-column slabs (1 below the slab instance).
 struct MmaArgs {
   const bf16* q;
   const bf16* k;
@@ -274,6 +290,7 @@ struct MmaArgs {
   int lq, lk, n_heads;
   int64_t sqb, sqi, sqh, skb, ski, skh, svb, svi, svh, sbb, sbq, sbk;
   float scale;
+  int slabs;
 };
 
 // A [B|1, 1, 1, Lk] bias, or none: one row staged in shared memory per block.
@@ -333,6 +350,13 @@ dense_attention_mma_long_kernel(const MmaArgs a) {
   attention_mma_tile_long<Dh, Mask>(a);
 }
 
+// Heads wider than 128: the key-looped instance in slabs (attention_mma.cuh).
+template <class Mask>
+__global__ void __launch_bounds__(kMmaThreads, mma_long_min_blocks(kSlabDh))
+dense_attention_mma_long_slab_kernel(const MmaArgs a) {
+  attention_mma_tile_long<kSlabDh, Mask, true>(a);
+}
+
 // The row or plane instance at Lk_pad = 16 NP, or the key-looped one, at
 // head dim Dh.
 template <int Dh>
@@ -359,10 +383,18 @@ int launch_bf16(const void* q, const void* k, const void* v, const float* bias, 
                 int b, int lq, int lk, int h, int dh, int64_t sqb, int64_t sqi, int64_t sqh,
                 int64_t skb, int64_t ski, int64_t skh, int64_t svb, int64_t svi, int64_t svh,
                 int64_t sbb, int64_t sbq, int64_t sbk, float scale, cudaStream_t stream) {
-  if (!mma_head_dim(dh)) return int(cudaErrorInvalidValue);
+  const int slabs = mma_slabs(dh);
+  if (!mma_head_dim(dh) && slabs == 0) return int(cudaErrorInvalidValue);
   const MmaArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                   static_cast<const bf16*>(v), bias, static_cast<bf16*>(out), lq, lk, h,
-                  sqb, sqi, sqh, skb, ski, skh, svb, svi, svh, sbb, sbq, sbk, scale};
+                  sqb, sqi, sqh, skb, ski, skh, svb, svi, svh, sbb, sbq, sbk, scale,
+                  slabs > 0 ? slabs : 1};
+  if (slabs > 0) {
+    const size_t smem = mma_long_smem_bytes(RowBias::kKeyWords, kSlabDh, 2);  // both masks
+    return sbq == 0
+               ? launch_mma<dense_attention_mma_long_slab_kernel<RowBias>>(a, b, smem, stream)
+               : launch_mma<dense_attention_mma_long_slab_kernel<PlaneBias>>(a, b, smem, stream);
+  }
   return dh == 64 ? launch_pairs<1>(lk, DenseLaunch<64>{a, b, stream})
                   : launch_pairs<1>(lk, DenseLaunch<128>{a, b, stream});
 }
@@ -377,8 +409,9 @@ extern "C" {
 // [B, Lq, H, Dh] of q's type; `scale` multiplies Q K^T (1 / sqrt of the
 // true head dim when the caller has zero-padded it).  bf16 goes to the
 // tensor-core kernels (Dh 64 or 128, rows 16-byte aligned; resident K/V up
-// to 192 keys, key-looped above), fp32 to the FP32-pipe kernels (Dh up to
-// 256; staged K/V while they fit, streamed above).
+// to 192 keys, key-looped above; a multiple of 128 above 128 key-looped in
+// slabs), fp32 to the FP32-pipe kernels (any Dh; staged K/V while they fit
+// and Dh <= 256, streamed otherwise, in slabs above 256).
 int dense_attention_forward(const void* q, const void* k, const void* v,
                             const float* bias, void* out, int b, int lq, int lk,
                             int h, int dh, long long sqb, long long sqi,

@@ -47,8 +47,11 @@
 //   spec_attention_mma_long_kernel runs the tile's key loop
 //   (attention_mma_tile_long: K and V in double-buffered blocks of 64 keys,
 //   the mask staged per block).  Every instance exists at Dh = 64 and
-//   Dh = 128 (the wrapper zero-pads a narrower head to the next and refuses
-//   a wider one before launch), takes 16-byte aligned rows and any Lk.
+//   Dh = 128 (the wrapper zero-pads a narrower head to the next), takes
+//   16-byte aligned rows and any Lk.  A head wider than 128 (zero-padded to
+//   a multiple of 128) runs spec_attention_mma_long_slab_kernel, the key
+//   loop in slabs (attention_mma.cuh) at any key count: one block per 128
+//   output columns, the scores summed over every slab.
 //
 // * fp32 (the parity checks): spec_attention_kernel, on the FP32 pipes.
 //   Each block stages one head's whole K and V in shared memory and serves
@@ -57,8 +60,9 @@
 //   sum with shuffles, and each lane then accumulates its share of the
 //   output dimensions.  Where K and V do not fit in one block's shared
 //   memory (about 411 keys at Dh 64), spec_attention_stream_kernel reads
-//   them from device memory instead, 32 keys at a time per warp.  Both take
-//   head dims up to kMaxDh = 256 (common.cuh).
+//   them from device memory instead, 32 keys at a time per warp.  The staged
+//   kernel takes heads up to kMaxDh = 256 (common.cuh); a wider head streams
+//   in slabs of 256 output columns, one block per slab.
 //
 // Plain C interface, loaded with ctypes (multimodal_context_reasoning_torch/
 // ops/spec_attention.py).  The launcher returns cudaGetLastError().
@@ -199,8 +203,11 @@ spec_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // merged across the warp; then P for 32 keys at a time into a warp buffer
 // and out += P V, lanes over the output dimensions.  Any Lk; Dh <= MaxDh,
 // each lane holding MaxDh / 32 output columns (instantiated at kNarrowDh and
-// kMaxDh, common.cuh).
-template <typename T, int MaxDh>
+// kMaxDh, common.cuh).  With Slabs, any Dh: the grid's x holds the row tiles
+// of each slab of MaxDh output columns in turn; each block scores its rows
+// over the whole head, reading q through L1 (the same products in the same
+// order), and writes only its slab of out.
+template <typename T, int MaxDh, bool Slabs>
 __global__ void __launch_bounds__(kThreads)
 spec_attention_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
                              const T* __restrict__ v, const float* __restrict__ valid,
@@ -209,8 +216,11 @@ spec_attention_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
                              int64_t sqb, int64_t sqi, int64_t sqh, int64_t skb,
                              int64_t ski, int64_t skh, int64_t svb, int64_t svi,
                              int64_t svh, int stage, int text_len, float scale) {
-  __shared__ float q_s[kWarps][MaxDh];
+  __shared__ float q_s[kWarps][Slabs ? 1 : MaxDh];
   __shared__ float p_s[kWarps][32];
+  const int n_tiles = Slabs ? ceil_div(lq, kRowsPerBlock) : 1;
+  const int tile = Slabs ? blockIdx.x % n_tiles : blockIdx.x;
+  const int d0 = Slabs ? MaxDh * (blockIdx.x / n_tiles) : 0;  // the slab's first column
   const int b = blockIdx.z;
   const int h = blockIdx.y;
   const int warp = threadIdx.x >> 5;
@@ -222,11 +232,13 @@ spec_attention_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* q_row = q_s[warp];
   float* p = p_s[warp];
 
-  const int row_end = min(lq, int(blockIdx.x + 1) * kRowsPerBlock);
-  for (int i = blockIdx.x * kRowsPerBlock + warp; i < row_end; i += kWarps) {
+  const int row_end = min(lq, (tile + 1) * kRowsPerBlock);
+  for (int i = tile * kRowsPerBlock + warp; i < row_end; i += kWarps) {
     const T* qi = q + b * sqb + i * sqi + h * sqh;
-    for (int d = lane; d < dh; d += 32) q_row[d] = to_f(qi[d]);
-    __syncwarp();
+    if constexpr (!Slabs) {
+      for (int d = lane; d < dh; d += 32) q_row[d] = to_f(qi[d]);
+      __syncwarp();
+    }
     const int gi_q = stage != kFull ? __ldg(gi_b + i) : -1;
     const float row_q = stage != kFull ? __ldg(rowfull + int64_t(b) * lk + i) : 0.f;
     const float img_q = i >= text_len ? 1.f : 0.f;
@@ -234,7 +246,8 @@ spec_attention_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const T* kj = kb + j * ski;
       float acc = 0.f;
 #pragma unroll 8
-      for (int d = 0; d < dh; ++d) acc = fmaf(q_row[d], to_f(kj[d]), acc);
+      for (int d = 0; d < dh; ++d)
+        acc = fmaf(Slabs ? to_f(__ldg(qi + d)) : q_row[d], to_f(kj[d]), acc);
       const float vis = visibility(stage, text_len, i, j, gi_q, row_q, img_q,
                                    __ldg(valid_b + j), __ldg(gi_b + j));
       return acc * scale - (1.f - vis) * 1e9f;
@@ -259,35 +272,38 @@ spec_attention_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int n = min(32, lk - j0);
 #pragma unroll
       for (int r = 0; r < MaxDh / 32; ++r) {
-        const int d = lane + 32 * r;
+        const int d = d0 + lane + 32 * r;
         if (d < dh)
           for (int jj = 0; jj < n; ++jj)
             acc[r] = fmaf(p[jj], to_f(vb[(j0 + jj) * svi + d]), acc[r]);
       }
       __syncwarp();
     }
-    T* oi = out + ((int64_t(b) * lq + i) * n_heads + h) * dh;
+    T* oi = out + ((int64_t(b) * lq + i) * n_heads + h) * dh + d0;
 #pragma unroll
     for (int r = 0; r < MaxDh / 32; ++r)
-      if (lane + 32 * r < dh) oi[lane + 32 * r] = from_f<T>(acc[r]);
+      if (d0 + lane + 32 * r < dh) oi[lane + 32 * r] = from_f<T>(acc[r]);
     __syncwarp();  // q_row is rewritten by this warp's next row
   }
 }
 
-// The staged kernel when K and V fit in one block's shared memory, else the
-// streaming one at the narrower of its two widths that holds Dh.
+// The staged kernel when K and V fit in one block's shared memory (heads up
+// to kMaxDh), else the streaming one at the narrower of its two widths that
+// holds Dh; a wider head streams in slabs of kMaxDh columns.
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const float* valid,
            const int* gi, const float* rowfull, void* out, int b, int lq, int lk,
            int h, int dh, int64_t sqb, int64_t sqi, int64_t sqh, int64_t skb,
            int64_t ski, int64_t skh, int64_t svb, int64_t svi, int64_t svh,
            int stage, int text_len, float scale, cudaStream_t stream) {
-  if (dh < 1 || dh > kMaxDh) return int(cudaErrorInvalidValue);
-  const dim3 grid((lq + kRowsPerBlock - 1) / kRowsPerBlock, h, b);
+  if (dh < 1) return int(cudaErrorInvalidValue);
+  const int tiles = ceil_div(lq, kRowsPerBlock);
   const size_t smem = smem_bytes<T>(lk, dh);
-  if (!fits_smem(smem)) {
-    auto kernel = dh <= kNarrowDh ? spec_attention_stream_kernel<T, kNarrowDh>
-                                  : spec_attention_stream_kernel<T, kMaxDh>;
+  if (dh > kMaxDh || !fits_smem(smem)) {
+    auto kernel = dh <= kNarrowDh ? spec_attention_stream_kernel<T, kNarrowDh, false>
+                  : dh <= kMaxDh  ? spec_attention_stream_kernel<T, kMaxDh, false>
+                                  : spec_attention_stream_kernel<T, kMaxDh, true>;
+    const dim3 grid(tiles * ceil_div(dh, kMaxDh), h, b);
     kernel<<<grid, kThreads, 0, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         valid, gi, rowfull, static_cast<T*>(out), lq, lk, h, dh, sqb, sqi, sqh, skb,
@@ -296,7 +312,7 @@ int launch(const void* q, const void* k, const void* v, const float* valid,
   }
   const cudaError_t err = reserve_smem<spec_attention_kernel<T>>(smem);
   if (err != cudaSuccess) return int(err);
-  spec_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
+  spec_attention_kernel<T><<<dim3(tiles, h, b), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       valid, gi, rowfull, static_cast<T*>(out), lq, lk, h, dh, sqb, sqi, sqh, skb,
       ski, skh, svb, svi, svh, stage, text_len, scale);
@@ -311,7 +327,7 @@ int launch(const void* q, const void* k, const void* v, const float* valid,
 constexpr float kMaskPenalty = 1e9f;
 
 // q, k, v, out, and the stage's vectors: valid, gi, rowfull contiguous
-// [B, Lk], the text length, chunk 0 or cross 1.
+// [B, Lk], the text length, chunk 0 or cross 1; the slab count.
 struct SpecArgs {
   const bf16* q;
   const bf16* k;
@@ -324,6 +340,7 @@ struct SpecArgs {
   int64_t sqb, sqi, sqh, skb, ski, skh, svb, svi, svh;
   int text_len, cross;
   float scale;
+  int slabs;  // the head's 128-column slabs (1 below the slab instance)
 };
 
 // The full stage: vis = valid[j], the same for every query row, so the row
@@ -424,6 +441,13 @@ spec_attention_mma_long_kernel(const SpecArgs a) {
   attention_mma_tile_long<Dh, Mask>(a);
 }
 
+// Heads wider than 128: the key-looped instance in slabs (attention_mma.cuh).
+template <class Mask>
+__global__ void __launch_bounds__(kMmaThreads, mma_long_min_blocks(kSlabDh))
+spec_attention_mma_long_slab_kernel(const SpecArgs a) {
+  attention_mma_tile_long<kSlabDh, Mask, true>(a);
+}
+
 // The full or chunk/cross instance at Lk_pad = 16 NP, or the key-looped one,
 // at head dim Dh.
 template <int Dh>
@@ -452,12 +476,19 @@ int launch_bf16(const void* q, const void* k, const void* v, const float* valid,
                 int h, int dh, int64_t sqb, int64_t sqi, int64_t sqh, int64_t skb,
                 int64_t ski, int64_t skh, int64_t svb, int64_t svi, int64_t svh,
                 int stage, int text_len, float scale, cudaStream_t stream) {
-  if (!mma_head_dim(dh) || (stage != kFull && lq != lk))
+  const int slabs = mma_slabs(dh);
+  if ((!mma_head_dim(dh) && slabs == 0) || (stage != kFull && lq != lk))
     return int(cudaErrorInvalidValue);
   const SpecArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                    static_cast<const bf16*>(v), static_cast<bf16*>(out), valid, gi, rowfull,
                    lq, lk, h, sqb, sqi, sqh, skb, ski, skh, svb, svi, svh, text_len,
-                   stage == kCross, scale};
+                   stage == kCross, scale, slabs > 0 ? slabs : 1};
+  if (slabs > 0)
+    return stage == kFull
+               ? launch_mma<spec_attention_mma_long_slab_kernel<FullStage>>(
+                     a, b, mma_long_smem_bytes(FullStage::kKeyWords, kSlabDh, 2), stream)
+               : launch_mma<spec_attention_mma_long_slab_kernel<ChunkStage>>(
+                     a, b, mma_long_smem_bytes(ChunkStage::kKeyWords, kSlabDh, 2), stream);
   return dh == 64 ? launch_pairs<1>(lk, SpecLaunch<64>{a, stage == kFull, b, stream})
                   : launch_pairs<1>(lk, SpecLaunch<128>{a, stage == kFull, b, stream});
 }
@@ -470,10 +501,11 @@ extern "C" {
 // given element strides on B, L and H; valid, rowfull fp32 and gi int32,
 // contiguous [B, Lk]; out contiguous [B, Lq, H, Dh] of q's type; `scale`
 // multiplies Q K^T (1 / sqrt of the true head dim when the caller has
-// zero-padded it).  bf16 goes to the tensor-core kernels (Dh 64 or 128, rows
-// 16-byte aligned; resident K/V up to 192 keys, key-looped above), fp32 to
-// the FP32-pipe kernels (Dh up to 256; staged K/V while they fit, streamed
-// above).
+// zero-padded it).  bf16 goes to the tensor-core kernels (Dh 64 or 128,
+// rows 16-byte aligned; resident K/V up to 192 keys, key-looped above; a
+// multiple of 128 above 128 key-looped in slabs), fp32 to the FP32-pipe
+// kernels (any Dh; staged K/V while they fit and Dh <= 256, streamed
+// otherwise, in slabs above 256).
 int spec_attention_forward(const void* q, const void* k, const void* v,
                            const float* valid, const int* gi,
                            const float* rowfull, void* out, int b, int lq, int lk,

@@ -17,16 +17,19 @@ CUDA backward kernel's wrapper (port of the JAX package's ``ops/flash.py``).
   the source's tensor-core kernels (K and V resident up to 192 keys; above,
   a key loop whose dK and dV sums pass between 128-row query tiles through
   an fp32 buffer this wrapper allocates; at head dim 128 the resident
-  kernel holds up to 128 keys), which exist at head dims 64 and 128 and take
-  rows that start on 16 bytes: a head up to 128 wide is zero-padded to the
-  next of the two (q, k, v and dO, with the true width's scale) and dq, dk
-  and dv sliced back (:func:`pad_bf16_heads`; the dbias plane does not
-  depend on the head dim), the alignment checked here before launch; fp32
-  goes to its FP32-pipe kernels (K and V staged in shared memory while they
-  fit, read from device memory above), which take head dims up to 256.  A
-  wider head raises ``ValueError`` naming the limit.  Both take any key
-  count; batch and head count are at most 65535 (the grid).  Its
-  ``launches`` counter grows by one per kernel launch.
+  kernel holds up to 128 keys), which exist at head dims 64 and 128, and at
+  any multiple of 128 above as the key loop in slabs of 128 output columns
+  (``flash_bwd_mma_long_kernel<128, true>``: one block per slab, S and dP
+  summed over every slab, the fp32 buffer holding every slab, only the
+  first slab adding into the dbias plane), and take rows that start on 16 bytes: every head
+  is zero-padded to the next of those widths (q, k, v and dO, with the
+  true width's scale) and dq, dk and dv sliced back (:func:`pad_bf16_heads`;
+  the dbias plane does not depend on the head dim), the alignment checked
+  here before launch; fp32 goes to its FP32-pipe kernels (K and V staged in
+  shared memory while they fit and the head is at most 256 wide, read from
+  device memory otherwise, in slabs of 256 columns above 256).  Both take
+  any head width and any key count; batch and head count are at most 65535
+  (the grid).  Its ``launches`` counter grows by one per kernel launch.
 - :func:`mem_efficient_attention` is the dense-bias attention op
   (ops/fused_attention.py), whose gradient, registered here with
   ``torch.library.register_autograd``, saves only (q, k, v, bias) and runs

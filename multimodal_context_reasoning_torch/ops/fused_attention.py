@@ -21,15 +21,17 @@ v's dtype before PV.
   fake tensors the output's shape, dtype and strides; its gradient
   (ops/flash.py) is the backward kernel's op.  bf16 goes to the source's
   tensor-core kernels (K and V resident up to 192 keys, a key loop above),
-  which exist at head dims 64 and 128 and take rows that start on 16 bytes:
-  a head up to 128 wide is zero-padded to the next of the two and the
-  output sliced back (:func:`pad_bf16_heads`), and the alignment is checked
-  here before launch; fp32 goes to its FP32-pipe kernels (K and V staged in
-  shared memory while they fit, read from device memory above), which take
-  head dims up to 256.  A wider head raises ``ValueError`` naming the limit
-  (:data:`MAX_DH`).  Both take any key count; batch and head count are at
+  which exist at head dims 64 and 128, and in slabs of 128 columns at any
+  multiple of 128 above (the key loop at any key count, one block per
+  output slab, the scores summed over every slab), and take rows that start on 16 bytes: every head is
+  zero-padded to the next of those widths and the output sliced back
+  (:func:`pad_bf16_heads`, :func:`bf16_width`), and the alignment is
+  checked here before launch; fp32 goes to its FP32-pipe kernels (K and V
+  staged in shared memory while they fit and the head is at most 256 wide,
+  read from device memory otherwise, in slabs of 256 columns above 256).
+  Both take any head width and any key count; batch and head count are at
   most 65535 (the grid).  Its ``launches`` counter grows by one per kernel
-  launch.
+  launch, whatever the slab count.
 
 When no input needs a gradient, the wrapper calls the op below the
 autograd key, so serving and the frozen encoders add no autograd
@@ -53,14 +55,22 @@ LIBRARY = "modcr_torch"
 _lib = torch.library.Library(LIBRARY, "FRAGMENT")
 _lib.define("dense_attention(Tensor q, Tensor k, Tensor v, Tensor? bias) -> Tensor")
 
-# The widest head each route takes: the FP32-pipe kernels' kMaxDh
-# (csrc/common.cuh) and the widest tensor-core instance.
-MAX_DH = {torch.float32: 256, torch.bfloat16: 128}
+DTYPES = (torch.float32, torch.bfloat16)
 # The bf16 tensor-core kernels' head dims (the Dh template parameter of the
 # tiles in csrc/attention_mma.cuh, shared by the dense-bias and stage-mask
-# forwards, and of csrc/flash_bwd.cu's kernels; their launchers refuse any
-# other).  A narrower head is zero-padded to the next.
+# forwards, and of csrc/flash_bwd.cu's kernels), and the slab width their
+# slab instances run a wider head in (kSlabDh, csrc/common.cuh).
 BF16_HEAD_DIMS = (64, 128)
+SLAB_DH = 128
+
+
+def bf16_width(dh: int) -> int:
+    """The head width a bf16 head of ``dh`` columns is launched at: the
+    next of :data:`BF16_HEAD_DIMS`, or above 128 the next multiple of
+    :data:`SLAB_DH`."""
+    if dh <= BF16_HEAD_DIMS[-1]:
+        return next(w for w in BF16_HEAD_DIMS if dh <= w)
+    return -(-dh // SLAB_DH) * SLAB_DH
 
 
 def fused_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -94,11 +104,8 @@ def check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"v {tuple(v.shape)}")
     if any(t.shape != q.shape for t in others):
         raise ValueError("the output gradient must be shaped like q")
-    if q.dtype not in MAX_DH:
+    if q.dtype not in DTYPES:
         raise TypeError(f"dtype {q.dtype} not taken (float32 or bfloat16)")
-    if dh > MAX_DH[q.dtype]:
-        raise ValueError(f"{q.dtype} head dim {dh} not taken: the kernels take "
-                         f"{q.dtype} heads up to {MAX_DH[q.dtype]} wide")
     if any(t.dtype != q.dtype for t in (k, v, *others)):
         raise TypeError("q, k, v (and the output gradient) must share one dtype")
     if q.device.type != "cuda" or any(t.device != q.device for t in (k, v, *others)):
@@ -128,16 +135,16 @@ def check_bf16_limits(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Te
 def pad_bf16_heads(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    *others: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """q, k, v (and ``others``, the output gradient) for a bf16 launch of
-    ``kernel``: at a head dim the tensor cores are built for, as they are;
-    at a narrower one (check_qkv has refused a wider), each zero-padded on
-    the head dimension to the next of :data:`BF16_HEAD_DIMS`, into a fresh
-    contiguous buffer (16-byte aligned, as every allocation is), as the
-    Pallas kernel pads its heads to the lanes.  Zero columns add exact zeros
-    to q kᵀ, dO vᵀ and dS·K; the caller passes the true width's scale and
-    slices the outputs back (:func:`unpad_heads`).  Then the rows' alignment
-    is checked (:func:`check_bf16_limits`)."""
+    ``kernel``: at a head width the tensor cores take (:func:`bf16_width`),
+    as they are; at any other, each zero-padded on the head dimension to
+    the next such width, into a fresh contiguous buffer (16-byte aligned,
+    as every allocation is), as the Pallas kernel pads its heads to the
+    lanes.  Zero columns add exact zeros to q kᵀ, dO vᵀ and dS·K; the
+    caller passes the true width's scale and slices the outputs back
+    (:func:`unpad_heads`).  Then the rows' alignment is checked
+    (:func:`check_bf16_limits`)."""
     dh = q.shape[-1]
-    width = next(w for w in BF16_HEAD_DIMS if dh <= w)
+    width = bf16_width(dh)
     ts = (q, k, v, *others)
     if width != dh:
         padded = []

@@ -26,14 +26,17 @@ and a uniform row where every key is masked.
   ``spec_attention_mma_kernel`` on the tensor cores, the dense-bias
   forward's tile (``csrc/attention_mma.cuh``) with the stage mask as its
   mask functor, K and V resident up to 192 keys and in a key loop above
-  (``spec_attention_mma_long_kernel``); it exists at head dims 64 and 128
-  and takes rows that start on 16 bytes: a head up to 128 wide is
-  zero-padded to the next of the two, with the true width's scale, and the
-  output sliced back (:func:`pad_bf16_heads`), the alignment checked here
-  before launch.  fp32 (the parity checks) goes to ``spec_attention_kernel``
-  on the FP32 pipes (K and V staged in shared memory while they fit, read
-  from device memory above; head dims up to 256).  A wider head raises
-  ``ValueError`` naming the limit.  Both take any key count; batch and head
+  (``spec_attention_mma_long_kernel``); it exists at head dims 64 and 128,
+  and in slabs of 128 columns at any multiple of 128 above, as the key
+  loop at any key count (``spec_attention_mma_long_slab_kernel``: one block
+  per output slab, the scores summed over every slab), and takes rows that
+  start on 16 bytes: every head is zero-padded to the next of those
+  widths, with the true width's scale, and the output sliced back
+  (:func:`pad_bf16_heads`), the alignment checked here before launch.  fp32
+  (the parity checks) goes to ``spec_attention_kernel`` on the FP32 pipes
+  (K and V staged in shared memory while they fit and the head is at most
+  256 wide, read from device memory otherwise, in slabs of 256 columns
+  above 256).  Both take any head width and any key count; batch and head
   count are at most 65535 (the grid).  Its ``launches`` counter grows by one
   per kernel launch.
 - What bounds the kernel on the card is bytes (q, k, v read once, out

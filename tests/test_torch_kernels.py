@@ -120,9 +120,9 @@ def test_kernel_refuses_what_it_does_not_take(card):
     with pytest.raises(TypeError):
         fused_attention_spec(q, k, v, spec.valid.double(), spec.gi, spec.rowfull,
                              stage="full", text_len=21)
-    with pytest.raises(ValueError, match="head dim"):
-        wide = torch.zeros(*q.shape[:3], 288, device=card)   # fp32 takes up to 256
-        fused_attention_spec(wide, wide, wide, *vec, stage="full", text_len=21)
+    with pytest.raises(ValueError, match="stage 'chunk' with Lq"):
+        # the chunk stage needs Lq == Lk (every head width is taken)
+        fused_attention_spec(q[:, :-1], k, v, *vec, stage="chunk", text_len=21)
     # the refused launch leaves no error behind for the next one
     got = fused_attention_spec(q, k, v, *vec, stage=spec.stage, text_len=21)
     want = spec_attention_plain(q, k, v, *vec, stage=spec.stage, text_len=21)
@@ -311,10 +311,9 @@ def test_bf16_backward_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="16-byte"):
         wide = torch.zeros(*q.shape[:3], 72, dtype=torch.bfloat16, device=card)
         flash_attention_bwd(wide[..., 1:65], k, v, bias, d_out)
-    with pytest.raises(ValueError, match="head dim"):
-        wide = [torch.zeros(*t.shape[:3], 160, dtype=torch.bfloat16, device=card)
-                for t in (q, k, v, d_out)]   # bf16 takes up to 128
-        flash_attention_bwd(wide[0], wide[1], wide[2], bias, wide[3])
+    with pytest.raises(ValueError, match="does not broadcast"):
+        # a bias one key short (every head width is taken)
+        flash_attention_bwd(q, k, v, bias[..., 1:], d_out)
     got = flash_attention_bwd(q, k, v, bias, d_out)   # no error left behind
     for g, w in zip(got, flash_attention_bwd_plain(q, k, v, bias, d_out)):
         _close(g, w, BWD_TOL[torch.bfloat16])
@@ -372,10 +371,8 @@ def test_bf16_dense_forward_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="16-byte"):
         wide = torch.zeros(*q.shape[:3], 72, dtype=torch.bfloat16, device=card)
         fused_attention(wide[..., 1:65], k, v, bias)
-    with pytest.raises(ValueError, match="head dim"):
-        wide = [torch.zeros(*t.shape[:3], 160, dtype=torch.bfloat16, device=card)
-                for t in (q, k, v)]   # bf16 takes up to 128
-        fused_attention(*wide, bias)
+    with pytest.raises(ValueError, match="does not broadcast"):
+        fused_attention(q, k, v, bias[..., 1:])   # a bias one key short
     got = fused_attention(q, k, v, bias)   # no error left behind
     _close(got, fused_attention_plain(q, k, v, bias), TOL[torch.bfloat16])
 
@@ -499,17 +496,15 @@ def test_bf16_spec_is_deterministic(card, stage_idx):
 
 
 def test_bf16_spec_refuses_what_it_does_not_take(card):
-    """Head dim 160 (past the widest tensor-core instance, 128) raises
-    ValueError before launch; the next launch is clean."""
+    """A chunk stage with Lq != Lk raises ValueError before launch (every
+    head width is taken, in slabs past 128); the next launch is clean."""
     (q, k, v), specs = _case(card, Dh=64)
     q, k, v = _bf16(q, k, v)
     spec = specs[1]
     vec = (spec.valid, spec.gi, spec.rowfull)
     before = fused_attention_spec.launches
-    with pytest.raises(ValueError, match="head dim"):
-        wide = [torch.zeros(*t.shape[:3], 160, dtype=torch.bfloat16, device=card)
-                for t in (q, k, v)]
-        fused_attention_spec(*wide, *vec, stage="full", text_len=spec.text_len)
+    with pytest.raises(ValueError, match="stage 'chunk' with Lq"):
+        fused_attention_spec(q[:, :-1], k, v, *vec, stage="chunk", text_len=spec.text_len)
     assert fused_attention_spec.launches == before
     got = fused_attention_spec(q, k, v, *vec, stage="full", text_len=spec.text_len)
     want = spec_attention_plain(q, k, v, *vec, stage="full", text_len=spec.text_len)
@@ -777,10 +772,11 @@ def test_head_dims_backward_matches_plain(card, dtype, dh, lk):
     _rel_close(got[3], want[3], BWD_TOL[dtype])
 
 
-@pytest.mark.parametrize("dh", (96, 128))
+@pytest.mark.parametrize("dh", (96, 128, 384))
 def test_head_dims_bf16_launches_are_bit_equal(card, dh):
     """No atomics outside the dbias plane: two launches of each bf16 route
-    at Dh 96 (padded) and 128 agree bit for bit, resident and key-looped."""
+    at Dh 96 (padded), 128 and 384 (three slabs) agree bit for bit,
+    resident and key-looped."""
     for lk in HEAD_DIM_KEYS:
         (q, k, v), specs = _case(card, B=2, T=100, I=lk - 100, H=2, Dh=dh, seed=14)
         q, k, v = _bf16(q, k, v)
@@ -798,31 +794,101 @@ def test_head_dims_bf16_launches_are_bit_equal(card, dh):
             assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("dtype,dh", [(torch.bfloat16, 160), (torch.float32, 288)],
-                         ids=["bfloat16-160", "float32-288"])
-def test_head_dims_past_the_limit_raise_by_name(card, dtype, dh):
-    """bf16 above 128 and fp32 above 256: ValueError naming the dtype, the
-    head dim and the limit, before any launch; the next launch is clean."""
-    q = torch.zeros(2, 9, 2, dh, dtype=dtype, device=card)
-    valid = torch.ones(2, 9, device=card)
-    gi = torch.full((2, 9), -1, dtype=torch.int32, device=card)
-    before = (fused_attention_spec.launches, fused_attention.launches,
-              flash_attention_bwd.launches)
-    limit = 128 if dtype == torch.bfloat16 else 256
-    pattern = f"{dtype} head dim {dh} not taken: .* up to {limit} wide"
-    with pytest.raises(ValueError, match=pattern):
-        fused_attention_spec(q, q, q, valid, gi, torch.zeros_like(valid), stage="full",
-                             text_len=9)
-    with pytest.raises(ValueError, match=pattern):
-        fused_attention(q, q, q, None)
-    with pytest.raises(ValueError, match=pattern):
-        flash_attention_bwd(q, q, q, None, q)
-    assert (fused_attention_spec.launches, fused_attention.launches,
-            flash_attention_bwd.launches) == before
-    ok = q[..., :limit]
-    torch.testing.assert_close(fused_attention(ok, ok, ok, None).float(),
-                               fused_attention_plain(ok, ok, ok, None).float(),
+# ---------------------------------------------------------------- heads wider
+# than the widest instance: bf16 above 128 zero-padded to a multiple of 128
+# and run in slabs of 128 columns (the key-looped kernels at every key
+# count, forwards and backward), fp32 above 256 streamed in slabs of 256
+
+WIDE_CASES = ([(torch.bfloat16, dh) for dh in (160, 192, 256, 384, 1024)]
+              + [(torch.float32, dh) for dh in (288, 512, 1024)])
+WIDE_IDS = [f"{str(dt)[6:]}-{dh}" for dt, dh in WIDE_CASES]
+WIDE_KEYS = (138, 240, 520)
+
+
+@pytest.mark.parametrize("stage_idx", [0, 1, 2], ids=["chunk", "full", "cross"])
+@pytest.mark.parametrize("lk", WIDE_KEYS)
+@pytest.mark.parametrize("dtype,dh", WIDE_CASES, ids=WIDE_IDS)
+def test_head_dims_wide_spec_matches_plain(card, dtype, dh, lk, stage_idx):
+    """All three stages at Lq = Lk, one launch each."""
+    (q, k, v), specs = _case(card, B=2, T=100, I=lk - 100, H=2, Dh=dh, seed=15)
+    spec = specs[stage_idx]
+    args = (q.to(dtype), k.to(dtype), v.to(dtype), spec.valid, spec.gi, spec.rowfull)
+    kw = dict(stage=spec.stage, text_len=spec.text_len)
+    before = fused_attention_spec.launches
+    got = fused_attention_spec(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_attention_spec.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape and got.is_contiguous()
+    torch.testing.assert_close(got.float(), spec_attention_plain(*args, **kw).float(),
                                rtol=0, atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("bias_shape", ["row", "plane"])
+@pytest.mark.parametrize("lk", WIDE_KEYS)
+@pytest.mark.parametrize("dtype,dh", WIDE_CASES, ids=WIDE_IDS)
+def test_head_dims_wide_dense_forward_matches_plain(card, dtype, dh, lk, bias_shape):
+    """RoBERTa's geometry (10 prefix keys), with its padding row or a dense
+    plane; within TOL of max |plain|."""
+    q, k, v, bias, _ = _dense_case(card, B=3, Lq=lk - 10, P=10, H=2, Dh=dh, seed=16,
+                                   bias_shape=bias_shape)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    before = fused_attention.launches
+    got = fused_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert fused_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape and got.is_contiguous()
+    _rel_close(got, fused_attention_plain(q, k, v, bias), TOL[dtype])
+
+
+@pytest.mark.parametrize("want_dbias", [True, False], ids=["dbias", "no-dbias"])
+@pytest.mark.parametrize("lk", WIDE_KEYS)
+@pytest.mark.parametrize("dtype,dh", WIDE_CASES, ids=WIDE_IDS)
+def test_head_dims_wide_backward_matches_plain(card, dtype, dh, lk, want_dbias):
+    """Lq = Lk - 10 (one query tile at 138 keys, two at 240, four at 520,
+    where the dK and dV partials of every slab pass between tiles) with a
+    [B, 1, Lq, Lk] plane, held as test_head_dims_backward_matches_plain
+    holds the narrower heads; the dbias plane, when asked for, within
+    BWD_TOL of max |plain|."""
+    q, k, v, bias, d_out = _dense_case(card, B=3, Lq=lk - 10, P=10, H=2, Dh=dh, seed=17,
+                                       bias_shape="plane")
+    q, k, v, d_out = (t.to(dtype) for t in (q, k, v, d_out))
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, bias, d_out, want_dbias=want_dbias)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_plain(q, k, v, bias, d_out)
+    for g, w in zip(got[:3], want[:3]):
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.isfinite(g).all()
+    if want_dbias:
+        assert got[3].shape == want[3].shape
+        _rel_close(got[3], want[3], BWD_TOL[dtype])
+    else:
+        assert got[3] is None
+    if dtype == torch.float32:
+        for g, w in zip(got[:3], want[:3]):
+            _rel_close(g, w, BWD_TOL[dtype])
+        return
+    exact = _exact_backward(q, k, v, bias, d_out)
+    for name, g, w, e in zip(("dq", "dk", "dv"), got[:3], want[:3], exact):
+        scale = e.abs().max().item()
+        kernel_err = (g.double() - e).abs().max().item() / scale
+        plain_err = (w.double() - e).abs().max().item() / scale
+        assert kernel_err <= plain_err + BWD_TOL[dtype], (name, kernel_err, plain_err)
+
+
+@pytest.mark.parametrize("dtype,dh", [(torch.bfloat16, 256), (torch.float32, 512)],
+                         ids=["bfloat16-256", "float32-512"])
+def test_head_dims_two_slab_dbias_is_the_head_sum_once(card, dtype, dh):
+    """At a head of two slabs each head's dS reaches the dbias plane from one
+    block only: the plane equals the plain head sum within BWD_TOL of its
+    largest value, and lies far from twice that sum."""
+    q, k, v, bias, d_out = _dense_case(card, B=3, Lq=120, P=10, H=3, Dh=dh, seed=18,
+                                       bias_shape="plane")
+    q, k, v, d_out = (t.to(dtype) for t in (q, k, v, d_out))
+    plane = flash_attention_bwd(q, k, v, bias, d_out)[3]
+    want = flash_attention_bwd_plain(q, k, v, bias, d_out)[3]
+    _rel_close(plane, want, BWD_TOL[dtype])
+    assert (plane - 2 * want).abs().max().item() > 0.5 * want.abs().max().item()
 
 
 # ---------------------------------------------------------------- int8 products
