@@ -26,6 +26,8 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 
+from multimodal_context_reasoning_torch.utils.profiling import count, span
+
 
 class DataLoader:
     """Iterates fixed-shape collated batches over a PMR/VCR dataset.
@@ -58,6 +60,7 @@ class DataLoader:
         self.prefetch = prefetch
         self.shard = shard
         self.epoch = 0
+        self._seq = 0        # sequence number of the next batch (spans' ``seq``)
 
     def _order(self) -> np.ndarray:
         """Example order for this epoch (shuffled from ``seed + epoch``),
@@ -107,26 +110,36 @@ class DataLoader:
             yield order[:0]
             emitted += 1
 
-    def _make_batch(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
-        real = len(idx)
-        if real < self.batch_size:
-            # pad the final batch by repeating indices; mark the real rows
-            # (an empty batch of a short shard repeats example 0, all masked)
-            pad = (np.resize(idx, self.batch_size) if real
-                   else np.zeros((self.batch_size,), np.int64))
-            batch = self.dataset.batch(pad)
-            mask = np.zeros((self.batch_size,), np.float32)
-            mask[:real] = 1.0
-        else:
-            batch = self.dataset.batch(idx)
-            mask = np.ones((self.batch_size,), np.float32)
-        batch["example_mask"] = mask
-        return batch
+    def _make_batch(self, idx: np.ndarray, seq: int) -> Dict[str, np.ndarray]:
+        with span("data.batch", seq):
+            real = len(idx)
+            if real < self.batch_size:
+                # pad the final batch by repeating indices; mark the real rows
+                # (an empty batch of a short shard repeats example 0, all masked)
+                pad = (np.resize(idx, self.batch_size) if real
+                       else np.zeros((self.batch_size,), np.int64))
+                batch = self.dataset.batch(pad)
+                mask = np.zeros((self.batch_size,), np.float32)
+                mask[:real] = 1.0
+            else:
+                batch = self.dataset.batch(idx)
+                mask = np.ones((self.batch_size,), np.float32)
+            batch["example_mask"] = mask
+            return batch
+
+    def _sequences(self) -> range:
+        """The sequence numbers of an iteration's ``len(self)`` batches,
+        numbered on from the last iteration's, so that the producer's and
+        the consumer's spans of one batch share their ``seq``."""
+        seqs = range(self._seq, self._seq + len(self))
+        self._seq = seqs.stop
+        return seqs
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        seqs = self._sequences()
         if not self.prefetch:
-            for idx in self._index_batches():
-                yield self._make_batch(idx)
+            for idx, seq in zip(self._index_batches(), seqs):
+                yield self._make_batch(idx, seq)
             return
 
         q: "queue.Queue" = queue.Queue(maxsize=2)
@@ -149,8 +162,8 @@ class DataLoader:
 
         def producer():
             try:
-                for idx in self._index_batches():
-                    if not _put(self._make_batch(idx)):
+                for idx, seq in zip(self._index_batches(), seqs):
+                    if not _put(self._make_batch(idx, seq)):
                         return
             except BaseException as e:  # surfaced in the consumer
                 err.append(e)
@@ -160,9 +173,14 @@ class DataLoader:
         t = threading.Thread(target=producer, daemon=True)
         t.start()
         try:
-            while True:
-                item = q.get()
-                if item is sentinel:
+            for seq in seqs:
+                with span("data.wait", seq):
+                    try:
+                        item = q.get_nowait()
+                    except queue.Empty:
+                        count("data.queue_empty")
+                        item = q.get()
+                if item is sentinel:   # the producer failed or was stopped
                     break
                 yield item
             t.join()

@@ -25,6 +25,7 @@ from multimodal_context_reasoning_torch.data.schemas import (
     RawExample,
 )
 from multimodal_context_reasoning_torch.data.tokenization import Tokenizer, det_index
+from multimodal_context_reasoning_torch.utils.profiling import count, span
 
 # Prompt template, verbatim from Data/VCRChunkAlign.py:607-608 / 628.
 PROMPT_TEXT = (
@@ -193,13 +194,17 @@ class PMRDataset:
         (LRU-bounded by ``feat_cache_size``): multi-epoch training
         re-tokenizes nothing."""
         if self.feat_cache_size == 0:
-            return self.featurize(self.examples[i])
+            with span("data.featurize"):
+                return self.featurize(self.examples[i])
         with self._feat_cache_lock:
             cached = self._feat_cache.get(i)
             if cached is not None:
                 self._feat_cache.move_to_end(i)
+                count("data.memo_hit")
                 return cached
-        cached = self.featurize(self.examples[i])  # slow path: outside lock
+        count("data.memo_miss")
+        with span("data.featurize"):
+            cached = self.featurize(self.examples[i])  # slow path: outside lock
         with self._feat_cache_lock:
             self._feat_cache[i] = cached
             if (self.feat_cache_size is not None
@@ -220,9 +225,10 @@ class PMRDataset:
         cands = [self._featurize_cached(int(i)) for i in indices]
         exs = [self.examples[int(i)] for i in indices]
         table = self.device_table
-        if table is None:
-            return collate_candidates(cands, [self.get_image(ex) for ex in exs], self.spec)
-        out = collate_candidates(cands, None, self.spec)
+        with span("data.collate"):
+            if table is None:
+                return collate_candidates(cands, [self.get_image(ex) for ex in exs], self.spec)
+            out = collate_candidates(cands, None, self.spec)
         out["img_row"] = table_rows(table, [ex.img_id for ex in exs], self.spec.num_labels)
         # the same device tensors every batch: nothing is copied again
         out["feat_table"] = table.table

@@ -53,6 +53,7 @@ from multimodal_context_reasoning_torch.ops.masks import MaskSpec
 from multimodal_context_reasoning_torch.ops.quant import int8_matmul, quantize_symmetric
 from multimodal_context_reasoning_torch.ops.spec_attention import fused_attention_spec
 from multimodal_context_reasoning_torch.parallel.comm import copy_to_group, reduce_from_group
+from multimodal_context_reasoning_torch.utils.profiling import count
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -243,6 +244,7 @@ class SelfAttention(nn.Module):
         else:
             if bias is None:
                 raise ValueError("the plain attention path needs a dense bias")
+            count("attention.plain.probs" if return_probs else "attention.plain.dropout")
             out, probs = dot_product_attention(
                 q, k, v, bias,
                 dropout_rate=c.attention_probs_dropout_prob,

@@ -38,6 +38,7 @@ from multimodal_context_reasoning_torch.models.encoders import (
 from multimodal_context_reasoning_torch.models.fusion import ChunkAlignFusion
 from multimodal_context_reasoning_torch.models.layers import Linear
 from multimodal_context_reasoning_torch.models.roberta import PrefixRoberta
+from multimodal_context_reasoning_torch.utils.profiling import span
 
 
 class MappingNetwork(nn.Sequential):
@@ -146,67 +147,71 @@ class ModCRModel(nn.Module):
         # --- 1. Vision prefix over CLS + image.  The K candidate rows of an
         # example share it, so a dropout-free pass runs once per example.
         if c.prefix_mode != "promptfuse":
-            gc = c.global_encoder
-            stochastic = self.training and (
-                gc.hidden_dropout_prob > 0.0 or gc.attention_probs_dropout_prob > 0.0)
-            dedup = c.dedup_vision_prefix and not stochastic and N % K == 0 and N > K
-            rows = slice(None, None, K) if dedup else slice(None)
-            vis_mask = torch.cat([text_mask[rows, :1], img_mask[rows]], dim=-1)
-            # contiguous: a bf16 feature table's rows would otherwise reach
-            # the image projection as a strided view, which cuBLAS sums in
-            # another order than the contiguous copy the fp32 path's cast
-            # makes (the table and host paths then differ in the last bits)
-            vis_feat = img_feat[rows].contiguous()
-            with frozen:
-                vis_cls = global_enc(input_ids[rows, :1], vis_feat, vis_mask).sequence[:, 0]
-            if dedup and self.training:
-                # repeat before the mapping network: its dropout stays per row
-                vis_cls = vis_cls.repeat_interleave(K, dim=0)
-            prefix_vision = self.mapping_network_vision(vis_cls)
-            if dedup and not self.training:
-                prefix_vision = prefix_vision.repeat_interleave(K, dim=0)
+            with span("model.vision_prefix"):
+                gc = c.global_encoder
+                stochastic = self.training and (
+                    gc.hidden_dropout_prob > 0.0 or gc.attention_probs_dropout_prob > 0.0)
+                dedup = c.dedup_vision_prefix and not stochastic and N % K == 0 and N > K
+                rows = slice(None, None, K) if dedup else slice(None)
+                vis_mask = torch.cat([text_mask[rows, :1], img_mask[rows]], dim=-1)
+                # contiguous: a bf16 feature table's rows would otherwise reach
+                # the image projection as a strided view, which cuBLAS sums in
+                # another order than the contiguous copy the fp32 path's cast
+                # makes (the table and host paths then differ in the last bits)
+                vis_feat = img_feat[rows].contiguous()
+                with frozen:
+                    vis_cls = global_enc(input_ids[rows, :1], vis_feat, vis_mask).sequence[:, 0]
+                if dedup and self.training:
+                    # repeat before the mapping network: its dropout stays per row
+                    vis_cls = vis_cls.repeat_interleave(K, dim=0)
+                prefix_vision = self.mapping_network_vision(vis_cls)
+                if dedup and not self.training:
+                    prefix_vision = prefix_vision.repeat_interleave(K, dim=0)
 
         # --- 2. Alignment prefix: global + ChunkAlign encoders + CALeC.
-        full_mask = torch.cat([text_mask, img_mask], dim=-1)
-        token_type_ids = batch.get("token_type_ids")
-        with frozen:
-            g_out = global_enc(input_ids, img_feat, full_mask, token_type_ids)
-            if c.use_seq_encoder:
-                s_out = self.calec.seq_enc(
-                    input_ids, img_feat, text_mask, img_mask, batch.get("chunk_mask"),
-                    batch["gather_index"], c.max_chunks, token_type_ids,
-                    output_attentions=c.compute_alignment,
-                )
-                seq_views = (s_out.sequence, s_out.pooled, s_out.chunk_hidden,
-                             s_out.attn_probs)
-                align_inputs = dict(align_pos=batch.get("align_pos"),
-                                    total_label=batch.get("total_label"))
-            else:
-                # the ablation without ChunkAlign: the global encoder stands
-                # in for every chunk-align view; no alignment supervision
-                seq_views = (g_out.sequence, g_out.pooled, g_out.sequence, None)
-                align_inputs = dict(align_pos=None, total_label=None)
-        fused = self.calec(
-            g_out.sequence, g_out.pooled, *seq_views, text_mask, T, **align_inputs
-        )
+        with span("model.alignment"):
+            full_mask = torch.cat([text_mask, img_mask], dim=-1)
+            token_type_ids = batch.get("token_type_ids")
+            with frozen:
+                g_out = global_enc(input_ids, img_feat, full_mask, token_type_ids)
+                if c.use_seq_encoder:
+                    s_out = self.calec.seq_enc(
+                        input_ids, img_feat, text_mask, img_mask, batch.get("chunk_mask"),
+                        batch["gather_index"], c.max_chunks, token_type_ids,
+                        output_attentions=c.compute_alignment,
+                    )
+                    seq_views = (s_out.sequence, s_out.pooled, s_out.chunk_hidden,
+                                 s_out.attn_probs)
+                    align_inputs = dict(align_pos=batch.get("align_pos"),
+                                        total_label=batch.get("total_label"))
+                else:
+                    # the ablation without ChunkAlign: the global encoder stands
+                    # in for every chunk-align view; no alignment supervision
+                    seq_views = (g_out.sequence, g_out.pooled, g_out.sequence, None)
+                    align_inputs = dict(align_pos=None, total_label=None)
+            fused = self.calec(
+                g_out.sequence, g_out.pooled, *seq_views, text_mask, T, **align_inputs
+            )
 
         # --- 3. Prefix-RoBERTa reasoning.
-        if c.prefix_mode == "promptfuse":
-            prefix_emb = self.promptfuse[None].expand(N, 2, c.roberta.hidden_size)
-        else:
-            prefix_align = self.mapping_network_alignment(fused.cls_ensem)
-            prefix_emb = torch.cat([prefix_vision, prefix_align], dim=1)
-        prompt_mask = torch.ones(prefix_emb.shape[:2], device=input_ids.device)
-        r_out = self.roberta(
-            batch["r_input_ids"], batch["r_attention_mask"],
-            token_type_ids=batch.get("r_token_type_ids"),
-            prompt_embeddings=prefix_emb, prompt_mask=prompt_mask,
-        )
+        with span("model.roberta"):
+            if c.prefix_mode == "promptfuse":
+                prefix_emb = self.promptfuse[None].expand(N, 2, c.roberta.hidden_size)
+            else:
+                prefix_align = self.mapping_network_alignment(fused.cls_ensem)
+                prefix_emb = torch.cat([prefix_vision, prefix_align], dim=1)
+            prompt_mask = torch.ones(prefix_emb.shape[:2], device=input_ids.device)
+            r_out = self.roberta(
+                batch["r_input_ids"], batch["r_attention_mask"],
+                token_type_ids=batch.get("r_token_type_ids"),
+                prompt_embeddings=prefix_emb, prompt_mask=prompt_mask,
+            )
 
         # --- 4. Score + losses.
-        logits = self.abst_confidence_scorer(r_out.pooled).view(-1, K)
-        loss = torch.zeros((), device=logits.device)
-        if batch.get("label") is not None:
-            loss = soft_cross_entropy(logits, batch["label"].view(-1, K))
-        return ModCROutput(loss=loss, logits=logits, align_loss=fused.align_loss,
-                           abstract_loss=loss)
+        with span("model.score"):
+            logits = self.abst_confidence_scorer(r_out.pooled).view(-1, K)
+            loss = torch.zeros((), device=logits.device)
+            if batch.get("label") is not None:
+                loss = soft_cross_entropy(logits, batch["label"].view(-1, K))
+            return ModCROutput(loss=loss, logits=logits, align_loss=fused.align_loss,
+                               abstract_loss=loss)

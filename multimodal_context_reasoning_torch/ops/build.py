@@ -21,6 +21,8 @@ import time
 from pathlib import Path
 from typing import Dict, Tuple
 
+from multimodal_context_reasoning_torch.utils.profiling import count
+
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
@@ -68,6 +70,7 @@ def load_library(name: str) -> Tuple[ctypes.CDLL, str, float]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(f".tmp{os.getpid()}")
         t0 = time.perf_counter()
+        count("ops.builds")
         proc = subprocess.run(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
             capture_output=True, text=True,

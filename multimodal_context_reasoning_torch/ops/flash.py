@@ -54,6 +54,7 @@ from multimodal_context_reasoning_torch.ops.fused_attention import (
     pad_bf16_heads,
     unpad_heads,
 )
+from multimodal_context_reasoning_torch.utils.profiling import count, counter, set_counter
 
 _lib = torch.library.Library(LIBRARY, "FRAGMENT")
 _lib.define("flash_bwd(Tensor q, Tensor k, Tensor v, Tensor? bias, Tensor d_out, "
@@ -91,8 +92,16 @@ class FlashAttentionBwd:
     """Wrapper of ``csrc/flash_bwd.cu``; see the module docstring."""
 
     def __init__(self):
-        self.launches = 0
         self._lib = None
+
+    @property
+    def launches(self) -> int:
+        """Kernel launches so far in this process."""
+        return counter("ops.flash_bwd.launches")
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        set_counter("ops.flash_bwd.launches", n)
 
     def _library(self):
         if self._lib is None:
@@ -148,7 +157,7 @@ class FlashAttentionBwd:
         if err != 0:
             raise RuntimeError(f"flash_bwd kernel launch failed: CUDA error {err} "
                                f"(B={B}, Lq={lq}, Lk={lk}, H={H}, Dh={dh}, {q.dtype})")
-        self.launches += 1
+        count("ops.flash_bwd.launches")
         return unpad_heads(dq, dh), unpad_heads(dk, dh), unpad_heads(dv, dh), dbias
 
 

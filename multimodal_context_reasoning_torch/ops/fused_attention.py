@@ -50,6 +50,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from multimodal_context_reasoning_torch.utils.profiling import count, counter, set_counter
+
 # One namespace for the three kernels' ops; each module defines its own.
 LIBRARY = "modcr_torch"
 _lib = torch.library.Library(LIBRARY, "FRAGMENT")
@@ -190,8 +192,16 @@ class DenseBiasAttention:
     """Wrapper of ``csrc/fused_attention.cu``; see the module docstring."""
 
     def __init__(self):
-        self.launches = 0
         self._lib = None
+
+    @property
+    def launches(self) -> int:
+        """Kernel launches so far in this process."""
+        return counter("ops.fused_attention.launches")
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        set_counter("ops.fused_attention.launches", n)
 
     def _library(self):
         if self._lib is None:
@@ -233,7 +243,7 @@ class DenseBiasAttention:
         if err != 0:
             raise RuntimeError(f"fused_attention kernel launch failed: CUDA error {err} "
                                f"(B={B}, Lq={lq}, Lk={lk}, H={H}, Dh={dh}, {q.dtype})")
-        self.launches += 1
+        count("ops.fused_attention.launches")
         return unpad_heads(out, dh)
 
 

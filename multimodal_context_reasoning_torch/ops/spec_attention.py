@@ -68,6 +68,7 @@ from multimodal_context_reasoning_torch.ops.fused_attention import (
     pad_bf16_heads,
     unpad_heads,
 )
+from multimodal_context_reasoning_torch.utils.profiling import count, counter, set_counter
 
 _lib = torch.library.Library(LIBRARY, "FRAGMENT")
 _lib.define("spec_attention(Tensor q, Tensor k, Tensor v, Tensor valid, Tensor gi, "
@@ -140,8 +141,16 @@ class SpecAttention:
     """Wrapper of ``csrc/spec_attention.cu``; see the module docstring."""
 
     def __init__(self):
-        self.launches = 0
         self._lib = None
+
+    @property
+    def launches(self) -> int:
+        """Kernel launches so far in this process."""
+        return counter("ops.spec_attention.launches")
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        set_counter("ops.spec_attention.launches", n)
 
     def _library(self):
         if self._lib is None:
@@ -203,7 +212,7 @@ class SpecAttention:
         if err != 0:
             raise RuntimeError(f"spec_attention kernel launch failed: CUDA error {err} "
                                f"(B={B}, Lq={lq}, Lk={lk}, H={H}, Dh={dh}, {q.dtype})")
-        self.launches += 1
+        count("ops.spec_attention.launches")
         return unpad_heads(out, dh)
 
 

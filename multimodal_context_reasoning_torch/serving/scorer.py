@@ -41,6 +41,7 @@ from multimodal_context_reasoning_torch.parallel.comm import gather_rows
 from multimodal_context_reasoning_torch.parallel.mesh import axis_group, axis_index, axis_size
 from multimodal_context_reasoning_torch.parallel.partition import local_rows, shard_module_
 from multimodal_context_reasoning_torch.train.step import model_inputs
+from multimodal_context_reasoning_torch.utils.profiling import span
 
 
 def build_host_batch(feats: Sequence, spec: BatchSpec, num_labels: int,
@@ -64,7 +65,8 @@ def device_batch(batch: Dict[str, np.ndarray], device: torch.device,
                  table: Optional[DeviceFeatureTable] = None) -> Dict[str, torch.Tensor]:
     """A host batch copied to ``device``, with the table's resident tensors
     added in table mode (the same tensors every call: nothing re-copies)."""
-    out = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    with span("data.to_device"):
+        out = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
     if table is not None:
         out["feat_table"] = table.table
         out["feat_mask_table"] = table.mask

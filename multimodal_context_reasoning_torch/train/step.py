@@ -33,6 +33,7 @@ from multimodal_context_reasoning_torch.parallel.comm import all_reduce_, gather
 from multimodal_context_reasoning_torch.parallel.mesh import axis_group, axis_index
 from multimodal_context_reasoning_torch.train.optim import Grads
 from multimodal_context_reasoning_torch.train.state import TrainState
+from multimodal_context_reasoning_torch.utils.profiling import span
 
 Batch = Dict[str, torch.Tensor]
 
@@ -77,14 +78,15 @@ def average_gradients(grads: Grads, group) -> Grads:
     for name, g in grads.items():
         if g is not None:
             by_dtype.setdefault(g.dtype, []).append(name)
-    for names in by_dtype.values():
-        flat = all_reduce_(torch.cat([grads[k].reshape(-1) for k in names]), group)
-        flat.div_(n)
-        offset = 0
-        for k in names:
-            size = grads[k].numel()
-            out[k] = flat[offset:offset + size].view_as(grads[k])
-            offset += size
+    with span("step.allreduce"):
+        for names in by_dtype.values():
+            flat = all_reduce_(torch.cat([grads[k].reshape(-1) for k in names]), group)
+            flat.div_(n)
+            offset = 0
+            for k in names:
+                size = grads[k].numel()
+                out[k] = flat[offset:offset + size].view_as(grads[k])
+                offset += size
     return out
 
 
@@ -102,31 +104,35 @@ def train_step(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
     """Forward, backward and one micro-step of the optimizer (model in train
     mode, so dropout is on where the config has it).  On a mesh ``batch``
     is this rank's rows."""
-    model = state.model.train()
-    out = model(model_inputs(batch))
-    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
-    grads = torch.autograd.grad(out.loss, [p for _, p in named], allow_unused=True)
-    grads = {n: g for (n, _), g in zip(named, grads)}
-    metrics = _metrics(out, batch)
-    data = axis_group(state.mesh, "data")
-    grads = average_gradients(grads, data)
-    metrics = _reduce_metrics(metrics, data)
-    metrics["grad_norm"] = state.optimizer.global_norm(grads)
-    state.apply_gradients(grads)
-    return metrics
+    with span("step.train"):
+        model = state.model.train()
+        out = model(model_inputs(batch))
+        named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+        with span("step.backward"):
+            grads = torch.autograd.grad(out.loss, [p for _, p in named], allow_unused=True)
+        grads = {n: g for (n, _), g in zip(named, grads)}
+        metrics = _metrics(out, batch)
+        data = axis_group(state.mesh, "data")
+        grads = average_gradients(grads, data)
+        metrics = _reduce_metrics(metrics, data)
+        with span("step.optimizer"):
+            metrics["grad_norm"] = state.optimizer.global_norm(grads)
+            state.apply_gradients(grads)
+        return metrics
 
 
 def eval_step(model: torch.nn.Module, batch: Batch) -> Dict[str, torch.Tensor]:
     """Deterministic forward: logits, accuracy count and loss.  On a mesh
     (the model's ``tp_mesh``) ``batch`` is this rank's rows and the logits
     of every data index come back stacked in rank order."""
-    model.eval()
-    mesh = getattr(model, "tp_mesh", None)
-    with torch.inference_mode():
-        out = model(model_inputs(batch))
-        m = _metrics(out, batch)
-        data = axis_group(mesh, "data")
-        logits = gather_rows(out.logits, axis_index(mesh, "data"), data)
-        m = _reduce_metrics({k: m[k] for k in ("correct", "count", "loss")}, data)
-    return {"logits": logits, "correct": m["correct"], "count": m["count"],
-            "loss": m["loss"]}
+    with span("step.eval"):
+        model.eval()
+        mesh = getattr(model, "tp_mesh", None)
+        with torch.inference_mode():
+            out = model(model_inputs(batch))
+            m = _metrics(out, batch)
+            data = axis_group(mesh, "data")
+            logits = gather_rows(out.logits, axis_index(mesh, "data"), data)
+            m = _reduce_metrics({k: m[k] for k in ("correct", "count", "loss")}, data)
+        return {"logits": logits, "correct": m["correct"], "count": m["count"],
+                "loss": m["loss"]}

@@ -11,9 +11,13 @@ runs on the GPU unless the caller passes ``device="cpu"``.
 
 ``profile_dir`` captures micro-steps ``[profile_start, profile_start +
 profile_steps)`` with ``torch.profiler`` (utils/profiling.py) into a Chrome
-trace there; ``tensorboard_dir`` writes the meters at the same
-synchronization points the meter drains at (utils/tensorboard.py), so
-neither adds a host read to the micro-step path outside the capture.
+trace there, with the program's spans on for the capture: beside each trace
+a ``spans_<pid>_<ns>.json`` holds the span table and each span's device
+idle and kernel seconds in the capture (``by_span``), and the log names the
+three spans with the most idle under them.  ``tensorboard_dir`` writes the
+meters at the same synchronization points the meter drains at
+(utils/tensorboard.py), so neither adds a host read to the micro-step path
+outside the capture.
 
 ``mesh`` (a ("data", "model") ``DeviceMesh``, parallel/mesh.py; by default
 the one ``TrainConfig.mesh_shape`` names when it is not (1, 1)) trains one
@@ -31,6 +35,7 @@ whole model (train/checkpoint.py).
 from __future__ import annotations
 
 import logging
+import os
 from typing import Dict, Optional, Union
 
 import torch
@@ -44,7 +49,13 @@ from multimodal_context_reasoning_torch.train.checkpoint import CheckpointManage
 from multimodal_context_reasoning_torch.train.state import TrainState
 from multimodal_context_reasoning_torch.train.step import eval_step, train_step
 from multimodal_context_reasoning_torch.utils.metrics import MetricLogger
-from multimodal_context_reasoning_torch.utils.profiling import start_trace, stop_trace
+from multimodal_context_reasoning_torch.utils.profiling import (
+    enable_spans,
+    span,
+    start_trace,
+    stop_trace,
+    write_spans,
+)
 
 
 class Trainer:
@@ -129,9 +140,10 @@ class Trainer:
         """Host arrays copied to the device; tensors (a device table's,
         data/device_table.py) pass as they are, so the table is never
         copied again."""
-        return {k: v if isinstance(v, torch.Tensor)
-                else torch.from_numpy(v).to(self.device, non_blocking=True)
-                for k, v in batch.items()}
+        with span("data.to_device"):
+            return {k: v if isinstance(v, torch.Tensor)
+                    else torch.from_numpy(v).to(self.device, non_blocking=True)
+                    for k, v in batch.items()}
 
     def evaluate(self, model: Optional[nn.Module] = None) -> float:
         """Full-validation accuracy (run_PMR_ModCR.py:243-280); the counts
@@ -173,19 +185,32 @@ class Trainer:
             since_fetch = 0
 
         prof = None
+        spans_were_on = False
+
+        def end_capture() -> None:
+            nonlocal prof
+            self.trace_path = stop_trace(prof, self.profile_dir, self.device)
+            self.logger.info("profiler trace written to %s", self.trace_path)
+            head, tail = os.path.split(self.trace_path)
+            table = write_spans(os.path.join(head, tail.replace("trace_", "spans_", 1)), prof)
+            enable_spans(spans_were_on)
+            prof = None
+            idle = sorted(table["by_span"].items(), key=lambda kv: -kv[1]["idle_s"])[:3]
+            if idle:
+                self.logger.info("device idle under spans: %s", ", ".join(
+                    f"{name} {v['idle_s'] * 1e3:.1f} ms" for name, v in idle))
 
         def maybe_profile(micro_done: int) -> None:
             """Start or stop the capture around micro-steps [profile_start,
             profile_start + profile_steps)."""
-            nonlocal prof
+            nonlocal prof, spans_were_on
             if self.profile_dir is None:
                 return
             if prof is None and micro_done == self.profile_start:
+                spans_were_on = enable_spans(True)
                 prof = start_trace(self.device)
             elif prof is not None and micro_done >= self.profile_start + self.profile_steps:
-                self.trace_path = stop_trace(prof, self.profile_dir, self.device)
-                prof = None
-                self.logger.info("profiler trace written to %s", self.trace_path)
+                end_capture()
 
         capped = False  # max_steps reached: stop BEFORE any further update
         for epoch in range(self.num_epochs):
@@ -231,7 +256,7 @@ class Trainer:
             if self.tb is not None:
                 self.tb.log_meters(meter, micro // accum)
         if prof is not None:   # training ended inside the capture window
-            self.trace_path = stop_trace(prof, self.profile_dir, self.device)
+            end_capture()
         if self.tb is not None:
             self.tb.close()
         return state

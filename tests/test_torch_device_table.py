@@ -260,11 +260,16 @@ def test_mixed_dataset_shares_one_table(setup):
         MixedDataset([s["tds"](table), s["tds"]()])
 
 
-def test_run_pmr_trains_with_device_features_a_trace_and_scalars(tmp_path):
+def test_run_pmr_trains_with_device_features_a_trace_and_scalars(tmp_path, monkeypatch):
     """run_pmr --do_train --tiny --device_features --profile_dir
     --tensorboard_dir: training reads the features from the table, the
-    profiler writes a Chrome trace of steps 2-4 naming the stage-mask op,
-    and the scalars reach the TensorBoard directory."""
+    profiler writes a Chrome trace of steps 2-4 naming the stage-mask op
+    and the program's spans, with the span table beside it, and the
+    scalars reach the TensorBoard directory."""
+    from multimodal_context_reasoning_torch.utils import profiling
+
+    monkeypatch.setattr(profiling, "_ON", False)     # spans on for the capture alone
+    profiling.reset_spans()
     rng = np.random.default_rng(1)
     rows = task_rows(rng, 24, 5, words=(1, 4))
     write_rows(str(tmp_path / "train.jsonl"), rows[:16])
@@ -281,11 +286,15 @@ def test_run_pmr_trains_with_device_features_a_trace_and_scalars(tmp_path):
         "--max_steps", "5", "--valid_steps", "5", "--epoch_begin", "1",
         "--profile_dir", str(prof), "--tensorboard_dir", str(tb)])
     assert state.step == 5
-    traces = list(prof.glob("*.json"))
-    assert len(traces) == 1
+    traces = list(prof.glob("trace_*.json"))
+    assert len(traces) == 1 and len(list(prof.glob("*.json"))) == 2
     events = json.loads(traces[0].read_text())["traceEvents"]
     names = {e.get("name", "") for e in events}
     assert any("modcr_torch::spec_attention" in n for n in names)
+    assert {"step.train", "step.backward", "step.optimizer", "model.roberta"} <= names
+    spans = json.loads((prof / traces[0].name.replace("trace_", "spans_", 1)).read_text())
+    assert spans["spans"]["step.train"]["count"] == 3
+    assert spans["by_span"] == {}            # no card: no kernel, no idle
     written = [os.path.join(d, f) for d, _, fs in os.walk(tb) for f in fs]
     assert written and all(os.path.getsize(f) > 0 for f in written)
     assert {os.path.basename(os.path.dirname(f)) for f in written} >= {"last", "avg", "median"} \
@@ -294,27 +303,29 @@ def test_run_pmr_trains_with_device_features_a_trace_and_scalars(tmp_path):
 
 def test_trace_writes_a_chrome_trace_and_the_step_timer_counts(tmp_path):
     """utils/profiling.py: ``trace(None)`` does nothing; ``trace(dir)``
-    writes one Chrome trace naming the ops run inside; StepTimer counts
-    steps and their time."""
+    writes one Chrome trace naming the ops run inside, and the program's
+    span around them when spans are on."""
     from multimodal_context_reasoning_torch.ops.spec_attention import fused_attention_spec
     from multimodal_context_reasoning_torch.ops.masks import full_mask_spec
-    from multimodal_context_reasoning_torch.utils.profiling import StepTimer, trace
+    from multimodal_context_reasoning_torch.utils.profiling import enable_spans, span, trace
 
     q = torch.randn(2, 6, 2, 8)
     spec = full_mask_spec(torch.ones(2, 6), 6)
     with trace(None) as prof:
         assert prof is None
-    timer = StepTimer(torch.device("cpu"))
-    with trace(str(tmp_path)):
-        timer.start()
-        fused_attention_spec(q, q, q, spec.valid, spec.gi, spec.rowfull, stage="full",
-                             text_len=6)
-        assert timer.stop() > 0
+    was = enable_spans(True)
+    try:
+        with trace(str(tmp_path)):
+            with span("test.step"):
+                fused_attention_spec(q, q, q, spec.valid, spec.gi, spec.rowfull, stage="full",
+                                     text_len=6)
+    finally:
+        enable_spans(was)
     traces = list(tmp_path.glob("*.json"))
     assert len(traces) == 1
     names = {e.get("name", "") for e in json.loads(traces[0].read_text())["traceEvents"]}
     assert any("modcr_torch::spec_attention" in n for n in names)
-    assert timer.steps == 1 and timer.rate(4) > 0
+    assert "test.step" in names
 
 
 def test_tensorboard_logger_falls_back_to_jsonl(tmp_path, monkeypatch):

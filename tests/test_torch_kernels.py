@@ -916,3 +916,77 @@ def test_int_mm_shape_rules_raise_on_the_card(card, rows, k, n):
     x, w = torch.randn(rows, k, device=card), torch.randn(n, k, device=card)
     with pytest.raises(ValueError, match=rf"torch._int_mm .* x \[{rows}, {k}\]"):
         int8_matmul(x, w)
+
+
+# ---------------------------------------------------------------- spans on the card
+# ``utils/profiling.py``: the program's spans on the clock of a CUDA-only
+# capture, and ``by_span``'s idle and kernel time.
+
+def test_spans_put_the_device_idle_on_the_span_that_held_the_host(card):
+    """A CUDA-only capture of three (launch, sleep) pairs: each launch
+    enqueues a spin kernel of about 10 ms, which outlasts the launch's span
+    (a launch under the profiler holds the host 0.3-3 ms, more in a
+    process's first capture, which a throwaway capture takes), so the card
+    goes idle while the host sleeps in ``test.sleep``."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from multimodal_context_reasoning_torch.utils.profiling import (
+        by_span,
+        enable_spans,
+        reset_spans,
+        span,
+        span_records,
+    )
+
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    was = enable_spans(True)
+    reset_spans()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                with span("test.launch"):
+                    torch.cuda._sleep(20_000_000)
+                with span("test.sleep"):
+                    time.sleep(0.03)
+            torch.cuda.synchronize()
+        launches = span_records("test.launch")
+        sleeps = span_records("test.sleep")
+        table = by_span(prof)
+    finally:
+        enable_spans(was)
+        reset_spans()
+    assert all(r.profiled for r in launches + sleeps)
+    res = prof.profiler.kineto_results
+    on_card = [e for e in res.events() if e.device_type() == DeviceType.CUDA]
+    # the card's idle time inside the sleeps, from the trace
+    def busy_in(r):
+        return sum(max(0, min(r.end_ns, e.end_ns()) - max(r.start_ns, e.start_ns()))
+                   for e in on_card)
+
+    idle_in_sleeps = sum(r.end_ns - r.start_ns - busy_in(r) for r in sleeps) / 1e9
+    assert idle_in_sleeps > 0.4 * 3 * 0.03, (idle_in_sleeps, table)
+    assert table["test.sleep"]["idle_s"] >= 0.9 * idle_in_sleeps, (idle_in_sleeps, table)
+    assert table["test.launch"]["kernel_s"] > 0
+    # the clock: each kernel starts after the start of the span whose
+    # runtime call launched it (same correlation id)
+    kernels = {e.correlation_id(): e for e in on_card}
+    launched = [(rec, kernels[e.correlation_id()]) for rec in launches
+                for e in res.events() if e.device_type() == DeviceType.CPU
+                and e.name().startswith("cu") and rec.start_ns <= e.start_ns() <= rec.end_ns
+                and e.correlation_id() in kernels]
+    assert len(launched) == 3
+    for rec, kernel in launched:
+        assert kernel.start_ns() >= rec.start_ns
+    # the attributed idle is the capture's: its span less the union of its kernels
+    end = max(e.end_ns() for e in res.events())
+    busy, edge = 0, res.trace_start_ns()
+    for a, b in sorted((e.start_ns(), e.end_ns()) for e in on_card):
+        busy += max(0, b - max(a, edge))
+        edge = max(edge, b)
+    idle = (end - res.trace_start_ns() - busy) / 1e9
+    assert sum(v["idle_s"] for v in table.values()) == pytest.approx(idle, rel=0.01)
