@@ -45,7 +45,9 @@ and :func:`bias_strides` are shared with the backward kernel's wrapper
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -247,10 +249,30 @@ class DenseBiasAttention:
         return unpad_heads(out, dh)
 
 
+_HOOK = threading.local()
+
+
+@contextlib.contextmanager
+def op_hook(fn):
+    """Inside, on this thread, :func:`call_op` returns ``fn(op, diff_inputs,
+    args)`` instead of calling the op (``None``: the op again).  A segmented
+    graph capture (train/graphs.py) cuts here."""
+    prev = getattr(_HOOK, "fn", None)
+    _HOOK.fn = fn
+    try:
+        yield
+    finally:
+        _HOOK.fn = prev
+
+
 def call_op(op, diff_inputs, *args):
     """``op(*args)``; below the autograd key unless one of ``diff_inputs``
     needs a gradient, so a call with nothing to differentiate records no
-    autograd node and skips the op's Python autograd kernel."""
+    autograd node and skips the op's Python autograd kernel.  Every call of
+    the three ``modcr_torch`` ops comes through here (see :func:`op_hook`)."""
+    hook = getattr(_HOOK, "fn", None)
+    if hook is not None:
+        return hook(op, diff_inputs, args)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in diff_inputs):
         return op(*args)

@@ -31,6 +31,7 @@ import torch
 
 from multimodal_context_reasoning_torch.parallel.comm import all_reduce_, gather_rows, group_size
 from multimodal_context_reasoning_torch.parallel.mesh import axis_group, axis_index
+from multimodal_context_reasoning_torch.train.graphs import SegmentedGraphs
 from multimodal_context_reasoning_torch.train.optim import Grads
 from multimodal_context_reasoning_torch.train.state import TrainState
 from multimodal_context_reasoning_torch.utils.profiling import span
@@ -121,18 +122,47 @@ def train_step(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
         return metrics
 
 
+def _eval_forward(model: torch.nn.Module, batch: Batch) -> Dict[str, torch.Tensor]:
+    mesh = getattr(model, "tp_mesh", None)
+    out = model(model_inputs(batch))
+    m = _metrics(out, batch)
+    data = axis_group(mesh, "data")
+    logits = gather_rows(out.logits, axis_index(mesh, "data"), data)
+    m = _reduce_metrics({k: m[k] for k in ("correct", "count", "loss")}, data)
+    return {"logits": logits, "correct": m["correct"], "count": m["count"],
+            "loss": m["loss"]}
+
+
+def _eval_mode(model: torch.nn.Module) -> None:
+    """``model.eval()``, skipped when no module is in training mode (the
+    recursive ``train(False)`` costs milliseconds of host time a call at
+    ModCR's 851 modules; this walk about a tenth of that)."""
+    stack = [model]
+    while stack:
+        m = stack.pop()
+        if m is None:
+            continue
+        if m.training:
+            model.eval()
+            return
+        stack.extend(m._modules.values())
+
+
+# the forward's CUDA graphs, one per model (train/graphs.py)
+EVAL_GRAPHS = SegmentedGraphs(_eval_forward)
+
+
 def eval_step(model: torch.nn.Module, batch: Batch) -> Dict[str, torch.Tensor]:
     """Deterministic forward: logits, accuracy count and loss.  On a mesh
     (the model's ``tp_mesh``) ``batch`` is this rank's rows and the logits
-    of every data index come back stacked in rank order."""
+    of every data index come back stacked in rank order.
+
+    On a card, with no mesh and the whole batch on the model's device, the
+    forward runs as segmented CUDA graphs (:data:`EVAL_GRAPHS`): eager on
+    the first call of a geometry, captured on the second in a row, replayed
+    after.  The graph copies each batch into tensors of its own; ``batch``
+    is only read."""
     with span("step.eval"):
-        model.eval()
-        mesh = getattr(model, "tp_mesh", None)
+        _eval_mode(model)
         with torch.inference_mode():
-            out = model(model_inputs(batch))
-            m = _metrics(out, batch)
-            data = axis_group(mesh, "data")
-            logits = gather_rows(out.logits, axis_index(mesh, "data"), data)
-            m = _reduce_metrics({k: m[k] for k in ("correct", "count", "loss")}, data)
-        return {"logits": logits, "correct": m["correct"], "count": m["count"],
-                "loss": m["loss"]}
+            return EVAL_GRAPHS(model, batch)

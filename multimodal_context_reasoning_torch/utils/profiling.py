@@ -21,7 +21,8 @@ counts events, both into one table per process:
   holds constant memory; its count, total and self time (less the time its
   children cover) run on;
 - counters are always on (:func:`count`, :func:`counter`, :func:`set_counter`)
-  and run on across :func:`reset_spans`.
+  and run on across :func:`reset_spans`; :func:`recording_counts` also notes
+  a thread's counts on a tape.
 
 :func:`by_span` puts a capture's device idle time and kernel time down to
 the spans that were open on the host.
@@ -116,9 +117,26 @@ def span(name: str, seq: Optional[int] = None):
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to the counter ``name``."""
+    """Add ``n`` to the counter ``name`` (and note it on this thread's tape,
+    :func:`recording_counts`)."""
+    tape = getattr(_LOCAL, "tape", None)
+    if tape is not None:
+        tape.append((name, n))
     with _LOCK:
         _COUNTS[name] = _COUNTS.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def recording_counts(tape: Optional[list]) -> Iterator[None]:
+    """Inside, on this thread, every :func:`count` also appends ``(name, n)``
+    to ``tape`` (``None``: to no tape), so a captured graph can count again
+    on each replay what its capture counted."""
+    prev = getattr(_LOCAL, "tape", None)
+    _LOCAL.tape = tape
+    try:
+        yield
+    finally:
+        _LOCAL.tape = prev
 
 
 def counter(name: str) -> int:
