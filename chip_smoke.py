@@ -11,8 +11,9 @@ and CLIP ablations with the CLIP precompute command
 device-resident feature table, the AOT artifacts (``serving/aot.py``) and
 the profiled, logged trainer (phase 21), scale the train step and the
 scorer out over ``torch.distributed`` (phase 22), run the one-stage
-real-data recipe (``cli/train_real_pmr.py``, phase 23), and run the model
-at every head width the Pallas kernels take (phases 24 and 25).
+real-data recipe (``cli/train_real_pmr.py``, phase 23), run the model
+at every head width the Pallas kernels take (phases 24 and 25), and run
+ModCR with the LFM2-8B-A1B reasoner at full width (phase 26).
 
     python3 chip_smoke.py
 
@@ -314,6 +315,18 @@ the port is not beside this script, or when any phase fails.  Phases:
     of 256; 2 of 384 and 2 of 512), 25c small models at heads of 160 and 192
     (bf16), 320 and 512 (fp32) and 1024 (both); each phase prints its
     seconds.
+26. (run before 11) the LFM2 reasoner (``ModCRConfig(reasoner="lfm2_moe")``,
+    LFM2-8B-A1B's published widths, bf16 over fp32 parameters, seeded random
+    init with expert biases at N(0, 0.05)), LFM2_QUESTIONS questions (rows x
+    138 positions) through ``eval_step``'s forward: the counts set to 0 just
+    before one forward and read just after (the towers' stage-mask launches,
+    ``spec_launches_per_eval_forward`` less RoBERTa's 24, and one dense-bias
+    launch per GQA layer, 6, on its [B, 1, 138, 138] causal-plus-padding
+    plane); then one forward (uncounted) with every dense-bias launch held
+    against ``fused_attention_plain`` on its own q, k, v and plane, and
+    every stage-mask launch against its plain version, both at 2e-2 of max
+    |plain|; two dense-bias launches on a kept plane bit-equal; ms per
+    forward (CUDA events, median of 5) and peak memory.
 """
 
 from __future__ import annotations
@@ -5350,13 +5363,103 @@ def phase25(rng) -> dict:
     ])
 
 
+LFM2_QUESTIONS = 8
+LFM2_EXPERT_BIAS_STD = 0.05
+
+
+def phase26(rng) -> dict:
+    """Phase 26: ModCR with the LFM2-8B-A1B reasoner at full width in bf16,
+    LFM2_QUESTIONS questions through ``eval_step``'s forward: the launches of
+    one forward, then every launch of one more held against its plain
+    version (the dense-bias forward on the GQA layers' own q, k, v and
+    [B, 1, L, L] plane), two launches on a kept plane bit-equal, ms per
+    forward and peak memory."""
+    from multimodal_context_reasoning_torch.core.config import Lfm2MoeConfig, ModCRConfig
+    from multimodal_context_reasoning_torch.models import lfm2
+    from multimodal_context_reasoning_torch.models.modcr import ModCRModel
+    from multimodal_context_reasoning_torch.ops.fused_attention import (
+        fused_attention,
+        fused_attention_plain,
+    )
+    from multimodal_context_reasoning_torch.serving.synthetic import synthetic_dataset
+    from multimodal_context_reasoning_torch.train import step
+
+    t_phase = time.perf_counter()
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(ModCRConfig(), reasoner="lfm2_moe",
+                              lfm2=Lfm2MoeConfig()).with_dtype("bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    model = ModCRModel(cfg, device="cuda", generator=gen).eval()
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, lfm2.SparseMoe):
+                m.expert_bias.normal_(0.0, LFM2_EXPERT_BIAS_STD, generator=gen)
+    ds = synthetic_dataset(rng, LFM2_QUESTIONS, cfg)
+    batch = to_device(ds.batch(list(range(LFM2_QUESTIONS))), "cuda")
+    rows, L = 4 * LFM2_QUESTIONS, cfg.total_prefix_len + cfg.roberta_len
+
+    def forward():
+        with torch.inference_mode():
+            return step._eval_forward(model, batch)["logits"]
+
+    forward()                       # warm-up: the allocator and the cuBLAS handles
+    torch.cuda.synchronize()
+    reset_counts()
+    logits = forward()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want = {"spec_attention": spec_launches_per_eval_forward(cfg) - cfg.roberta.num_hidden_layers,
+            "fused_attention": cfg.lfm2.layer_types.count("full_attention"), "flash_bwd": 0}
+    print(f"[26 lfm2] launches of one forward {launches} (want {want})")
+    check(launches == want, f"LFM2 forward launches {launches} != {want}")
+    check(bool(torch.isfinite(logits).all()), "LFM2 logits not finite")
+
+    with uncounted(), HeldSpec() as spec, HeldDense(keep=True) as dense:
+        forward()
+        torch.cuda.synchronize()
+    plane = (rows, L, cfg.lfm2.num_attention_heads, cfg.lfm2.head_dim)
+    dense_key = (plane, plane, str(torch.bfloat16), (rows, 1, L, L))
+    for key, (n, worst) in sorted(dense.seen.items(), key=str):
+        print(f"[26 lfm2] dense-bias {key}: {n} launches, max|kernel-plain| / max|plain| "
+              f"{worst:.3e} (tol {TOL[torch.bfloat16]:g})")
+    check(list(dense.seen) == [dense_key] and dense.seen[dense_key][0] == want["fused_attention"],
+          f"LFM2 dense-bias launches {dense.seen}")
+    dense_err = dense.seen[dense_key][1]
+    check(dense_err <= TOL[torch.bfloat16], f"LFM2 dense-bias forward {dense_err}")
+    for key, rel in sorted(spec.rel.items(), key=str):
+        print(f"[26 lfm2] stage-mask {key}: {spec.seen[key][0]} launches, max|kernel-plain| / "
+              f"max|plain| {rel:.3e} (tol {TOL[torch.bfloat16]:g})")
+    spec_err = max(spec.rel.values())
+    check(sum(n for n, _ in spec.seen.values()) == want["spec_attention"]
+          and spec_err <= TOL[torch.bfloat16], f"LFM2 stage-mask launches {spec.seen}")
+    q, k, v, bias = dense.inputs[dense_key]
+    with uncounted():
+        same = torch.equal(fused_attention(q, k, v, bias), fused_attention(q, k, v, bias))
+        plain = fused_attention_plain(q, k, v, bias)
+    print(f"[26 lfm2] dense-bias on a kept plane: two launches bit-equal {same}; plane "
+          f"{tuple(bias.shape)} {bias.dtype}, {int((bias < 0).sum())} masked of {bias.numel()}")
+    check(same and bool(torch.isfinite(plain).all()), "LFM2 dense-bias launches differ")
+
+    ms = median_ms(forward, reps=5, warmup=2)
+    peak = torch.cuda.max_memory_allocated()
+    out = dict(questions=LFM2_QUESTIONS, rows=rows, positions=L, launches=launches,
+               dense_max_rel_err=dense_err, spec_max_rel_err=spec_err, ms_per_forward=ms,
+               peak_bytes=peak, seconds=time.perf_counter() - t_phase)
+    print(f"[26 lfm2] {ms:.2f} ms a forward of {LFM2_QUESTIONS} questions, peak "
+          f"{peak / 2**30:.2f} GiB, phase {out['seconds']:.1f} s")
+    del model, batch, q, k, v, bias, dense, spec
+    release()
+    return out
+
+
 def release() -> None:
     """Drop the last run's model, optimizer and cached blocks."""
     gc.collect()
     torch.cuda.empty_cache()
 
 def main(argv=None) -> int:
-    """All phases; ``--only 21`` (a development aid; also 22, 23, 24 and 25)
+    """All phases; ``--only 21`` (a development aid; also 22 to 26)
     runs the device and build phases and that phase alone, and prints no
     result line."""
     argv = sys.argv[1:] if argv is None else argv
@@ -5414,6 +5517,10 @@ def main(argv=None) -> int:
         return 0
     if only == "25":
         phase25(np.random.default_rng(SEED + 25))
+        print(card)
+        return 0
+    if only == "26":
+        phase26(np.random.default_rng(SEED + 26))
         print(card)
         return 0
 
@@ -5647,6 +5754,10 @@ def main(argv=None) -> int:
     wide_heads = phase25(rng)
     head_runs = {**head_dims, **wide_heads}
 
+    # 26. the LFM2 reasoner at full width: launch counts and every launch
+    # held against its plain version
+    lfm2_run = phase26(rng)
+
     # 11. kernels line, then the result line
     print(card)
     print(json.dumps({"serving": serving, "e2e_fp32_max_abs_diff": e2e_err,
@@ -5669,7 +5780,8 @@ def main(argv=None) -> int:
                                                                                  "kernels")}
                                     for tag, r in head_runs.items() if tag in HEAD_PHASES},
                       "head_dims_seconds": {"24": head_dims["phase_seconds"],
-                                            "25": wide_heads["phase_seconds"]}
+                                            "25": wide_heads["phase_seconds"]},
+                      "lfm2": lfm2_run,
                       }))
     parallel_launches = {k: {tag: r["train_launches"][k] for tag, r in parallel["meshes"].items()}
                          for k in KERNELS}

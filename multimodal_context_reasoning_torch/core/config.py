@@ -27,6 +27,9 @@ CLIs set it from ``--mesh_data`` / ``--mesh_model``.
 
 ``RobertaConfig.remat``, ``remat_policy`` and ``scan_layers`` choose the
 reasoner's branch as in the JAX package (models/roberta.py).
+
+``ModCRConfig.reasoner`` and ``Lfm2MoeConfig`` are the port's own: the
+LFM2 mixture-of-experts reasoner (models/lfm2.py) has no JAX twin.
 """
 
 from __future__ import annotations
@@ -130,6 +133,70 @@ class RobertaConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return _torch_dtype(self.dtype)
+
+
+LFM2_8B_A1B_LAYER_TYPES = (
+    ("conv", "conv", "full_attention") + ("conv", "conv", "conv", "full_attention") * 4
+    + ("conv", "conv", "full_attention", "conv", "conv"))
+
+
+@dataclasses.dataclass(frozen=True)
+class Lfm2MoeConfig:
+    """The LFM2 mixture-of-experts reasoner (models/lfm2.py), under the keys
+    of its published ``config.json`` (LiquidAI/LFM2-8B-A1B, the defaults):
+    gated short-convolution and grouped-query attention layers in the
+    order of ``layer_types``; the first ``num_dense_layers`` with a dense
+    SwiGLU FFN of ``intermediate_size``, the rest with a sparse MoE of
+    ``num_experts`` experts of ``moe_intermediate_size``, top
+    ``num_experts_per_tok``.  ``dtype`` is the compute dtype, as in the
+    other configs; the router's scores stay fp32."""
+
+    vocab_size: int = 65536
+    hidden_size: int = 2048
+    intermediate_size: int = 7168
+    moe_intermediate_size: int = 1792
+    num_hidden_layers: int = 24
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 8
+    num_dense_layers: int = 2
+    num_experts: int = 32
+    num_experts_per_tok: int = 4
+    layer_types: Tuple[str, ...] = LFM2_8B_A1B_LAYER_TYPES
+    conv_L_cache: int = 3
+    conv_bias: bool = False
+    rope_theta: float = 1000000.0
+    norm_eps: float = 1e-5
+    norm_topk_prob: bool = True
+    use_expert_bias: bool = True
+    routed_scaling_factor: float = 1.0
+    max_position_embeddings: int = 128000
+    initializer_range: float = 0.02
+    dtype: str = "float32"
+
+    def __post_init__(self):
+        object.__setattr__(self, "layer_types", tuple(self.layer_types))
+        if len(self.layer_types) != self.num_hidden_layers:
+            raise ValueError(f"{len(self.layer_types)} layer_types for "
+                             f"{self.num_hidden_layers} layers")
+        kinds = set(self.layer_types) - {"conv", "full_attention"}
+        if kinds:
+            raise ValueError(f"unknown LFM2 layer types {sorted(kinds)}")
+        if self.conv_bias:
+            raise ValueError("conv_bias=True is not supported (LFM2 publishes none)")
+        if self.num_attention_heads % self.num_key_value_heads:
+            raise ValueError("num_attention_heads must be a multiple of num_key_value_heads")
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def num_moe_layers(self) -> int:
+        return self.num_hidden_layers - self.num_dense_layers
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -243,6 +310,19 @@ class ModCRConfig:
     roberta_len: int = 128
     max_chunks: int = 40
 
+    # The reasoner over the prefix: "roberta" (prefix-KV RoBERTa, ``roberta``)
+    # or "lfm2_moe" (``lfm2``; the prefix enters as its first input
+    # embeddings).  A config that leaves both at their defaults writes
+    # neither to JSON, so it round-trips through the JAX package's loader.
+    reasoner: str = "roberta"
+    lfm2: Optional[Lfm2MoeConfig] = None
+
+    def __post_init__(self):
+        if self.reasoner not in ("roberta", "lfm2_moe"):
+            raise ValueError(f"unknown reasoner {self.reasoner!r}")
+        if (self.reasoner == "lfm2_moe") != (self.lfm2 is not None):
+            raise ValueError('reasoner="lfm2_moe" goes with an lfm2 config, and only it')
+
     @property
     def seq_len(self) -> int:
         return self.text_len + self.img_len
@@ -251,6 +331,20 @@ class ModCRConfig:
     def total_prefix_len(self) -> int:
         return 2 * self.prefix_len
 
+    @property
+    def reasoner_hidden_size(self) -> int:
+        """The width of the reasoner, of the prefix and of the scorer's input."""
+        return self.lfm2.hidden_size if self.lfm2 is not None else self.roberta.hidden_size
+
+    @property
+    def reasoner_vocab_size(self) -> int:
+        """The vocabulary the reasoner's token ids are drawn from."""
+        return self.lfm2.vocab_size if self.lfm2 is not None else self.roberta.vocab_size
+
+    @property
+    def reasoner_dtype(self) -> torch.dtype:
+        return self.lfm2.torch_dtype if self.lfm2 is not None else self.roberta.torch_dtype
+
     def with_dtype(self, dtype: str) -> "ModCRConfig":
         """Copy of this config with every submodel's compute dtype set."""
         return dataclasses.replace(
@@ -258,11 +352,15 @@ class ModCRConfig:
             global_encoder=dataclasses.replace(self.global_encoder, dtype=dtype),
             seq_encoder=dataclasses.replace(self.seq_encoder, dtype=dtype),
             roberta=dataclasses.replace(self.roberta, dtype=dtype),
+            lfm2=None if self.lfm2 is None else dataclasses.replace(self.lfm2, dtype=dtype),
         )
 
     def with_quantize(self, mode: str) -> "ModCRConfig":
         """Copy with every tower's matmul quantization mode set ("none" |
-        "int8", see EncoderConfig.quantize).  Inference-only."""
+        "int8", see EncoderConfig.quantize).  Inference-only; the LFM2
+        reasoner has no int8 route."""
+        if self.reasoner == "lfm2_moe" and mode != "none":
+            raise ValueError(f"quantize={mode!r}: the LFM2 reasoner has no int8 route")
         return dataclasses.replace(
             self,
             global_encoder=dataclasses.replace(self.global_encoder, quantize=mode),
@@ -271,7 +369,10 @@ class ModCRConfig:
         )
 
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), indent=2)
+        raw = dataclasses.asdict(self)
+        if self.reasoner == "roberta":
+            del raw["reasoner"], raw["lfm2"]
+        return json.dumps(raw, indent=2)
 
     @classmethod
     def from_json(cls, text: str) -> "ModCRConfig":
@@ -280,6 +381,8 @@ class ModCRConfig:
         raw["seq_encoder"] = EncoderConfig(**raw.get("seq_encoder", {}))
         raw["chunkalign"] = ChunkAlignConfig(**raw.get("chunkalign", {}))
         raw["roberta"] = RobertaConfig(**raw.get("roberta", {}))
+        if raw.get("lfm2") is not None:
+            raw["lfm2"] = Lfm2MoeConfig(**raw["lfm2"])
         return cls(**raw)
 
     @classmethod

@@ -66,7 +66,8 @@ ACT = {"gelu": gelu_tanh, "gelu_new": gelu_tanh, "relu": F.relu, "tanh": torch.t
 
 class Linear(nn.Linear):
     """``nn.Linear`` computing in ``compute_dtype`` (flax ``Dense(dtype=)``):
-    input, weight and bias are cast to it.
+    input, weight and bias are cast to it.  ``bias=False`` (the LFM2
+    reasoner's products) takes the plain route only.
 
     With ``quantize`` it is the JAX package's ``QuantDense`` instead:
     ``int8_matmul`` of the input as it comes, the weight quantized per
@@ -86,8 +87,9 @@ class Linear(nn.Linear):
     tp_group = None
 
     def __init__(self, in_features: int, out_features: int,
-                 compute_dtype: torch.dtype = torch.float32, quantize: bool = False):
-        super().__init__(in_features, out_features)
+                 compute_dtype: torch.dtype = torch.float32, quantize: bool = False,
+                 bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = compute_dtype
         self.quantize = quantize
         self.register_buffer("int8_codes", None, persistent=False)
@@ -113,7 +115,8 @@ class Linear(nn.Linear):
         if self.tp_mode == "row":
             y = reduce_from_group(F.linear(x.to(dt), self.weight.to(dt)), self.tp_group)
             return y + self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        return F.linear(x.to(dt), self.weight.to(dt),
+                        None if self.bias is None else self.bias.to(dt))
 
 
 def freeze_int8(model: nn.Module) -> nn.Module:

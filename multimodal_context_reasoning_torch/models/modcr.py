@@ -6,7 +6,11 @@ reference Abstract_Specific, modeling_ensemble.py:424-539).
 2. Alignment prefix: frozen global + ChunkAlign passes fused by CALeC; the
    fused CLS feeds ``mapping_network_alignment`` -> [B, 5, 1024].
 3. Reasoning: prefix-RoBERTa over the 10-vector prefix; its pooled output is
-   scored by ``abst_confidence_scorer`` and reshaped to 4-way logits.
+   scored by ``abst_confidence_scorer`` and reshaped to 4-way logits.  With
+   ``config.reasoner == "lfm2_moe"`` the LFM2 reasoner (models/lfm2.py)
+   takes the prefix as its first input embeddings instead, and its last
+   valid token's normed state is scored; the mapping networks and the
+   scorer take its width.
 4. Losses: soft-target cross-entropy over the candidates, plus the CALeC
    alignment loss when ``compute_alignment``.
 
@@ -37,6 +41,7 @@ from multimodal_context_reasoning_torch.models.encoders import (
 )
 from multimodal_context_reasoning_torch.models.fusion import ChunkAlignFusion
 from multimodal_context_reasoning_torch.models.layers import Linear
+from multimodal_context_reasoning_torch.models.lfm2 import Lfm2Reasoner
 from multimodal_context_reasoning_torch.models.roberta import PrefixRoberta
 from multimodal_context_reasoning_torch.utils.profiling import span
 
@@ -90,7 +95,8 @@ def init_dense_weights_(module: nn.Module, generator: torch.Generator, std: floa
     for m in module.modules():
         if isinstance(m, nn.Linear):
             _lecun_normal_(m.weight, generator)
-            nn.init.zeros_(m.bias)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
         elif isinstance(m, nn.Embedding):
             nn.init.normal_(m.weight, 0.0, std, generator=generator)
         elif isinstance(m, nn.LayerNorm):
@@ -106,23 +112,30 @@ class ModCRModel(nn.Module):
         c = config
         self.config = c
         self.freeze_encoders = freeze_encoders
-        with torch.device(resolve_device(device)):
+        dev = resolve_device(device)
+        with torch.device(dev):
             # ``calec`` is the fusion module carrying both encoders, as in
             # the reference composite (calec.global_enc.*, calec.seq_enc.*)
             self.calec = ChunkAlignFusion(c.global_encoder, c.chunkalign)
             self.calec.global_enc = GlobalImageEncoder(c.global_encoder)
             if c.use_seq_encoder:
                 self.calec.seq_enc = ChunkAlignEncoder(c.seq_encoder, c.chunkalign)
-            self.roberta = PrefixRoberta(c.roberta)
-            mapping = (c.global_encoder.hidden_size, c.roberta.hidden_size,
+            if c.reasoner == "lfm2_moe":
+                self.reasoner = Lfm2Reasoner(c.lfm2)
+            else:
+                self.roberta = PrefixRoberta(c.roberta)
+            width = c.reasoner_hidden_size
+            mapping = (c.global_encoder.hidden_size, width,
                        c.prefix_len, c.mapping_dropout, c.global_encoder.torch_dtype)
             self.mapping_network_vision = MappingNetwork(*mapping)
             self.mapping_network_alignment = MappingNetwork(*mapping)
             if c.prefix_mode == "promptfuse":
-                self.promptfuse = nn.Parameter(torch.empty(2, c.roberta.hidden_size))
-            self.abst_confidence_scorer = Linear(c.roberta.hidden_size, 1,
-                                                 c.roberta.torch_dtype)
-        self.init_weights(generator)
+                self.promptfuse = nn.Parameter(torch.empty(2, width))
+            self.abst_confidence_scorer = Linear(width, 1, c.reasoner_dtype)
+        # on the meta device (shapes only, weights assigned later) there is
+        # nothing to draw
+        if dev.type != "meta":
+            self.init_weights(generator)
 
     @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator] = None) -> None:
@@ -130,6 +143,8 @@ class ModCRModel(nn.Module):
             generator = torch.Generator(device=next(self.parameters()).device)
             generator.manual_seed(0)
         init_dense_weights_(self, generator, self.config.global_encoder.initializer_range)
+        if self.config.reasoner == "lfm2_moe":
+            self.reasoner.init_weights(generator)
         if self.config.prefix_mode == "promptfuse":
             nn.init.normal_(self.promptfuse, 0.0, 0.02, generator=generator)
 
@@ -193,23 +208,34 @@ class ModCRModel(nn.Module):
                 g_out.sequence, g_out.pooled, *seq_views, text_mask, T, **align_inputs
             )
 
-        # --- 3. Prefix-RoBERTa reasoning.
-        with span("model.roberta"):
-            if c.prefix_mode == "promptfuse":
-                prefix_emb = self.promptfuse[None].expand(N, 2, c.roberta.hidden_size)
-            else:
-                prefix_align = self.mapping_network_alignment(fused.cls_ensem)
-                prefix_emb = torch.cat([prefix_vision, prefix_align], dim=1)
-            prompt_mask = torch.ones(prefix_emb.shape[:2], device=input_ids.device)
-            r_out = self.roberta(
-                batch["r_input_ids"], batch["r_attention_mask"],
-                token_type_ids=batch.get("r_token_type_ids"),
-                prompt_embeddings=prefix_emb, prompt_mask=prompt_mask,
-            )
+        # --- 3. Reasoning over the prefix: prefix-RoBERTa, or LFM2.
+        if c.reasoner == "lfm2_moe":
+            with span("model.reasoner"):
+                if c.prefix_mode == "promptfuse":
+                    prefix_emb = self.promptfuse[None].expand(N, 2, c.lfm2.hidden_size)
+                else:
+                    prefix_align = self.mapping_network_alignment(fused.cls_ensem)
+                    prefix_emb = torch.cat([prefix_vision, prefix_align], dim=1)
+                pooled = self.reasoner(batch["r_input_ids"], batch["r_attention_mask"],
+                                       prefix_emb)
+        else:
+            with span("model.roberta"):
+                if c.prefix_mode == "promptfuse":
+                    prefix_emb = self.promptfuse[None].expand(N, 2, c.roberta.hidden_size)
+                else:
+                    prefix_align = self.mapping_network_alignment(fused.cls_ensem)
+                    prefix_emb = torch.cat([prefix_vision, prefix_align], dim=1)
+                prompt_mask = torch.ones(prefix_emb.shape[:2], device=input_ids.device)
+                r_out = self.roberta(
+                    batch["r_input_ids"], batch["r_attention_mask"],
+                    token_type_ids=batch.get("r_token_type_ids"),
+                    prompt_embeddings=prefix_emb, prompt_mask=prompt_mask,
+                )
+            pooled = r_out.pooled
 
         # --- 4. Score + losses.
         with span("model.score"):
-            logits = self.abst_confidence_scorer(r_out.pooled).view(-1, K)
+            logits = self.abst_confidence_scorer(pooled).view(-1, K)
             loss = torch.zeros((), device=logits.device)
             if batch.get("label") is not None:
                 loss = soft_cross_entropy(logits, batch["label"].view(-1, K))

@@ -146,15 +146,22 @@ def shard_for_serving(model: nn.Module, mesh, micro_batch: int, unit: str,
 def cast_to_compute_dtypes(model: ModCRModel) -> ModCRModel:
     """Cast each tower's weights, once, to its config's compute dtype (the
     JAX scorer's ``params_dtype``): encoders, CALeC and the mapping
-    networks to the encoders' dtype, the reasoner and its scorer to
-    RoBERTa's.  LayerNorm statistics stay fp32 (PyTorch accumulates bf16
+    networks to the encoders' dtype, the reasoner and its scorer to the
+    reasoner's.  LayerNorm statistics stay fp32 (PyTorch accumulates bf16
     LayerNorm in fp32)."""
     c = model.config
-    model.to(c.global_encoder.torch_dtype)
+    if c.reasoner == "lfm2_moe":
+        # the LFM2 reasoner's routers and norms stay fp32 (Lfm2Reasoner.cast_)
+        for name, child in model.named_children():
+            if name != "reasoner":
+                child.to(c.global_encoder.torch_dtype)
+        model.reasoner.cast_(c.lfm2.torch_dtype)
+    else:
+        model.to(c.global_encoder.torch_dtype)
+        model.roberta.to(c.roberta.torch_dtype)
     if c.use_seq_encoder:
         model.calec.seq_enc.to(c.seq_encoder.torch_dtype)
-    model.roberta.to(c.roberta.torch_dtype)
-    model.abst_confidence_scorer.to(c.roberta.torch_dtype)
+    model.abst_confidence_scorer.to(c.reasoner_dtype)
     return model
 
 

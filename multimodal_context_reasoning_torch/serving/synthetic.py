@@ -75,9 +75,10 @@ def synthetic_examples(rng: np.random.Generator, n: int, cfg: ModCRConfig,
 
 
 def hash_tokenizers(cfg: ModCRConfig) -> Tuple[HashTokenizer, RobertaHashTokenizer]:
-    """The BERT and RoBERTa hash tokenizers, ids kept below each tower's vocab."""
+    """The BERT and RoBERTa hash tokenizers, ids kept below each tower's vocab
+    (the reasoner's, RoBERTa's or LFM2's)."""
     return (HashTokenizer(vocab_size=cfg.global_encoder.vocab_size),
-            RobertaHashTokenizer(vocab_size=cfg.roberta.vocab_size))
+            RobertaHashTokenizer(vocab_size=cfg.reasoner_vocab_size))
 
 
 def synthetic_dataset(rng: np.random.Generator, n: int, cfg: ModCRConfig,

@@ -22,7 +22,10 @@ counts events, both into one table per process:
   children cover) run on;
 - counters are always on (:func:`count`, :func:`counter`, :func:`set_counter`)
   and run on across :func:`reset_spans`; :func:`recording_counts` also notes
-  a thread's counts on a tape.
+  a thread's counts on a tape;
+- a tally (:func:`tally`, :func:`read_tally`) counts on the device, while
+  spans are on: an add into a tensor, so that a captured graph adds again
+  on every replay and nothing waits for the card.
 
 :func:`by_span` puts a capture's device idle time and kernel time down to
 the spans that were open on the host.
@@ -53,6 +56,7 @@ _LOCAL = threading.local()
 _RECORDS: Dict[str, deque] = {}
 _TOTALS: Dict[str, List[int]] = {}      # name -> [count, total ns, self ns]
 _COUNTS: Dict[str, int] = {}
+_TALLIES: Dict[str, torch.Tensor] = {}
 
 
 class SpanRecord(NamedTuple):
@@ -147,6 +151,41 @@ def set_counter(name: str, n: int) -> None:
     """Set the counter ``name`` to ``n``."""
     with _LOCK:
         _COUNTS[name] = n
+
+
+def tally(name: str, row: int, values: torch.Tensor, rows: int) -> None:
+    """While spans are on, add ``values`` [n] into row ``row`` of the device
+    tally ``name``, an int64 [rows, n] tensor on ``values``' device made
+    (zeroed) at its first add.  Tallies live for the process: a graph that
+    captured an add keeps writing where it was captured.  So the first
+    add must not be captured (it would capture the zeroing too): under a
+    capture with no tally yet, this raises."""
+    if not _ON or torch.compiler.is_compiling():
+        return
+    buf = _TALLIES.get(name)
+    if buf is None:
+        if values.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"tally {name!r}: its first add is under a graph capture")
+        # a normal tensor even under inference mode, so that it can be
+        # reset and added to outside it
+        with torch.inference_mode(False):
+            buf = _TALLIES[name] = torch.zeros((rows, values.numel()), dtype=torch.int64,
+                                               device=values.device)
+    if buf.shape != (rows, values.numel()) or buf.device != values.device:
+        raise ValueError(f"tally {name!r} is {tuple(buf.shape)} on {buf.device}, "
+                         f"not ({rows}, {values.numel()}) on {values.device}")
+    buf[row].add_(values)
+
+
+def read_tally(name: str) -> Optional[torch.Tensor]:
+    """The tally ``name`` copied to the host (None before its first add),
+    then zeroed in place.  The copy waits for the card."""
+    buf = _TALLIES.get(name)
+    if buf is None:
+        return None
+    out = buf.to("cpu", copy=True)
+    buf.zero_()
+    return out
 
 
 def enable_spans(on: bool) -> bool:
